@@ -1,31 +1,47 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — exact uint8 serving of the VGA full pyramid
-(640x480 frames, shrink 2, n_per_oct 8, smooth 1, grad_hist) with the
-committed 64-stage flagship, box extraction and NMS on the device — and
-checks and times its three CUDA kernels:
+Drives the port's two paths on VGA frames (640x480, shrink 2, n_per_oct 8,
+smooth 1, grad_hist) with the committed models, and checks and times its
+five CUDA kernels (planes B1, grad_hist B2, cascade B3, cascade_response
+B4, cascade_generic B6):
 
  1. prints torch/CUDA versions and the card's name and power limit;
- 2. builds the kernels from waldboost_tpu_torch/csrc with nvcc and prints
-    ptxas's register / shared-memory / spill report;
- 3. runs each kernel at the main path's VGA batch-8 shapes against its
-    plain-torch version on the card: bitwise (tolerance 0), mismatches
-    printed per phase;
- 4. runs make_batched_detector_boxes(k=1024, nms_iou=0.5) on the golden
-    scene frames with every launch counter set to 0 first: survivor counts
-    and the kept boxes and scores must equal the committed JAX outputs
-    (tests/data/torch_port_vga_golden.npz) bitwise, and every kernel must
-    have launched;
- 5. times each kernel against its plain version and each layer of the
-    path (CUDA events), and the whole path on 60 batches of 8 frames
-    (uniform noise at k=128; the 3 golden scenes and their flips at
-    k=1024): MP/s and the p50 and p80 batch time, one JSON line per
-    metric; then probes the host (launch and synchronize round trips, a
-    pure-Python loop, the cost of one layer span);
- 6. traces 10 batches of each workload with torch.profiler and prints the
-    device idle share and, per layer span (wb.*), host and device time;
- 7. prints the per-kernel JSON summary, then the final ok line.
+ 2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
+    all at once) and prints ptxas's register / shared-memory / spill
+    report;
+ 3. runs each kernel at the VGA batch-8 shapes against its plain-torch
+    version on the card, bitwise (tolerance 0), mismatches printed per
+    phase: B1, B2, B3 on a noise batch; B4 with flagship_synth_64 and
+    flagship_hard_256, n_stages_cap None and 12, on the noise and the
+    golden-scene canvas; B6 on the padded tables of flagship_synth_64
+    (complete heaps), flagship_hard_256, and a seeded 40-stage model of
+    depth-5 trees (bucket 64: 24 inactive stages, general routing), on
+    both canvases; hs is compared at every window origin;
+ 4. serving path (slice 1): make_batched_detector_boxes(k=1024,
+    nms_iou=0.5) on the 3 golden scene frames with every launch counter
+    set to 0 first: survivor counts, kept boxes and scores equal the
+    committed JAX outputs (tests/data/torch_port_vga_golden.npz) bitwise,
+    and B1-B3 launched;
+ 5. Model-API path: counters set to 0, then on the golden frames
+    Model.detect, detect_topk(k=1024, nms_iou=0.5) and scan_packed_batch
+    of the three committed models, wt.detect over all three
+    (response_scale 1, 0.5, 2), make_batched_detector (all stages and
+    n_stages_cap=12) and make_multi_detector_boxes; counters read, then
+    every result checked against the committed JAX outputs
+    (tests/data/torch_port_model_golden.npz) bitwise; all five kernels
+    must have launched;
+ 6. times each kernel against its plain version (CUDA events, in turns),
+    each layer of the serving path, the serving path end to end (60
+    batches of 8 per workload, MP/s, p50/p80), Model.detect and the
+    three-model wt.detect (ms/frame, p50 of 30 frames) and
+    make_batched_detector (MP/s at batch 8, 30 batches); probes the host;
+ 7. traces 10 batches of each serving workload with torch.profiler and
+    prints the device idle share and, per layer span (wb.*), host and
+    device time;
+ 8. prints the per-kernel JSON summary (launches from the Model-API path,
+    max_abs_err, ms, plain_ms, bound_ms from this run's shapes), then the
+    final ok line.
 
 Any failed phase raises and the script exits nonzero without the ok line.
 It never falls back to the CPU.
@@ -47,20 +63,39 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VGA = (480, 640)
 BATCH = 8
-MODEL = os.path.join(ROOT, "models", "flagship_synth_64.pb")
+MODEL_NAMES = ("flagship_synth_64", "flagship_hard_64", "flagship_hard_256")
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_vga_golden.npz")
+MODEL_GOLDEN = os.path.join(ROOT, "tests", "data",
+                            "torch_port_model_golden.npz")
 
-# kernel name -> (module attribute of its launch counter, CUDA source, the
-# TPU kernel's pallas_call it replaces)
+# kernel name -> (module of its launch counter, counter attribute, CUDA
+# source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
-    "planes": ("planes_launches", "waldboost_tpu_torch/csrc/planes.cu",
-               "waldboost_tpu/ops/plane_pallas.py:339"),
-    "grad_hist": ("grad_hist_launches",
+    "planes": ("waldboost_tpu_torch.ops.planes", "planes_launches",
+               "waldboost_tpu_torch/csrc/planes.cu",
+               "waldboost_tpu/ops/plane_pallas.py:339 and :483"),
+    "grad_hist": ("waldboost_tpu_torch.ops.channels", "grad_hist_launches",
                   "waldboost_tpu_torch/csrc/grad_hist.cu",
                   "waldboost_tpu/ops/channels_pallas.py:405"),
-    "cascade": ("cascade_launches", "waldboost_tpu_torch/csrc/cascade.cu",
+    "cascade": ("waldboost_tpu_torch.ops.cascade_static", "cascade_launches",
+                "waldboost_tpu_torch/csrc/cascade.cu",
                 "waldboost_tpu/ops/cascade_static.py:764"),
+    "cascade_response": ("waldboost_tpu_torch.ops.cascade_static",
+                         "cascade_response_launches",
+                         "waldboost_tpu_torch/csrc/cascade.cu",
+                         "waldboost_tpu/ops/cascade_static.py:611"),
+    "cascade_generic": ("waldboost_tpu_torch.ops.cascade",
+                        "cascade_generic_launches",
+                        "waldboost_tpu_torch/csrc/cascade.cu",
+                        "waldboost_tpu/ops/cascade_pallas.py:182"),
 }
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (and the
+#: integer work counted with it) and float64 operations/s outside the
+#: tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+F64_OPS_S = 34e12
 
 
 class SmokeFailure(RuntimeError):
@@ -70,6 +105,32 @@ class SmokeFailure(RuntimeError):
 def require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def random_deep_stage(rng, window, n_channels, depth=5):
+    """A random tree exactly ``depth`` deep (its leftmost path) with
+    shallower leaves elsewhere, numbered in preorder (children above their
+    parent), as a stage dict (numpy only)."""
+    m, n = window
+    feature, left, right = [], [], []
+
+    def node(d, full):
+        k = len(left)
+        feature.append([0, 0, 0])
+        left.append(-1)
+        right.append(-1)
+        if d < depth and (full or rng.rand() < 0.6):
+            feature[k] = [rng.randint(m), rng.randint(n),
+                          rng.randint(n_channels)]
+            left[k] = node(d + 1, full)
+            right[k] = node(d + 1, False)
+        return k
+
+    node(0, True)
+    k = len(left)
+    return dict(feature=np.array(feature), threshold=rng.randn(k).astype("f"),
+                left=np.array(left), right=np.array(right),
+                prediction=rng.randn(k).astype("f"))
 
 
 def card_line():
@@ -107,6 +168,20 @@ def max_abs_err(got, want):
     diff = torch.where(got == want, torch.zeros_like(got),
                        (got - want).abs().nan_to_num(nan=float("inf")))
     return float(diff.max()) if diff.numel() else 0.0
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes, f32_ops=0.0, f64_ops=0.0):
+    """(ms, what bounds it): the least time of a call that moves
+    ``n_bytes`` and does the given operations."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = max(f32_ops / F32_OPS_S, f64_ops / F64_OPS_S)
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
 
 
 def host_probe():
@@ -188,7 +263,24 @@ def trace_breakdown(trace, window):
             "n_device_events": len(dev), "layers": per}
 
 
+def sorted_rows(*cols):
+    """(N, k) float32 rows of the given columns in lexicographic order."""
+    rows = np.concatenate([np.asarray(c, np.float32).reshape(len(c), -1)
+                           for c in cols], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def box_rows(boxes, *fields):
+    return sorted_rows(boxes.get(), *(boxes.get_field(f) for f in fields))
+
+
+def golden_split(g, key):
+    return np.split(g[key + "_rows"], np.cumsum(g[key + "_counts"])[:-1])
+
+
 def main():
+    import importlib
+
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -202,12 +294,22 @@ def main():
     sys.path.insert(0, ROOT)
     import waldboost_tpu_torch as wt
     from waldboost_tpu_torch import _build
+    from waldboost_tpu_torch.canvas import channel_canvas, window_grid
+    from waldboost_tpu_torch.ops import cascade as gen_mod
     from waldboost_tpu_torch.ops import cascade_static as casc_mod
     from waldboost_tpu_torch.ops import channels as chan_mod
     from waldboost_tpu_torch.ops import planes as plane_mod
     from waldboost_tpu_torch.ops.nms import extract_detections
-    modules = {"planes": plane_mod, "grad_hist": chan_mod,
-               "cascade": casc_mod}
+    counters = {name: (importlib.import_module(mod), attr)
+                for name, (mod, attr, _, _) in KERNELS.items()}
+
+    def zero_counters():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counters():
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
 
     dev = torch.device("cuda", torch.cuda.current_device())
     kind = torch.cuda.get_device_name(dev)
@@ -218,67 +320,125 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # -- phase 1: build -----------------------------------------------------
+    # -- phase 1: build ---------------------------------------------------
     t0 = time.time()
-    for name in KERNELS:
-        log = _build.build_log(name)
-        for line in log.splitlines():
+    sources = sorted({os.path.basename(src)[:-3]
+                      for _, _, src, _ in KERNELS.values()})
+    _build.build(sources)
+    for name in sources:
+        for line in _build.build_log(name).splitlines():
             if "ptxas" in line and ("Used" in line or "spill" in line
                                     or "Compiling" in line):
                 print(f"[{name}] {line.strip()}")
     print(f"build: {time.time() - t0:.1f} s")
 
-    model = wt.load(MODEL)
+    models = {name: wt.load(os.path.join(ROOT, "models", name + ".pb"),
+                            device=dev) for name in MODEL_NAMES}
+    synth, hard256 = models["flagship_synth_64"], models["flagship_hard_256"]
     golden = np.load(GOLDEN)
+    mgold = np.load(MODEL_GOLDEN)
     rng = np.random.RandomState(0)
     noise = [torch.from_numpy(rng.randint(0, 256, (BATCH,) + VGA)
                               .astype(np.uint8)).to(dev) for _ in range(4)]
     gframes = golden["frames"]
     require(gframes.shape == (3,) + VGA, "golden file must hold 3 VGA frames")
+    require(np.array_equal(mgold["frames"], gframes),
+            "the two golden files must hold the same frames")
     # the 3 golden scenes, then their horizontal and vertical flips
-    scene = np.concatenate([gframes, gframes[:, :, ::-1],
-                            gframes[:, ::-1, :]])[:BATCH]
-    require(scene.shape == (BATCH,) + VGA, "scene batch must hold BATCH frames")
-    scene = torch.from_numpy(np.ascontiguousarray(scene)).to(dev)
+    scene_np = np.ascontiguousarray(np.concatenate(
+        [gframes, gframes[:, :, ::-1], gframes[:, ::-1, :]])[:BATCH])
+    require(scene_np.shape == (BATCH,) + VGA,
+            "scene batch must hold BATCH frames")
+    scene = torch.from_numpy(scene_np).to(dev)
 
     # -- phase 2: each kernel against its plain version at VGA batch 8 -----
-    det, packed = wt.make_batched_detector_boxes(model, VGA, k=1024,
+    det, packed = wt.make_batched_detector_boxes(synth, VGA, k=1024,
                                                  nms_iou=0.5, device=dev)
+    cstep, grid = det.canvas, det.grid
     print(f"plan: {len(packed.levels)} levels, canvas {packed.canvas_h}x"
-          f"{packed.canvas_w}, {int(det.valid.sum())} valid origins")
-    octs = det.octaves(noise[0])
-    planes = det.planes(octs)
-    planes_ref = plane_mod.planes_plain(octs, det.plane_ops)
-    canvas = det.channels(planes)
-    canvas_ref = chan_mod.grad_hist_plain(planes, det.interior, det.smooth)
+          f"{packed.canvas_w}, {int(grid.valid.sum())} valid origins")
+    octs = cstep.octaves(noise[0])
+    planes = cstep.planes(octs)
+    planes_ref = plane_mod.planes_plain(octs, cstep.plane_ops)
+    canvas = cstep.channels(planes)
+    canvas_ref = chan_mod.grad_hist_plain(planes, cstep.interior,
+                                          cstep.smooth)
     casc = det.cascade(canvas)
-    casc_ref = casc_mod.cascade_masked_plain(canvas, det.valid,
+    casc_ref = casc_mod.cascade_masked_plain(canvas, grid.valid,
                                              det.cascade_ops)
+    scene_canvas = cstep(scene)
     torch.cuda.synchronize()
     errs = {}
-    for name, got, want in (("planes", [planes], [planes_ref]),
-                            ("grad_hist", [canvas], [canvas_ref]),
-                            ("cascade", casc, casc_ref)):
+
+    def check_phase(kernel, phase, got, want):
+        torch.cuda.synchronize()
         bad = sum(int((g != w).sum()) for g, w in zip(got, want))
-        errs[name] = max(max_abs_err(g, w) for g, w in zip(got, want))
-        print(f"phase {name}: {bad} mismatching elements of "
-              f"{sum(g.numel() for g in got)} (max abs err {errs[name]})")
-        require(bad == 0, f"{name} kernel differs from its plain version")
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        print(f"phase {phase}: {bad} mismatching elements of "
+              f"{sum(g.numel() for g in got)} (max abs err {err})")
+        require(bad == 0, f"{phase}: kernel differs from its plain version")
+
+    check_phase("planes", "planes", [planes], [planes_ref])
+    check_phase("grad_hist", "grad_hist", [canvas], [canvas_ref])
+    check_phase("cascade", "cascade", casc, casc_ref)
     masked, n_weak, count = casc
     print(f"noise batch: survivors {count.tolist()}, n_weak "
           f"{n_weak.tolist()}")
 
-    # -- phase 3: the main path on the golden frames -------------------------
-    for name, (attr, _, _) in KERNELS.items():
-        setattr(modules[name], attr, 0)
+    canvases = {"noise": canvas, "scene": scene_canvas}
+    for mname in ("flagship_synth_64", "flagship_hard_256"):
+        ops = models[mname]._operands(dev)
+        for cap in (None, 12):
+            for cname, cv in canvases.items():
+                got = casc_mod.cascade_response(cv, grid.valid, ops, cap)
+                want = casc_mod.cascade_response_plain(cv, grid.valid, ops,
+                                                       cap)
+                check_phase("cascade_response",
+                            f"cascade_response {mname} cap={cap} {cname}",
+                            got, want)
+                print(f"  alive {got[1].sum(dim=(1, 2)).tolist()}, n_weak "
+                      f"{got[2].tolist()}")
+    drng = np.random.RandomState(1)
+    deep_stages, deep_theta = [], []
+    for t in range(40):
+        s = random_deep_stage(drng, (12, 12), 4, depth=5)
+        s["threshold"] = drng.uniform(0, 300, len(s["threshold"])) \
+            .astype(np.float32)
+        deep_stages.append(s)
+        deep_theta.append(-0.6 - 0.1 * t if t % 2 else -np.inf)
+    deep = wt.model_from_stages(synth.shape, synth.channel_opts, deep_stages,
+                                deep_theta, device=dev)
+    tables = {"flagship_synth_64": synth._get_cascade(),
+              "flagship_hard_256": hard256._get_cascade(),
+              "deep40": deep._get_cascade()}
+    for tname, (ctab, meta) in tables.items():
+        print(f"B6 tables {tname}: {ctab.n_stages} stages "
+              f"({int(ctab.active.sum())} active), {ctab.n_nodes} nodes, "
+              f"depth {meta.depth}, complete {meta.complete}")
+        for cname, cv in canvases.items():
+            got = gen_mod.cascade_response_grid(cv, ctab, (12, 12),
+                                                grid.valid)
+            want = gen_mod.cascade_response_grid_plain(cv, ctab, (12, 12),
+                                                       grid.valid)
+            check_phase("cascade_generic", f"cascade_generic {tname} {cname}",
+                        got, want)
+            print(f"  alive {got[1].sum(dim=(1, 2)).tolist()}, n_weak "
+                  f"{got[2].tolist()}")
+    require(tables["deep40"][0].n_stages == 64
+            and not tables["deep40"][1].complete,
+            "the deep model must take the padded general-tree tables")
+
+    # -- phase 3: serving path (slice 1) on the golden frames --------------
     frames = torch.from_numpy(gframes).to(dev)
+    zero_counters()
     rects, scores, valid, count, n_weak = det(frames)
     torch.cuda.synchronize()
-    launches = {name: getattr(modules[name], attr)
-                for name, (attr, _, _) in KERNELS.items()}
-    print(f"main path launches: {launches}")
-    require(all(v > 0 for v in launches.values()),
-            "a kernel of the main path was not launched")
+    serving_launches = read_counters()
+    print(f"serving path launches: {serving_launches}")
+    require(all(serving_launches[k] > 0
+                for k in ("planes", "grad_hist", "cascade")),
+            "a kernel of the serving path was not launched")
     rects, scores = rects.cpu().numpy(), scores.cpu().numpy()
     valid, count = valid.cpu().numpy(), count.cpu().numpy()
     require(rects.shape == (len(gframes), 1024, 4)
@@ -293,29 +453,135 @@ def main():
     for b, (r_ref, s_ref) in enumerate(zip(
             np.split(golden["kept_rects"], split),
             np.split(golden["kept_scores"], split))):
-        got = np.concatenate([rects[b][valid[b]],
-                              scores[b][valid[b]][:, None]], 1)
-        ref = np.concatenate([r_ref, s_ref[:, None]], 1)
-        require(got.shape == ref.shape and np.array_equal(
-            got[np.lexsort(got.T)], ref[np.lexsort(ref.T)]),
-            f"frame {b}: kept boxes/scores differ from the JAX golden")
-    print("golden frames: boxes and scores bitwise equal to JAX")
+        require(np.array_equal(sorted_rows(rects[b][valid[b]],
+                                           scores[b][valid[b]]),
+                               sorted_rows(r_ref, s_ref)),
+                f"frame {b}: kept boxes/scores differ from the JAX golden")
+    print("serving path: boxes and scores bitwise equal to JAX")
 
-    # -- phase 4: timing and the host ----------------------------------------------------
+    # -- phase 4: the Model-API path on the golden frames ------------------
+    scales = [float(s) for s in mgold["response_scale"]]
+    k_top, iou = int(mgold["topk_k"]), float(mgold["nms_iou"])
+    fn_full, _ = wt.make_batched_detector(synth, VGA, device=dev)
+    fn_cap, _ = wt.make_batched_detector(synth, VGA, n_stages_cap=12,
+                                         device=dev)
+    fn_multi, _ = wt.make_multi_detector_boxes(
+        list(models.values()), VGA, k=2048, response_scale=scales,
+        device=dev)
+    zero_counters()
+    api = {}
+    for name, model in models.items():
+        per = []
+        for frame in gframes:
+            model.reset()
+            boxes = model.detect(frame)
+            per.append((boxes, model.n_weak, model.n_loc,
+                        model.detect_topk(frame, k=k_top, nms_iou=iou)))
+        model.reset()
+        scan = model.scan_packed_batch(gframes)
+        api[name] = (per, scan, model.n_weak)
+    multi = [wt.detect(frame, *models.values(), response_scale=scales)
+             for frame in gframes]
+    full = fn_full(frames)
+    capped = fn_cap(frames)
+    multi_b = fn_multi(frames)
+    torch.cuda.synchronize()
+    path_launches = read_counters()
+    print(f"Model-API path launches: {path_launches}")
+    require(all(v > 0 for v in path_launches.values()),
+            "a kernel of the Model-API path was not launched")
+
+    for name, (per, scan, scan_n_weak) in api.items():
+        det_ref = golden_split(mgold, name + "_detect")
+        topk_ref = golden_split(mgold, name + "_topk")
+        scan_ref = golden_split(mgold, name + "_scan")
+        for i, (boxes, nw, nloc, topk) in enumerate(per):
+            require(np.array_equal(box_rows(boxes, "scores"),
+                                   sorted_rows(det_ref[i])),
+                    f"{name} frame {i}: Model.detect differs from JAX")
+            require((nw, nloc) == (mgold[name + "_n_weak"][i],
+                                   mgold[name + "_n_loc"][i]),
+                    f"{name} frame {i}: n_weak/n_loc differ from JAX")
+            require(np.array_equal(box_rows(topk, "scores"),
+                                   sorted_rows(topk_ref[i])),
+                    f"{name} frame {i}: detect_topk differs from JAX")
+        _, hs, _, per_image = scan
+        for i, (rs, cs) in enumerate(per_image):
+            sc = hs[i][torch.as_tensor(rs, device=dev),
+                       torch.as_tensor(cs, device=dev)].cpu().numpy()
+            require(np.array_equal(np.stack([rs, cs, sc], 1)
+                                   .astype(np.float32), scan_ref[i]),
+                    f"{name} frame {i}: scan_packed_batch differs from JAX")
+        require(scan_n_weak == mgold[name + "_scan_n_weak"].sum(),
+                f"{name}: scan_packed_batch n_weak differs from JAX")
+        print(f"{name}: detect {[len(p[0]) for p in per]}, topk "
+              f"{[len(p[3]) for p in per]}, scan "
+              f"{[len(p[0]) for p in per_image]} bitwise equal to JAX")
+    multi_ref = golden_split(mgold, "multi")
+    for i, boxes in enumerate(multi):
+        require(np.array_equal(box_rows(boxes, "scores", "label"),
+                               sorted_rows(multi_ref[i])),
+                f"frame {i}: wt.detect differs from JAX")
+    rects, scores, mvalid, label, mcount, _ = (a.cpu().numpy()
+                                               for a in multi_b)
+    for i in range(len(gframes)):
+        ref = multi_ref[i]
+        for kix in range(len(models)):
+            require(mcount[i, kix] == (ref[:, 5] == kix).sum(),
+                    f"frame {i} model {kix}: multi-detector count differs")
+        sel = mvalid[i]
+        require(np.array_equal(sorted_rows(rects[i][sel], scores[i][sel],
+                                           label[i][sel]), sorted_rows(ref)),
+                f"frame {i}: make_multi_detector_boxes differs from JAX")
+    print(f"wt.detect and make_multi_detector_boxes: "
+          f"{[len(b) for b in multi]} boxes bitwise equal to JAX")
+    synth_scan = golden_split(mgold, "flagship_synth_64_scan")
+    hs_f, alive_f, nw_f = full
+    hs_c, alive_c, nw_c = capped
+    for i, ref in enumerate(synth_scan):
+        rs, cs = (torch.as_tensor(ref[:, j].astype(np.int64), device=dev)
+                  for j in (0, 1))
+        require(int(alive_f[i].sum()) == len(ref)
+                and bool(alive_f[i][rs, cs].all())
+                and np.array_equal(hs_f[i][rs, cs].cpu().numpy(), ref[:, 2]),
+                f"frame {i}: make_batched_detector differs from JAX")
+        require(bool(alive_c[i][rs, cs].all()),
+                f"frame {i}: a survivor is dead after the 12-stage prefix")
+    require(bool((nw_c <= nw_f).all()) and bool((alive_c | ~alive_f).all()),
+            "the 12-stage prefix must do less work and keep more windows")
+    prefix_ref = casc_mod.cascade_response_plain(
+        cstep(frames), grid.valid, synth._operands(dev), 12)
+    check_phase("cascade_response", "make_batched_detector prefix", capped,
+                prefix_ref)
+    print(f"make_batched_detector: survivors {alive_f.sum(dim=(1, 2)).tolist()}"
+          f" of {alive_c.sum(dim=(1, 2)).tolist()} after 12 stages")
+
+    # -- phase 5: timing and the host --------------------------------------
     def metric(name, value, unit):
         print(json.dumps({"metric": name, "value": value, "unit": unit,
                           "device": kind, "power_limit": power_limit}))
 
     timing = {}
+    ops_synth = synth._operands(dev)
+    casc_synth = tables["flagship_synth_64"][0]
     calls = {
-        "planes": (lambda: det.planes(octs),
-                   lambda: plane_mod.planes_plain(octs, det.plane_ops)),
-        "grad_hist": (lambda: det.channels(planes),
-                      lambda: chan_mod.grad_hist_plain(planes, det.interior,
-                                                       det.smooth)),
+        "planes": (lambda: cstep.planes(octs),
+                   lambda: plane_mod.planes_plain(octs, cstep.plane_ops)),
+        "grad_hist": (lambda: cstep.channels(planes),
+                      lambda: chan_mod.grad_hist_plain(planes, cstep.interior,
+                                                       cstep.smooth)),
         "cascade": (lambda: det.cascade(canvas),
                     lambda: casc_mod.cascade_masked_plain(
-                        canvas, det.valid, det.cascade_ops)),
+                        canvas, grid.valid, det.cascade_ops)),
+        "cascade_response": (
+            lambda: casc_mod.cascade_response(canvas, grid.valid, ops_synth),
+            lambda: casc_mod.cascade_response_plain(canvas, grid.valid,
+                                                    ops_synth)),
+        "cascade_generic": (
+            lambda: gen_mod.cascade_response_grid(canvas, casc_synth,
+                                                  (12, 12), grid.valid),
+            lambda: gen_mod.cascade_response_grid_plain(
+                canvas, casc_synth, (12, 12), grid.valid)),
     }
     for name, (kern, plain) in calls.items():
         # plain, kernel, kernel, plain: both orders inside one call
@@ -329,16 +595,50 @@ def main():
         metric(f"{name}_plain_us_per_image", timing[name][1] * 1e3 / BATCH,
                "us/image")
 
+    # the least time of each kernel's call at these shapes: bytes (each
+    # input read once, each output written once) over the HBM rate, or its
+    # arithmetic over the peak rate of its type
+    pt = cstep.plane_ops
+    level_elems = int(pt.host.meta[:, -1].sum()) * BATCH
+    nw_synth = int(casc_mod.cascade_response(canvas, grid.valid,
+                                             ops_synth)[2].sum())
+    resp_out = BATCH * grid.valid.numel() * 5 + 4 * BATCH
+    bounds = {
+        "planes": bound(nbytes(octs, planes, pt.meta, pt.blocks, pt.i0h,
+                               pt.frh, pt.i0w, pt.frw),
+                        f32_ops=12 * level_elems),
+        "grad_hist": bound(nbytes(planes, cstep.interior, canvas),
+                           f32_ops=35 * canvas.numel(),
+                           f64_ops=12 * canvas.numel()),
+        "cascade": bound(nbytes(canvas, grid.valid, *casc,
+                                *det.cascade_ops.tables,
+                                det.cascade_ops.theta),
+                         f32_ops=4 * int(casc[1].sum())),
+        "cascade_response": bound(nbytes(canvas, grid.valid,
+                                         *ops_synth.tables, ops_synth.theta)
+                                  + resp_out, f32_ops=4 * nw_synth),
+        "cascade_generic": bound(nbytes(canvas, grid.valid, casc_synth.fr,
+                                        casc_synth.fc, casc_synth.fch,
+                                        casc_synth.thr, casc_synth.left,
+                                        casc_synth.right, casc_synth.pred,
+                                        casc_synth.theta, casc_synth.active)
+                                 + resp_out, f32_ops=4 * nw_synth),
+    }
+    for name, (ms, what) in bounds.items():
+        metric(f"{name}_bound_us_per_image", ms * 1e3 / BATCH, "us/image")
+        print(f"{name}: bound by {what}; kernel at "
+              f"{bounds[name][0] / timing[name][0]:.3f} of its bound")
+
     # per-layer device time on the noise batch (k=1024 detector); the
     # extraction is timed with and without the NMS that follows it
     count_dev = casc[2]
     layers = {
-        "octaves": lambda: det.octaves(noise[1]),
-        "planes": lambda: det.planes(octs),
-        "channels": lambda: det.channels(planes),
+        "octaves": lambda: cstep.octaves(noise[1]),
+        "planes": lambda: cstep.planes(octs),
+        "channels": lambda: cstep.channels(planes),
         "cascade": lambda: det.cascade(canvas),
         "extract": lambda: extract_detections(
-            masked, count_dev, det.level_id, det.offsets, det.inv_scales,
+            masked, count_dev, grid.level_id, grid.offsets, grid.inv_scales,
             det.window, det.k),
         "extract_nms": lambda: det.extract(masked, count_dev),
     }
@@ -365,7 +665,7 @@ def main():
         metric(f"{workload}_batch_ms_p80", float(p80), "ms")
         print(f"{workload}: {reps} batches of {BATCH}")
 
-    det128, _ = wt.make_batched_detector_boxes(model, VGA, k=128,
+    det128, _ = wt.make_batched_detector_boxes(synth, VGA, k=128,
                                                nms_iou=0.5, device=dev)
     workloads = {
         "vga_full_pyramid_noise_k128": (det128, noise),
@@ -377,12 +677,31 @@ def main():
         e2e(workload, fn_, batches)
     metric("peak_device_memory_mib",
            torch.cuda.max_memory_allocated(dev) / 2 ** 20, "MiB")
+    e2e("batched_detector_vga_scene", fn_full,
+        [scene, torch.flip(scene, dims=[2])], reps=30)
+
+    def per_frame(name, fn_, n=30):
+        """Host clock per call on one numpy frame, p50 over ``n`` frames
+        (the scene batch's frames in turn); each call returns host data."""
+        fn_(scene_np[0])
+        ms = []
+        for r in range(n):
+            t = time.perf_counter()
+            fn_(scene_np[r % BATCH])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        metric(f"{name}_ms_per_frame_p50", float(np.median(ms)), "ms")
+
+    per_frame("model_detect_synth64", synth.detect)
+    per_frame("model_detect_hard256", hard256.detect)
+    per_frame("wt_detect_three_models",
+              lambda f: wt.detect(f, *models.values(), response_scale=scales))
     print(f"host: {len(os.sched_getaffinity(0))} usable cores, load "
           f"average {os.getloadavg()}")
     for name, value in host_probe().items():
         metric(name, value, "ms" if name.endswith("_ms") else "us")
 
-    # -- phase 5: profiler trace of each workload ---------------------------
+    # -- phase 6: profiler trace of each serving workload ------------------
     from torch.profiler import ProfilerActivity, profile, record_function
     trace_dir = args.trace_dir or tempfile.mkdtemp(prefix="wb_trace_")
     os.makedirs(trace_dir, exist_ok=True)
@@ -418,9 +737,11 @@ def main():
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": timing[name][0], "plain_ms": timing[name][1]}
-        for name, (_, src, rep) in KERNELS.items()]}))
+         "launches": path_launches[name], "max_abs_err": errs[name],
+         "ms": timing[name][0], "plain_ms": timing[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
+        for name, (_, _, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,7 @@ Without a card every test here skips (the check is made in a fixture, so
 every pytest worker collects the same tests)."""
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +19,8 @@ import torch
 import waldboost_tpu_torch as wt
 from waldboost_tpu_torch import channels as tch
 from waldboost_tpu_torch import packing, polyphase
+from waldboost_tpu_torch.canvas import channel_canvas, window_grid
+from waldboost_tpu_torch.ops import cascade as tc
 from waldboost_tpu_torch.ops import cascade_static as tcs
 from waldboost_tpu_torch.ops import channels as tcc
 from waldboost_tpu_torch.ops import planes as tpl
@@ -26,6 +29,10 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "models", "flagship_synth_64.pb")
+HARD256 = os.path.join(ROOT, "models", "flagship_hard_256.pb")
+
+sys.path.insert(0, ROOT)
+from chip_smoke import random_deep_stage  # noqa: E402  (numpy only)
 
 pytestmark = pytest.mark.cuda
 
@@ -115,3 +122,71 @@ def test_golden_on_card(cuda):
         ref = np.concatenate([r_ref, s_ref[:, None]], 1)
         np.testing.assert_array_equal(got[np.lexsort(got.T)],
                                       ref[np.lexsort(ref.T)])
+
+
+def _deep_model(device, n_stages=40):
+    """A seeded model of depth-5 trees: its runtime tables are general
+    (not complete heaps) and padded to 64 stages."""
+    rng = np.random.RandomState(1)
+    stages = []
+    for _ in range(n_stages):
+        st = random_deep_stage(rng, (12, 12), 4, depth=5)
+        st["threshold"] = rng.uniform(0, 300, len(st["threshold"])) \
+            .astype(np.float32)
+        stages.append(st)
+    theta = [-0.6 - 0.1 * t if t % 2 else -np.inf for t in range(n_stages)]
+    model = wt.load(FLAGSHIP, device=device)
+    return wt.model_from_stages(model.shape, model.channel_opts, stages, theta,
+                                device=device)
+
+
+@pytest.mark.parametrize("hw,npo", [((96, 128), 2), ((480, 640), 8)])
+def test_response_kernels_match_plain_on_card(cuda, hw, npo):
+    """B4 (n_stages_cap None and 12) and B6 (complete-heap, deep general
+    and padded tables) bitwise against their plain versions: hs at every
+    origin, alive, n_weak."""
+    packed = packing._packed_plan_cached(hw[0], hw[1], 2, npo, (12, 12),
+                                         halo=1)
+    canvas = channel_canvas(packed, hw, 1, cuda)(_frames(3, hw, 4).to(cuda))
+    valid = window_grid(packed, (12, 12), cuda).valid
+    models = [wt.load(FLAGSHIP, device=cuda), wt.load(HARD256, device=cuda),
+              _deep_model(cuda)]
+    for model in models[:2]:
+        for cap in (None, 12):
+            got = tcs.cascade_response(canvas, valid, model._operands(), cap)
+            want = tcs.cascade_response_plain(canvas, valid,
+                                              model._operands(), cap)
+            torch.cuda.synchronize()
+            for g, w_ in zip(got, want):
+                assert torch.equal(g, w_)
+    for model in models:
+        casc, _ = model._get_cascade()
+        got = tc.cascade_response_grid(canvas, casc, (12, 12), valid)
+        want = tc.cascade_response_grid_plain(canvas, casc, (12, 12), valid)
+        torch.cuda.synchronize()
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+    assert not models[2]._get_cascade()[1].complete
+
+
+def test_model_api_on_card_matches_cpu(cuda):
+    imgs = _frames(2, (96, 128), seed=5).numpy()
+    on = {dev: [wt.load(p, device=dev) for p in (FLAGSHIP, HARD256)]
+          for dev in (cuda, "cpu")}
+    for (gpu_m, cpu_m) in zip(on[cuda], on["cpu"]):
+        for img in imgs:
+            for call in (lambda m: m.detect(img),
+                         lambda m: m.detect_topk(img, k=64, nms_iou=0.5)):
+                a, b = call(gpu_m), call(cpu_m)
+                np.testing.assert_array_equal(a.get(), b.get())
+                np.testing.assert_array_equal(a.get_field("scores"),
+                                              b.get_field("scores"))
+            a, b = gpu_m.scan_packed(img), cpu_m.scan_packed(img)
+            assert torch.equal(a[0].cpu(), b[0])
+            for x, y in zip(a[2:], b[2:]):
+                np.testing.assert_array_equal(x, y)
+        assert gpu_m.cost_stats()["n_weak"] == cpu_m.cost_stats()["n_weak"]
+    a = wt.detect(imgs[0], *on[cuda], response_scale=[1, 0.5])
+    b = wt.detect(imgs[0], *on["cpu"], response_scale=[1, 0.5])
+    for f in ("scores", "label"):
+        np.testing.assert_array_equal(a.get_field(f), b.get_field(f))

@@ -33,7 +33,7 @@ def test_slice_matches_jax(hw, npo, smooth, nms_iou):
     fj, _ = jax_detector(jm, hw, k=4096, nms_iou=nms_iou)
     rj, sj, vj, cj, nwj = (np.asarray(a) for a in fj(jnp.asarray(images)))
     ft, packed = wt.make_batched_detector_boxes(tm, hw, k=4096,
-                                                nms_iou=nms_iou)
+                                                nms_iou=nms_iou, device="cpu")
     rt, st, vt, ct, nwt = (a.numpy() for a in ft(torch.from_numpy(images)))
     assert packed.canvas_h > 0 and rt.dtype == np.float32
     np.testing.assert_array_equal(ct, cj)
@@ -55,12 +55,12 @@ def test_slice_matches_jax_on_test_model():
                               channels="grad_hist"))
     tm = wt.model_from_stages(jm.shape, jm.channel_opts,
                               [w.to_stage_dict() for w in jm.classifier],
-                              jm.theta)
+                              jm.theta, device="cpu")
     images = noise_frames(2, (48, 64), seed=4)
     fj, _ = jax_detector(jm, (48, 64), k=1024, nms_iou=0.4)
     rj, sj, vj, cj, nwj = (np.asarray(a) for a in fj(jnp.asarray(images)))
     ft, _ = wt.make_batched_detector_boxes(tm, (48, 64), k=1024,
-                                           nms_iou=0.4)
+                                           nms_iou=0.4, device="cpu")
     rt, st, vt, ct, nwt = (a.numpy() for a in ft(torch.from_numpy(images)))
     np.testing.assert_array_equal(ct, cj)
     np.testing.assert_array_equal(nwt, nwj)
@@ -72,7 +72,7 @@ def test_slice_matches_jax_on_test_model():
 def test_overflow_flags_count():
     jm, tm = make_model_pair(n_stages=4, seed=2)
     images = noise_frames(2, (48, 64), seed=3)
-    ft, _ = wt.make_batched_detector_boxes(tm, (48, 64), k=4)
+    ft, _ = wt.make_batched_detector_boxes(tm, (48, 64), k=4, device="cpu")
     rects, scores, valid, count, _ = ft(torch.from_numpy(images))
     assert rects.shape == (2, 4, 4) and valid.all()
     np.testing.assert_array_equal(count.numpy(), [-1, -1])
@@ -86,7 +86,8 @@ def test_layer_spans_only_under_profiler():
     from waldboost_tpu_torch.parallel.detect import span
     _, tm = make_model_pair(n_stages=4, seed=2)
     images = torch.from_numpy(noise_frames(2, (48, 64), seed=3))
-    ft, _ = wt.make_batched_detector_boxes(tm, (48, 64), k=16, nms_iou=0.5)
+    ft, _ = wt.make_batched_detector_boxes(tm, (48, 64), k=16, nms_iou=0.5,
+                                           device="cpu")
     assert isinstance(span("wb.x"), nullcontext)
     plain = ft(images)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -105,7 +106,8 @@ def test_golden_vga_scene_frames():
     and score without NMS, and the kept set with NMS at 0.5, bitwise."""
     g = np.load(os.path.join(ROOT, "tests", "data",
                              "torch_port_vga_golden.npz"))
-    model = wt.load(os.path.join(ROOT, "models", "flagship_synth_64.pb"))
+    model = wt.load(os.path.join(ROOT, "models", "flagship_synth_64.pb"),
+                    device="cpu")
     frames = torch.from_numpy(g["frames"])
     raw_split = np.cumsum(g["raw_counts"])[:-1]
     kept_split = np.cumsum(g["kept_counts"])[:-1]
@@ -113,7 +115,7 @@ def test_golden_vga_scene_frames():
             (None, g["raw_rects"], g["raw_scores"], raw_split),
             (0.5, g["kept_rects"], g["kept_scores"], kept_split)):
         fn, _ = wt.make_batched_detector_boxes(model, (480, 640), k=1024,
-                                               nms_iou=nms_iou)
+                                               nms_iou=nms_iou, device="cpu")
         rects, scores, valid, count, _ = (a.numpy() for a in fn(frames))
         np.testing.assert_array_equal(count, g["raw_counts"])
         for b, (r_ref, s_ref) in enumerate(zip(np.split(rects_ref, split),

@@ -149,6 +149,11 @@ def test_port_import_leaves_jax_out():
     code = ("import sys; before = set(sys.modules); "
             "import waldboost_tpu_torch; "
             "import waldboost_tpu_torch.parallel.detect; "
+            "import waldboost_tpu_torch.model, waldboost_tpu_torch.boxes, "
+            "waldboost_tpu_torch.canvas, waldboost_tpu_torch.device, "
+            "waldboost_tpu_torch.ops.cascade, "
+            "waldboost_tpu_torch.ops.cascade_static, "
+            "waldboost_tpu_torch.ops.nms; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'waldboost_tpu', 'google')); "
@@ -169,10 +174,12 @@ def test_unported_options_raise():
                          (dict(fast=True), "A6"),
                          (dict(n_scales=1), "A4")):
         with pytest.raises(NotImplementedError, match=item):
-            wt.make_batched_detector_boxes(tm, (48, 64), **kwargs)
+            wt.make_batched_detector_boxes(tm, (48, 64), device="cpu",
+                                           **kwargs)
     with pytest.raises(ValueError):
-        wt.make_batched_detector_boxes(tm, (48, 64), n_scales=0)
-    fn, _ = wt.make_batched_detector_boxes(tm, (48, 64))
+        wt.make_batched_detector_boxes(tm, (48, 64), n_scales=0,
+                                       device="cpu")
+    fn, _ = wt.make_batched_detector_boxes(tm, (48, 64), device="cpu")
     with pytest.raises(NotImplementedError, match="A6"):
         fn(torch.zeros((1, 48, 64), dtype=torch.float32))
     with pytest.raises(ValueError):

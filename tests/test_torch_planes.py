@@ -71,13 +71,21 @@ def test_planes_match_jax_mats_path(hw, npo):
     np.testing.assert_array_equal(got.astype(np.float32), content)
 
 
-def test_planes_match_jax_fused_kernel():
-    """Planes equal the fused Pallas shelf kernel run in interpret mode."""
-    h, w = 48, 64
+@pytest.mark.parametrize("hw", [(48, 64), (96, 128)])
+@pytest.mark.parametrize("merged", ["0", "1"])
+def test_planes_match_jax_fused_kernel(merged, hw, monkeypatch):
+    """Planes equal the fused Pallas shelf kernel run in interpret mode:
+    the chained per-shelf calls (``shelf_pass2_call``, B1) and, with
+    ``WB_SHELF_MERGED=1``, the single-launch multi-shelf kernel
+    (``multi_shelf_pass2_call``, B1m); the port's plane kernel is one
+    launch over every level either way."""
+    monkeypatch.setenv("WB_SHELF_MERGED", merged)
+    h, w = hw
     window = (8, 8)
     imgs = noise_frames(2, (h, w), seed=5)
     _, packed, geom = _jax_setup(h, w, 2, window)
     fmats, fspec = M._poly_fused_cached(packed, packed.halo, (h, w))
+    assert fspec["merged"] is not None  # 1 shelf at 48x64, 2 at 96x128
     ref = M._poly_planes_fused(jnp.asarray(imgs), fmats, fspec,
                                interpret=True)
     ref = _content(np.asarray(ref.astype(jnp.float32)), packed, geom)

@@ -3,6 +3,9 @@ package: seeded random cascades handed to both packages, seeded frames,
 and the port's planes and canvas of a frame batch (plain versions on the
 CPU), which the tests hand to the JAX functions as their inputs."""
 
+import os
+import sys
+
 import numpy as np
 import torch
 
@@ -17,27 +20,33 @@ from waldboost_tpu_torch.ops import planes as tpl
 
 from test_cascade import random_stage
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import random_deep_stage  # noqa: E402  (numpy only)
+
 
 def make_model_pair(n_stages=8, shape=(8, 8, 4), seed=0, n_per_oct=2,
-                    smooth=1, thr_max=300.0):
-    """A JAX model with ``n_stages`` random depth-2 trees whose thresholds
-    span the grad_hist value range of noise frames (so the trees route
-    both ways), every odd stage rejecting, and the same cascade carried
-    into the port with ``model_from_stages``."""
+                    smooth=1, thr_max=300.0, depth=None, open_stages=0):
+    """A JAX model with ``n_stages`` random depth-2 trees (or trees
+    ``depth`` deep) whose thresholds span the grad_hist value range of
+    noise frames (so the trees route both ways), every odd stage from
+    ``open_stages`` on rejecting, and the same cascade carried into the
+    port with ``model_from_stages`` (on the CPU)."""
     rng = np.random.RandomState(seed)
     opts = dict(shrink=2, n_per_oct=n_per_oct, smooth=smooth,
                 channels="grad_hist")
     model = wb.Model(shape, opts)
     for t in range(n_stages):
-        s = random_stage(rng, shape[:2], shape[2])
+        s = random_stage(rng, shape[:2], shape[2]) if depth is None \
+            else random_deep_stage(rng, shape[:2], shape[2], depth)
         s["threshold"] = rng.uniform(0, thr_max,
                                      len(s["threshold"])).astype("f")
-        theta = -0.6 - 0.1 * t if t % 2 else -np.inf
+        theta = -0.6 - 0.1 * t if t % 2 and t >= open_stages else -np.inf
         model.append(DTree([tuple(f) for f in s["feature"]], s["threshold"],
                            s["left"], s["right"], s["prediction"]), theta)
     port = wt.model_from_stages(
         model.shape, model.channel_opts,
-        [w.to_stage_dict() for w in model.classifier], model.theta)
+        [w.to_stage_dict() for w in model.classifier], model.theta,
+        device="cpu")
     return model, port
 
 

@@ -18,8 +18,8 @@ import subprocess
 import tempfile
 from typing import Dict
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load_library", "build_log",
-           "check"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load_library",
+           "build_log", "check"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -52,28 +52,43 @@ def _paths(name: str):
     return src, lib, lib[:-3] + ".log"
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
-    if name in _LIBS:
-        return _LIBS[name]
-    src, lib, log = _paths(name)
-    if not os.path.exists(lib):
+def build(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose library is
+    missing: one nvcc process per source, all started together."""
+    jobs = []
+    for name in names:
+        src, lib, log = _paths(name)
+        if os.path.exists(lib):
+            continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+                                 src], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((src, lib, log, tmp, proc))
+    failed = []
+    for src, lib, log, tmp, proc in jobs:
+        out, err = proc.communicate()
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC,
-                                   "-o", tmp, src],
-                                  capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+                failed.append(f"nvcc failed on {src}:\n{err}")
+                continue
             with open(log, "w") as f:
-                f.write(proc.stdout + proc.stderr)
+                f.write(out + err)
             os.replace(tmp, lib)  # atomic: concurrent builds agree
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-    _LIBS[name] = ctypes.CDLL(lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(_paths(name)[1])
     return _LIBS[name]
 
 

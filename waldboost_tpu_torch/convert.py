@@ -15,13 +15,14 @@ __all__ = ["model_from_stages"]
 
 
 def model_from_stages(shape, channel_opts: Dict, stages: Sequence[Dict],
-                      theta: Sequence[float]) -> Model:
-    """Build the port's :class:`Model` from stage dicts and thresholds.
-    ``channel_opts["channels"]`` may be a registry name or any object
-    with a ``name`` attribute naming a registered channel function."""
+                      theta: Sequence[float], device=None) -> Model:
+    """Build the port's :class:`Model` from stage dicts and thresholds, to
+    run on ``device`` (the card when None).  ``channel_opts["channels"]``
+    may be a registry name or any object with a ``name`` attribute naming
+    a registered channel function."""
     if len(stages) != len(theta):
         raise ValueError(f"{len(stages)} stages but {len(theta)} thetas")
-    model = Model(shape, channel_opts)
+    model = Model(shape, channel_opts, device=device)
     for stage, th in zip(stages, theta):
         model.append(stage, th)
     return model

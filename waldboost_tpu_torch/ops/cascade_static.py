@@ -1,9 +1,11 @@
-"""Kernel B3: the frozen cascade over every window origin of the canvas.
+"""Kernels B3 and B4: the frozen cascade over every window origin.
 
 Counterpart of ``waldboost_tpu/ops/cascade_static.py`` (``StaticCascade``,
-``static_cascade_from_model``, ``cascade_masked_grid_static``).  The CUDA
-kernel is ``csrc/cascade.cu``; :func:`cascade_masked_plain` evaluates the
-same cascade in lockstep over all windows in torch.  A CPU tensor takes
+``static_cascade_from_model``, ``cascade_masked_grid_static`` and
+``cascade_response_grid_static``).  Both kernels live in
+``csrc/cascade.cu``; each has a plain-torch version here that evaluates
+the same cascade in lockstep over all windows
+(:func:`~waldboost_tpu_torch.ops.cascade.lockstep`).  A CPU tensor takes
 the plain version, a CUDA tensor the kernel.
 
 Per window origin ``(r, c)`` of the ``(H - m, W - n)`` grid that is set in
@@ -12,28 +14,39 @@ the valid mask, and per stage in order: the depth-limited tree reads
 0``), ``hs += leaf`` in f32 from 0, and the window is rejected when the
 stage's theta is finite and ``hs < theta``.  ``n_weak`` counts the stages
 each window entered alive.
+
+* B3, :func:`cascade_masked`: ``hs`` where the window survived, -inf
+  elsewhere, and per-image survivor counts.
+* B4, :func:`cascade_response`: the unmasked ``(hs, alive, n_weak)`` over
+  the first ``n_stages_cap`` stages.  A rejected window keeps the ``hs`` of
+  the stage it died in; an origin outside the mask keeps 0.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .._build import check, load_library
+from .cascade import NODE_KEYS, check_children, lockstep, stage_tables
 
 __all__ = ["StaticCascade", "static_cascade_from_model", "CascadeOperands",
-           "cascade_masked", "cascade_masked_plain"]
+           "cascade_masked", "cascade_masked_plain", "cascade_response",
+           "cascade_response_plain"]
 
-#: kernel launches made by :func:`cascade_masked`
+#: kernel launches made by :func:`cascade_masked` (B3)
 cascade_launches = 0
+#: kernel launches made by :func:`cascade_response` (B4)
+cascade_response_launches = 0
 
 
 class StaticCascade:
-    """Padded ``(T, NN)`` node tables of a frozen cascade plus ``theta``."""
+    """Unpadded ``(T, NN)`` node tables of a frozen cascade, in the model
+    file's node order, plus ``theta``."""
 
     def __init__(self, fr, fc, fch, thr, left, right, pred, theta):
         self.fr = np.asarray(fr, np.int32)
@@ -53,29 +66,10 @@ class StaticCascade:
 def static_cascade_from_model(model) -> StaticCascade:
     """Node tables of a model's stages (``model.stages``: dicts of
     ``feature`` (k, 3), ``threshold``, ``left``, ``right``, ``prediction``)."""
-    stages = model.stages
-    nn = max((len(s["threshold"]) for s in stages), default=1)
-    T = len(stages)
-    fr = np.zeros((T, nn), np.int32)
-    fc = np.zeros((T, nn), np.int32)
-    fch = np.zeros((T, nn), np.int32)
-    thr = np.zeros((T, nn), np.float32)
-    left = np.full((T, nn), -1, np.int32)
-    right = np.full((T, nn), -1, np.int32)
-    pred = np.zeros((T, nn), np.float32)
-    for t, s in enumerate(stages):
-        k = len(s["threshold"])
-        ftr = np.maximum(np.asarray(s["feature"], np.int32).reshape(k, 3), 0)
-        fr[t, :k] = ftr[:, 0]
-        fc[t, :k] = ftr[:, 1]
-        fch[t, :k] = ftr[:, 2]
-        thr[t, :k] = np.asarray(s["threshold"], np.float32)
-        left[t, :k] = np.asarray(s["left"], np.int32)
-        right[t, :k] = np.asarray(s["right"], np.int32)
-        pred[t, :k] = np.asarray(s["prediction"], np.float32)
-    theta = np.asarray(model.theta, np.float32) if T \
+    tab = stage_tables(model.stages)
+    theta = np.asarray(model.theta, np.float32) if model.stages \
         else np.zeros(0, np.float32)
-    return StaticCascade(fr, fc, fch, thr, left, right, pred, theta)
+    return StaticCascade(*(tab[k] for k in NODE_KEYS), theta)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,13 +94,7 @@ class CascadeOperands:
     def build(sc: StaticCascade, window: Tuple[int, int], n_channels: int,
               device) -> "CascadeOperands":
         m, n = window
-        T, nn = sc.fr.shape
-        node = np.arange(nn)[None, :]
-        inner = sc.left >= 0
-        for child in (sc.left, sc.right):
-            if np.any(inner & ((child <= node) | (child >= nn))):
-                raise ValueError("cascade tree: a child index must lie "
-                                 "above its parent and inside the table")
+        inner = check_children(sc.left, sc.right)
         if np.any(inner & ((sc.fr < 0) | (sc.fr >= m) | (sc.fc < 0)
                            | (sc.fc >= n) | (sc.fch < 0)
                            | (sc.fch >= n_channels))):
@@ -121,6 +109,15 @@ class CascadeOperands:
     @property
     def device(self) -> torch.device:
         return self.fr.device
+
+    @property
+    def tables(self):
+        return [self.fr, self.fc, self.fch, self.thr, self.left, self.right,
+                self.pred]
+
+    def plain_theta(self) -> Sequence[float]:
+        return np.where(np.isfinite(self.sc.theta), self.sc.theta,
+                        -np.inf).tolist()
 
 
 def _check(canvas: torch.Tensor, valid: torch.Tensor,
@@ -143,6 +140,49 @@ def _check(canvas: torch.Tensor, valid: torch.Tensor,
     return gu, gv
 
 
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+
+
+def _entry(name: str):
+    fn = getattr(load_library("cascade"), name)
+    if fn.argtypes is None:
+        # canvas, B, C, H, W, valid, gu, gv, 7 node tables, theta,
+        # [active,] T, NN, 3 outputs, stream
+        extra = [_VP] if name == "wb_cascade_generic" else []
+        fn.argtypes = [_VP, _CI, _CI, _CI, _CI, _VP, _CI, _CI] + [_VP] * 8 \
+            + extra + [_CI, _CI, _VP, _VP, _VP, _VP]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_response(name: str, canvas: torch.Tensor, valid: torch.Tensor,
+                    tables, theta: torch.Tensor, n_stages: int, out0, out1,
+                    n_weak, active: Optional[torch.Tensor] = None) -> None:
+    """Launch one of the C entry points of ``csrc/cascade.cu`` on the
+    current stream: ``wb_cascade`` (B3: outputs masked, count, n_weak),
+    ``wb_cascade_response`` (B4) or ``wb_cascade_generic`` (B6, with
+    ``active``) (outputs hs, alive, n_weak)."""
+    B, C, H, W = canvas.shape
+    gu, gv = valid.shape
+    NN = tables[0].shape[1]
+    ptrs = [t.data_ptr() for t in tables] + [theta.data_ptr()]
+    if active is not None:
+        ptrs.append(active.data_ptr())
+    stream = torch.cuda.current_stream(canvas.device).cuda_stream
+    with torch.cuda.device(canvas.device):
+        err = _entry(name)(canvas.data_ptr(), B, C, H, W, valid.data_ptr(),
+                           gu, gv, *ptrs, n_stages, NN, out0.data_ptr(),
+                           out1.data_ptr(), n_weak.data_ptr(), stream)
+    check(err, f"{name} kernel")
+
+
+def _device_kind(canvas: torch.Tensor) -> str:
+    kind = canvas.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"cascade: unsupported device {canvas.device}")
+    return kind
+
+
 def cascade_masked(canvas: torch.Tensor, valid: torch.Tensor,
                    ops: CascadeOperands
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -150,64 +190,66 @@ def cascade_masked(canvas: torch.Tensor, valid: torch.Tensor,
     ``hs`` where the window survived and -inf elsewhere, and per-image
     int32 ``n_weak`` and survivor ``count``."""
     gu, gv = _check(canvas, valid, ops)
-    if canvas.device.type == "cpu":
+    if _device_kind(canvas) == "cpu":
         return cascade_masked_plain(canvas, valid, ops)
-    if canvas.device.type != "cuda":
-        raise ValueError(f"cascade: unsupported device {canvas.device}")
     global cascade_launches
-    B, C, H, W = canvas.shape
-    dev = canvas.device
+    B, dev = canvas.shape[0], canvas.device
     masked = torch.empty((B, gu, gv), dtype=torch.float32, device=dev)
     count = torch.zeros(B, dtype=torch.int32, device=dev)
     n_weak = torch.zeros(B, dtype=torch.int32, device=dev)
-    T, NN = ops.sc.fr.shape
-    lib = load_library("cascade")
-    fn = lib.wb_cascade
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, ci, ci, ci, vp, ci, ci] + [vp] * 8 \
-        + [ci, ci, vp, vp, vp, vp]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(canvas.data_ptr(), B, C, H, W, valid.data_ptr(), gu, gv,
-                 ops.fr.data_ptr(), ops.fc.data_ptr(), ops.fch.data_ptr(),
-                 ops.thr.data_ptr(), ops.left.data_ptr(),
-                 ops.right.data_ptr(), ops.pred.data_ptr(),
-                 ops.theta.data_ptr(), T, NN, masked.data_ptr(),
-                 count.data_ptr(), n_weak.data_ptr(), stream)
-    check(err, "cascade kernel")
-    cascade_launches += 1
+    if B and gu and gv:
+        launch_response("wb_cascade", canvas, valid, ops.tables, ops.theta,
+                        ops.sc.n_stages, masked, count, n_weak)
+        cascade_launches += 1
     return masked, n_weak, count
 
 
 def cascade_masked_plain(canvas: torch.Tensor, valid: torch.Tensor,
                          ops: CascadeOperands
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain-torch version: every stage over every window in lockstep.
-    Survivors see exactly the kernel's sequence of f32 adds."""
-    gu, gv = _check(canvas, valid, ops)
-    B = canvas.shape[0]
-    sc = ops.sc
-    alive = valid.bool().unsqueeze(0).expand(B, gu, gv).clone()
-    hs = torch.zeros((B, gu, gv), dtype=torch.float32, device=canvas.device)
-    n_weak = torch.zeros(B, dtype=torch.int64, device=canvas.device)
-    theta = ops.theta.tolist()
-
-    def resp(t, node):
-        if sc.left[t, node] < 0:
-            return torch.tensor(float(sc.pred[t, node]), dtype=torch.float32,
-                                device=canvas.device)
-        r, c, ch = int(sc.fr[t, node]), int(sc.fc[t, node]), \
-            int(sc.fch[t, node])
-        go_left = canvas[:, ch, r:r + gu, c:c + gv] <= float(sc.thr[t, node])
-        return torch.where(go_left, resp(t, int(sc.left[t, node])),
-                           resp(t, int(sc.right[t, node])))
-
-    for t in range(sc.n_stages):
-        n_weak += alive.sum(dim=(1, 2))
-        hs = hs + resp(t, 0)
-        alive &= ~(hs < theta[t])
+    """Plain-torch version of :func:`cascade_masked` (kernel B3)."""
+    _check(canvas, valid, ops)
+    hs, alive, n_weak, _ = lockstep(canvas, valid, vars(ops.sc),
+                                    ops.plain_theta(), ops.sc.n_stages)
     masked = torch.where(alive, hs, torch.tensor(float("-inf"),
                                                  device=canvas.device))
-    return (masked, n_weak.to(torch.int32),
-            alive.sum(dim=(1, 2)).to(torch.int32))
+    return masked, n_weak, alive.sum(dim=(1, 2)).to(torch.int32)
+
+
+def _n_run(ops: CascadeOperands, n_stages_cap: Optional[int]) -> int:
+    T = ops.sc.n_stages
+    return T if n_stages_cap is None else max(min(T, int(n_stages_cap)), 0)
+
+
+def cascade_response(canvas: torch.Tensor, valid: torch.Tensor,
+                     ops: CascadeOperands, n_stages_cap: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(hs, alive, n_weak)`` of the first ``n_stages_cap`` stages (all
+    when None) at every window origin: (B, H - m, W - n) float32 and bool,
+    and per-image int32 ``n_weak``."""
+    gu, gv = _check(canvas, valid, ops)
+    if _device_kind(canvas) == "cpu":
+        return cascade_response_plain(canvas, valid, ops, n_stages_cap)
+    global cascade_response_launches
+    B, dev = canvas.shape[0], canvas.device
+    hs = torch.zeros((B, gu, gv), dtype=torch.float32, device=dev)
+    alive = torch.zeros((B, gu, gv), dtype=torch.bool, device=dev)
+    n_weak = torch.zeros(B, dtype=torch.int32, device=dev)
+    if B and gu and gv:
+        launch_response("wb_cascade_response", canvas, valid, ops.tables,
+                        ops.theta, _n_run(ops, n_stages_cap), hs, alive,
+                        n_weak)
+        cascade_response_launches += 1
+    return hs, alive, n_weak
+
+
+def cascade_response_plain(canvas: torch.Tensor, valid: torch.Tensor,
+                           ops: CascadeOperands,
+                           n_stages_cap: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain-torch version of :func:`cascade_response` (kernel B4)."""
+    _check(canvas, valid, ops)
+    hs, alive, n_weak, _ = lockstep(canvas, valid, vars(ops.sc),
+                                    ops.plain_theta(),
+                                    _n_run(ops, n_stages_cap))
+    return hs, alive, n_weak

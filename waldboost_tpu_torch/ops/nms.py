@@ -1,7 +1,8 @@
 """Survivor extraction and greedy NMS on the device (plain torch).
 
-Counterparts of ``waldboost_tpu/ops/nms.py::extract_detections_masked``
-and ``nms_device``; the JAX package has no Pallas kernel here.
+Counterparts of ``waldboost_tpu/ops/nms.py::extract_detections_masked``,
+``topk_detections`` and ``nms_device``; the JAX package has no Pallas
+kernel here.
 
 Extraction is an exact top-k: candidates are ordered by score descending,
 then by flat window-origin index ascending (a stable sort), so ``count ==
@@ -16,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["extract_detections", "nms"]
+__all__ = ["extract_detections", "topk_detections", "nms", "nms_device"]
 
 
 def extract_detections(masked: torch.Tensor, count: torch.Tensor,
@@ -48,6 +49,22 @@ def extract_detections(masked: torch.Tensor, count: torch.Tensor,
     rects = rects * inv_scales[lid].unsqueeze(2)
     rects = torch.where(valid.unsqueeze(2), rects, torch.zeros_like(rects))
     return rects, scores, valid, count
+
+
+def topk_detections(hs: torch.Tensor, alive: torch.Tensor,
+                    level_id: torch.Tensor, offsets: torch.Tensor,
+                    inv_scales: torch.Tensor, window: Tuple[int, int],
+                    k: int = 1024) -> Tuple[torch.Tensor, ...]:
+    """``(rects, scores, valid)`` of the k best survivors of (B, GU, GV)
+    ``hs`` and ``alive`` maps: :func:`extract_detections` over ``hs`` where
+    alive and -inf elsewhere (the order of ``lax.top_k``: lowest flat index
+    first among equal scores)."""
+    masked = torch.where(alive, hs, torch.tensor(float("-inf"),
+                                                 device=hs.device))
+    rects, scores, valid, _ = extract_detections(
+        masked, alive.sum(dim=(1, 2)), level_id, offsets, inv_scales, window,
+        k)
+    return rects, scores, valid
 
 
 def _iou_with(rects: torch.Tensor, area: torch.Tensor,
@@ -82,3 +99,7 @@ def nms(rects: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         remaining &= ~(active & sup)
         keep |= active & picked
     return keep
+
+
+#: the JAX package's name for :func:`nms`
+nms_device = nms
