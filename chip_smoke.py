@@ -2,9 +2,12 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's two paths on VGA frames (640x480, shrink 2, n_per_oct 8,
-smooth 1, grad_hist) with the committed models, and checks and times its
-five CUDA kernels (planes B1, grad_hist B2, cascade B3, cascade_response
-B4, cascade_generic B6):
+smooth 1, grad_hist) with the committed models and its BASELINE config-5
+path on 3840x2160 frames (FPGA integer channels grad_hist_4_u1+grad_mag_u1,
+C = 5, shrink 2, n_per_oct 4, smooth 0 and 1, the committed
+models/fpga_4k_*synth_64.pb), and checks and times its six CUDA kernels
+(planes B1, grad_hist B2, cascade B3, cascade_response B4, fpga B5,
+cascade_generic B6):
 
  1. prints torch/CUDA versions and the card's name and power limit;
  2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
@@ -31,15 +34,32 @@ B4, cascade_generic B6):
     every result checked against the committed JAX outputs
     (tests/data/torch_port_model_golden.npz) bitwise; all five kernels
     must have launched;
+ 5b. at the config-5 batch-8 shapes (4K noise, halo-0 plan, C = 5), each
+    kernel of that path against its plain version, bitwise: B1, B5 (the
+    composite kind, smooth 0 and 1), B3, and B4 for both FPGA models with
+    n_stages_cap None and the golden's prefix length; B5 also for each
+    single kind and the reversed composite on VGA planes; then the
+    config-5 path: counters
+    set to 0, both FPGA models and their prefixes (model_from_stages)
+    through make_batched_detector_boxes(k=1024, nms_iou=0.5),
+    Model.detect and make_batched_detector(n_stages_cap) on the seeded 4K
+    noise frames of tests/data/torch_port_fpga_golden.npz; counters read
+    (B1, B5, B3, B4 must have launched), then counts, n_weak, alive counts,
+    kept boxes and scores checked against that file bitwise;
  6. times each kernel against its plain version (CUDA events, in turns),
     each layer of the serving path, the serving path end to end (60
     batches of 8 per workload, MP/s, p50/p80), Model.detect and the
     three-model wt.detect (ms/frame, p50 of 30 frames) and
-    make_batched_detector (MP/s at batch 8, 30 batches); probes the host;
+    make_batched_detector (MP/s at batch 8, 30 batches); at config 5: B5
+    and B3 (C = 5) against their plain versions and bounds, and the
+    serving path end to end (k=128, NMS 0.5, smooth 0 and 1, MP/s with
+    p50/p80 over 20 batches of 8) and the peak device memory; probes the
+    host;
  7. traces 10 batches of each serving workload with torch.profiler and
     prints the device idle share and, per layer span (wb.*), host and
-    device time;
+    device time, and 3 batches of each config-5 workload likewise;
  8. prints the per-kernel JSON summary (launches from the Model-API path,
+    B5's from the config-5 path,
     max_abs_err, ms, plain_ms, bound_ms from this run's shapes), then the
     final ok line.
 
@@ -67,6 +87,10 @@ MODEL_NAMES = ("flagship_synth_64", "flagship_hard_64", "flagship_hard_256")
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_vga_golden.npz")
 MODEL_GOLDEN = os.path.join(ROOT, "tests", "data",
                             "torch_port_model_golden.npz")
+FPGA_GOLDEN = os.path.join(ROOT, "tests", "data",
+                           "torch_port_fpga_golden.npz")
+#: the committed BASELINE config-5 models (smooth 0, smooth 1)
+FPGA_MODELS = ("fpga_4k_synth_64", "fpga_4k_smooth_synth_64")
 
 # kernel name -> (module of its launch counter, counter attribute, CUDA
 # source, the TPU kernel's pallas_call it replaces)
@@ -84,6 +108,9 @@ KERNELS = {
                          "cascade_response_launches",
                          "waldboost_tpu_torch/csrc/cascade.cu",
                          "waldboost_tpu/ops/cascade_static.py:611"),
+    "fpga": ("waldboost_tpu_torch.ops.fpga", "fpga_launches",
+             "waldboost_tpu_torch/csrc/fpga.cu",
+             "waldboost_tpu/ops/channels_pallas.py:684"),
     "cascade_generic": ("waldboost_tpu_torch.ops.cascade",
                         "cascade_generic_launches",
                         "waldboost_tpu_torch/csrc/cascade.cu",
@@ -265,8 +292,9 @@ def trace_breakdown(trace, window):
 
 def sorted_rows(*cols):
     """(N, k) float32 rows of the given columns in lexicographic order."""
-    rows = np.concatenate([np.asarray(c, np.float32).reshape(len(c), -1)
-                           for c in cols], axis=1)
+    cols = [np.asarray(c, np.float32) for c in cols]
+    rows = np.concatenate([c[:, None] if c.ndim == 1 else c for c in cols],
+                          axis=1)
     return rows[np.lexsort(rows.T[::-1])]
 
 
@@ -276,6 +304,100 @@ def box_rows(boxes, *fields):
 
 def golden_split(g, key):
     return np.split(g[key + "_rows"], np.cumsum(g[key + "_counts"])[:-1])
+
+
+def fpga_frames(g):
+    """``(hw, frames)`` of the config-5 golden: its seeded uint8 noise."""
+    hw = tuple(int(v) for v in g["hw"])
+    frames = np.random.RandomState(int(g["seed"])).randint(
+        0, 256, (int(g["n_frames"]),) + hw).astype(np.uint8)
+    return hw, frames
+
+
+def fpga_path(wt, dev, g, models):
+    """Every config-5 call the golden ``g`` records, on ``dev``: per model
+    name the full cascade's and its prefix's make_batched_detector_boxes
+    outputs and Model.detect rows and counters, and make_batched_detector
+    (n_stages_cap) alive counts and n_weak, as numpy."""
+    import torch
+    hw, frames = fpga_frames(g)
+    images = torch.from_numpy(frames).to(dev)
+    k, iou = int(g["k"]), float(g["nms_iou"])
+
+    def detect_all(model):
+        out = []
+        for img in frames:
+            model.reset()
+            boxes = model.detect(img)
+            out.append((box_rows(boxes, "scores"), model.n_weak, model.n_loc))
+        return out
+
+    res = {}
+    for name, model in models.items():
+        P = int(g[name + "_prefix_stages"])
+        prefix = wt.model_from_stages(model.shape, model.channel_opts,
+                                      model.stages[:P], model.theta[:P],
+                                      device=dev)
+        full, _ = wt.make_batched_detector_boxes(model, hw, k=k, nms_iou=iou,
+                                                 device=dev)
+        pre, _ = wt.make_batched_detector_boxes(prefix, hw, k=k, nms_iou=iou,
+                                                device=dev)
+        cap, _ = wt.make_batched_detector(model, hw, n_stages_cap=P,
+                                          device=dev)
+        _, alive, cap_nw = cap(images)
+        res[name] = dict(
+            full=[a.cpu().numpy() for a in full(images)],
+            full_detect=detect_all(model),
+            prefix=[a.cpu().numpy() for a in pre(images)],
+            prefix_detect=detect_all(prefix),
+            cap=(alive.sum(dim=(1, 2)).cpu().numpy(), cap_nw.cpu().numpy()))
+    return res
+
+
+def check_fpga_path(g, res):
+    """Hold :func:`fpga_path`'s results to the golden, bitwise.  The boxes
+    NMS keeps are held to the JAX package's host NMS of the same survivors
+    (``kept_host``); whether JAX's device NMS kept the same is printed."""
+    for name, r in res.items():
+        _, _, _, count, n_weak = r["full"]
+        require(np.array_equal(count, g[name + "_full_count"])
+                and np.array_equal(n_weak, g[name + "_full_n_weak"]),
+                f"{name}: full-cascade survivors or n_weak differ from JAX")
+        for i, (rows, nw, nloc) in enumerate(r["full_detect"]):
+            require((len(rows), nw, nloc) == (
+                g[name + "_full_detect_counts"][i],
+                g[name + "_full_detect_n_weak"][i],
+                g[name + "_full_detect_n_loc"][i]),
+                f"{name} frame {i}: full Model.detect differs from JAX")
+        rects, scores, valid, count, n_weak = r["prefix"]
+        require(np.array_equal(count, g[name + "_prefix_count"])
+                and np.array_equal(n_weak, g[name + "_prefix_n_weak"]),
+                f"{name}: prefix survivors or n_weak differ from JAX")
+        agree = []
+        for b, (ref, dev_ref) in enumerate(zip(
+                golden_split(g, name + "_prefix_kept_host"),
+                golden_split(g, name + "_prefix_kept"))):
+            got = sorted_rows(rects[b][valid[b]], scores[b][valid[b]])
+            require(np.array_equal(got, sorted_rows(ref)),
+                    f"{name} frame {b}: prefix kept boxes differ from JAX")
+            agree.append(np.array_equal(got, sorted_rows(dev_ref)))
+        for i, (rows, det_ref) in enumerate(zip(
+                r["prefix_detect"], golden_split(g, name + "_prefix_detect"))):
+            require(np.array_equal(rows[0], sorted_rows(det_ref))
+                    and rows[1:] == (g[name + "_prefix_detect_n_weak"][i],
+                                     g[name + "_prefix_detect_n_loc"][i]),
+                    f"{name} frame {i}: prefix Model.detect differs from JAX")
+        alive, cap_nw = r["cap"]
+        require(np.array_equal(alive, g[name + "_cap_alive"])
+                and np.array_equal(cap_nw, g[name + "_cap_n_weak"]),
+                f"{name}: make_batched_detector(n_stages_cap) differs")
+        print(f"{name}: full cascade survivors {r['full'][3].tolist()}, "
+              f"Model.detect {[len(d[0]) for d in r['full_detect']]}; "
+              f"{int(g[name + '_prefix_stages'])}-stage prefix survivors "
+              f"{count.tolist()}, kept {valid.sum(1).tolist()} (JAX device "
+              f"NMS agrees: {agree}), Model.detect "
+              f"{[len(d[0]) for d in r['prefix_detect']]}, n_stages_cap alive "
+              f"{alive.tolist()}: bitwise equal to JAX")
 
 
 def main():
@@ -293,11 +415,13 @@ def main():
                            "test needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     import waldboost_tpu_torch as wt
-    from waldboost_tpu_torch import _build
-    from waldboost_tpu_torch.canvas import channel_canvas, window_grid
+    from waldboost_tpu_torch import _build, packing
+    from waldboost_tpu_torch.canvas import channel_canvas
+    from waldboost_tpu_torch.channels import resolve_channel_function
     from waldboost_tpu_torch.ops import cascade as gen_mod
     from waldboost_tpu_torch.ops import cascade_static as casc_mod
     from waldboost_tpu_torch.ops import channels as chan_mod
+    from waldboost_tpu_torch.ops import fpga as fpga_mod
     from waldboost_tpu_torch.ops import planes as plane_mod
     from waldboost_tpu_torch.ops.nms import extract_detections
     counters = {name: (importlib.import_module(mod), attr)
@@ -312,7 +436,7 @@ def main():
                 for name, (mod, attr) in counters.items()}
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    kind = torch.cuda.get_device_name(dev)
+    device_name = torch.cuda.get_device_name(dev)
     card = card_line()
     power_limit = card.split(",")[-1].strip()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -488,7 +612,7 @@ def main():
     torch.cuda.synchronize()
     path_launches = read_counters()
     print(f"Model-API path launches: {path_launches}")
-    require(all(v > 0 for v in path_launches.values()),
+    require(all(v > 0 for k, v in path_launches.items() if k != "fpga"),
             "a kernel of the Model-API path was not launched")
 
     for name, (per, scan, scan_n_weak) in api.items():
@@ -556,10 +680,87 @@ def main():
     print(f"make_batched_detector: survivors {alive_f.sum(dim=(1, 2)).tolist()}"
           f" of {alive_c.sum(dim=(1, 2)).tolist()} after 12 stages")
 
+    # -- phase 4b: kernel B5 and the config-5 path (3840x2160, C = 5) -------
+    fgold = np.load(FPGA_GOLDEN)
+    hw4k = tuple(int(v) for v in fgold["hw"])
+    require(hw4k == (2160, 3840), "the config-5 golden must be at 4K")
+    fmodels = {name: wt.load(os.path.join(ROOT, "models", name + ".pb"),
+                             device=dev) for name in FPGA_MODELS}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    noise4k = [torch.randint(0, 256, (BATCH,) + hw4k, generator=gen,
+                             dtype=torch.uint8, device=dev) for _ in range(2)]
+    dets4k = {name: wt.make_batched_detector_boxes(
+        mm, hw4k, k=128, nms_iou=0.5, device=dev)[0]
+        for name, mm in fmodels.items()}
+    c5 = {name: d.canvas for name, d in dets4k.items()}
+    det5 = dets4k[FPGA_MODELS[0]]
+    cs0 = c5[FPGA_MODELS[0]]
+    octs4k = cs0.octaves(noise4k[0])
+    planes4k = cs0.planes(octs4k)
+    print(f"config-5 plan: {len(det5.packed.levels)} levels, canvas "
+          f"{det5.packed.canvas_h}x{det5.packed.canvas_w}, halo "
+          f"{det5.packed.halo}, {int(det5.grid.valid.sum())} valid origins")
+    require(det5.packed.halo == 0, "the FPGA plan must have halo 0")
+    # B1 with no reflect halo: edge levels sit at the canvas border
+    check_phase("planes", f"planes 4K halo 0 batch {BATCH}", [planes4k],
+                [plane_mod.planes_plain(octs4k, cs0.plane_ops)])
+    canvas4k = {}
+    for name, cs in c5.items():
+        canvas4k[name] = cs.channels(planes4k)
+        want = fpga_mod.fpga_channels_plain(planes4k, cs.ring, cs.interior,
+                                            cs.cf.fused_kind, cs.smooth)
+        check_phase("fpga", f"fpga {cs.cf.fused_kind} smooth={cs.smooth} "
+                    f"4K batch {BATCH}", [canvas4k[name]], [want])
+    del want
+    vga4 = packing._packed_plan_cached(VGA[0], VGA[1], 2, 4, (12, 12),
+                                       halo=0)
+    for fkind in ("grad_hist_4_u1", "grad_mag_u1",
+                  "grad_mag_u1+grad_hist_4_u1"):
+        for sm in (0, 1):
+            cs = channel_canvas(vga4, VGA, sm,
+                                resolve_channel_function(fkind), dev)
+            pv = cs.planes(cs.octaves(noise[0]))
+            check_phase("fpga", f"fpga {fkind} smooth={sm} VGA batch {BATCH}",
+                        [cs.channels(pv)],
+                        [fpga_mod.fpga_channels_plain(pv, cs.ring, cs.interior,
+                                                      fkind, sm)])
+    casc5 = det5.cascade(canvas4k[FPGA_MODELS[0]])
+    check_phase("cascade", f"cascade C=5 4K batch {BATCH}", casc5,
+                casc_mod.cascade_masked_plain(canvas4k[FPGA_MODELS[0]],
+                                              det5.grid.valid,
+                                              det5.cascade_ops))
+    print(f"config-5 noise batch: survivors {casc5[2].tolist()}, n_weak "
+          f"{casc5[1].tolist()}")
+    # B4 at C = 5 on each model's 4K canvas: all stages and the golden's
+    # prefix length (the n_stages_cap of make_batched_detector)
+    for name, mm in fmodels.items():
+        ops5 = mm._operands(dev)
+        for cap in (None, int(fgold[name + "_prefix_stages"])):
+            got = casc_mod.cascade_response(canvas4k[name],
+                                            dets4k[name].grid.valid, ops5, cap)
+            want = casc_mod.cascade_response_plain(
+                canvas4k[name], dets4k[name].grid.valid, ops5, cap)
+            check_phase("cascade_response", f"cascade_response C=5 4K {name} "
+                        f"cap={cap} batch {BATCH}", got, want)
+            print(f"  alive {got[1].sum(dim=(1, 2)).tolist()}, n_weak "
+                  f"{got[2].tolist()}")
+    del got, want
+
+    zero_counters()
+    fres = fpga_path(wt, dev, fgold, fmodels)
+    torch.cuda.synchronize()
+    fpga_launches = read_counters()
+    print(f"config-5 path launches: {fpga_launches}")
+    require(all(fpga_launches[k] > 0 for k in ("planes", "fpga", "cascade",
+                                               "cascade_response")),
+            "a kernel of the config-5 path was not launched")
+    check_fpga_path(fgold, fres)
+
     # -- phase 5: timing and the host --------------------------------------
     def metric(name, value, unit):
         print(json.dumps({"metric": name, "value": value, "unit": unit,
-                          "device": kind, "power_limit": power_limit}))
+                          "device": device_name,
+                          "power_limit": power_limit}))
 
     timing = {}
     ops_synth = synth._operands(dev)
@@ -583,12 +784,28 @@ def main():
             lambda: gen_mod.cascade_response_grid_plain(
                 canvas, casc_synth, (12, 12), grid.valid)),
     }
+    name0, name1 = FPGA_MODELS
+    calls.update({
+        "fpga": (lambda: c5[name0].channels(planes4k),
+                 lambda: fpga_mod.fpga_channels_plain(
+                     planes4k, c5[name0].ring, None, c5[name0].cf.fused_kind,
+                     0)),
+        "fpga_smooth": (lambda: c5[name1].channels(planes4k),
+                        lambda: fpga_mod.fpga_channels_plain(
+                            planes4k, c5[name1].ring, c5[name1].interior,
+                            c5[name1].cf.fused_kind, 1)),
+        "cascade_c5": (lambda: det5.cascade(canvas4k[name0]),
+                       lambda: casc_mod.cascade_masked_plain(
+                           canvas4k[name0], det5.grid.valid,
+                           det5.cascade_ops)),
+    })
     for name, (kern, plain) in calls.items():
         # plain, kernel, kernel, plain: both orders inside one call
-        p1 = cuda_ms(plain, 3)
-        k1 = cuda_ms(kern, 20)
-        k2 = cuda_ms(kern, 20)
-        p2 = cuda_ms(plain, 3)
+        big = name in ("fpga", "fpga_smooth", "cascade_c5")
+        p1 = cuda_ms(plain, 1 if big else 3)
+        k1 = cuda_ms(kern, 10 if big else 20)
+        k2 = cuda_ms(kern, 10 if big else 20)
+        p2 = cuda_ms(plain, 1 if big else 3)
         timing[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         metric(f"{name}_kernel_us_per_image", timing[name][0] * 1e3 / BATCH,
                "us/image")
@@ -624,27 +841,47 @@ def main():
                                         casc_synth.theta, casc_synth.active)
                                  + resp_out, f32_ops=4 * nw_synth),
     }
+    # B5: integer work counted at the f32 rate, per pooled pixel the four
+    # Sobel pairs (56 operations) and per channel the four responses,
+    # quantizations, selects and the wrap pool (25), plus the smooth (18)
+    n_pix = BATCH * det5.packed.canvas_h * det5.packed.canvas_w
+    n_out = c5[name0].cf.n_channels
+    canvas5 = canvas4k[name0]
+    bounds["fpga"] = bound(nbytes(planes4k, c5[name0].ring, canvas5),
+                           f32_ops=n_pix * (56 + 25 * n_out))
+    bounds["fpga_smooth"] = bound(
+        nbytes(planes4k, c5[name1].ring, c5[name1].interior, canvas5),
+        f32_ops=n_pix * (56 + 43 * n_out))
+    bounds["cascade_c5"] = bound(nbytes(canvas5, det5.grid.valid, *casc5,
+                                        *det5.cascade_ops.tables,
+                                        det5.cascade_ops.theta),
+                                 f32_ops=4 * int(casc5[1].sum()))
     for name, (ms, what) in bounds.items():
         metric(f"{name}_bound_us_per_image", ms * 1e3 / BATCH, "us/image")
         print(f"{name}: bound by {what}; kernel at "
               f"{bounds[name][0] / timing[name][0]:.3f} of its bound")
 
-    # per-layer device time on the noise batch (k=1024 detector); the
-    # extraction is timed with and without the NMS that follows it
-    count_dev = casc[2]
-    layers = {
-        "octaves": lambda: cstep.octaves(noise[1]),
-        "planes": lambda: cstep.planes(octs),
-        "channels": lambda: cstep.channels(planes),
-        "cascade": lambda: det.cascade(canvas),
-        "extract": lambda: extract_detections(
-            masked, count_dev, grid.level_id, grid.offsets, grid.inv_scales,
-            det.window, det.k),
-        "extract_nms": lambda: det.extract(masked, count_dev),
-    }
-    for name, fn in layers.items():
-        metric(f"layer_{name}_us_per_image",
-               cuda_ms(fn, 10) * 1e3 / BATCH, "us/image")
+    # per-layer device time on the noise batch (k=1024 detector, and the
+    # config-5 smooth-0 k=128 detector); the extraction is timed with and
+    # without the NMS that follows it
+    for prefix, d, cs, imgs, o, p, cv, (mk, _, cnt) in (
+            ("", det, cstep, noise[1], octs, planes, canvas, casc),
+            ("c5_", det5, c5[name0], noise4k[1], octs4k, planes4k, canvas5,
+             casc5)):
+        g = d.grid
+        layers = {
+            "octaves": lambda: cs.octaves(imgs),
+            "planes": lambda: cs.planes(o),
+            "channels": lambda: cs.channels(p),
+            "cascade": lambda: d.cascade(cv),
+            "extract": lambda: extract_detections(
+                mk, cnt, g.level_id, g.offsets, g.inv_scales, d.window, d.k),
+            "extract_nms": lambda: d.extract(mk, cnt),
+        }
+        for name, fn in layers.items():
+            metric(f"{prefix}layer_{name}_us_per_image",
+                   cuda_ms(fn, 10 if not prefix else 3) * 1e3 / BATCH,
+                   "us/image")
 
     def e2e(workload, fn_, batches, reps=60):
         """Host clock per batch call, each ending in a synchronize."""
@@ -679,6 +916,14 @@ def main():
            torch.cuda.max_memory_allocated(dev) / 2 ** 20, "MiB")
     e2e("batched_detector_vga_scene", fn_full,
         [scene, torch.flip(scene, dims=[2])], reps=30)
+    # config 5 as bench.py runs it: k=128, NMS 0.5, uniform noise
+    workloads5 = {"fpga_4k_quantized_k128": (dets4k[name0], noise4k),
+                  "fpga_4k_smooth_k128": (dets4k[name1], noise4k)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for workload, (fn_, batches) in workloads5.items():
+        e2e(workload, fn_, batches, reps=20)
+    metric("c5_peak_device_memory_mib",
+           torch.cuda.max_memory_allocated(dev) / 2 ** 20, "MiB")
 
     def per_frame(name, fn_, n=30):
         """Host clock per call on one numpy frame, p50 over ``n`` frames
@@ -705,13 +950,15 @@ def main():
     from torch.profiler import ProfilerActivity, profile, record_function
     trace_dir = args.trace_dir or tempfile.mkdtemp(prefix="wb_trace_")
     os.makedirs(trace_dir, exist_ok=True)
-    for workload, (fn_, batches) in workloads.items():
+    n_traced = dict.fromkeys(workloads, 10)
+    n_traced.update(dict.fromkeys(workloads5, 3))
+    for workload, (fn_, batches) in {**workloads, **workloads5}.items():
         fn_(batches[0])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function("smoke.window"):
-                for r in range(10):
+                for r in range(n_traced[workload]):
                     fn_(batches[r % len(batches)])
                     torch.cuda.synchronize()
         path = os.path.join(trace_dir, f"{workload}.json")
@@ -720,7 +967,8 @@ def main():
             bd = trace_breakdown(json.load(f), "smoke.window")
         if args.trace_dir is None:
             os.remove(path)
-        print(f"trace {workload}: 10 batches in {bd['window_ms']:.3f} ms, "
+        print(f"trace {workload}: {n_traced[workload]} batches in "
+              f"{bd['window_ms']:.3f} ms, "
               f"device busy {bd['device_busy_ms']:.3f} ms "
               f"({bd['n_device_events']} device events)")
         for layer, t in bd["layers"].items():
@@ -735,15 +983,17 @@ def main():
     if args.trace_dir is None:
         os.rmdir(trace_dir)
 
+    # launches: the Model-API path's, and B5's from the config-5 path
+    launches = dict(path_launches, fpga=fpga_launches["fpga"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": path_launches[name], "max_abs_err": errs[name],
+         "launches": launches[name], "max_abs_err": errs[name],
          "ms": timing[name][0], "plain_ms": timing[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}
         for name, (_, _, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
 
 

@@ -23,6 +23,7 @@ from waldboost_tpu_torch.canvas import channel_canvas, window_grid
 from waldboost_tpu_torch.ops import cascade as tc
 from waldboost_tpu_torch.ops import cascade_static as tcs
 from waldboost_tpu_torch.ops import channels as tcc
+from waldboost_tpu_torch.ops import fpga as tfp
 from waldboost_tpu_torch.ops import planes as tpl
 
 torch.set_num_threads(1)
@@ -93,6 +94,64 @@ def test_grad_hist_any_mask_on_card(cuda, hw):
     assert torch.equal(got, want)
 
 
+FPGA_KINDS = ("grad_hist_4_u1", "grad_mag_u1", "grad_hist_4_u1+grad_mag_u1",
+              "grad_mag_u1+grad_hist_4_u1")
+
+
+@pytest.mark.parametrize("hw", [(96, 128), (480, 640)])
+def test_fpga_kernel_matches_plain_on_card(cuda, hw):
+    """B5 bitwise against its plain version on the planes and masks of a
+    real halo-0 plan, every kind and smooth."""
+    packed = packing._packed_plan_cached(hw[0], hw[1], 2, 4, (12, 12),
+                                         halo=0)
+    imgs = _frames(3, hw, seed=6).to(cuda)
+    for kind in FPGA_KINDS:
+        for smooth in (0, 1):
+            step = channel_canvas(packed, hw, smooth,
+                                  tch.resolve_channel_function(kind), cuda)
+            planes = step.planes(step.octaves(imgs))
+            got = tfp.fpga_channels(planes, step.ring, step.interior, kind,
+                                    smooth)
+            want = tfp.fpga_channels_plain(planes, step.ring, step.interior,
+                                           kind, smooth)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kind, smooth)
+
+
+@pytest.mark.parametrize("hw", [(37, 45), (64, 96)])
+def test_fpga_any_mask_on_card(cuda, hw):
+    # random masks reaching the canvas border: the Sobel and the smooth
+    # read zeros outside the canvas in both versions
+    rng = np.random.RandomState(7)
+    planes = torch.from_numpy(rng.randint(0, 256, (2, 2, 2) + hw)
+                              .astype(np.uint8)).to(cuda)
+    ring = torch.from_numpy((rng.rand(2, 2, *hw) < 0.8).astype(np.uint8)) \
+        .to(cuda)
+    interior = torch.ones(hw, dtype=torch.uint8, device=cuda)
+    for kind in FPGA_KINDS:
+        for smooth in (0, 1):
+            mask = interior if smooth else None
+            got = tfp.fpga_channels(planes, ring, mask, kind, smooth)
+            want = tfp.fpga_channels_plain(planes, ring, mask, kind, smooth)
+            assert torch.equal(got, want), (kind, smooth)
+
+
+def test_fpga_slice_on_card_matches_cpu(cuda):
+    path = os.path.join(ROOT, "models", "fpga_4k_synth_64.pb")
+    full = wt.load(path, device="cpu")
+    model = wt.model_from_stages(full.shape, full.channel_opts,
+                                 full.stages[:10], full.theta[:10])
+    imgs = _frames(2, (240, 320), seed=8)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        fn, _ = wt.make_batched_detector_boxes(model, (240, 320), k=512,
+                                               nms_iou=0.5, device=dev)
+        outs.append([a.cpu() for a in fn(imgs.to(dev))])
+    assert int(outs[1][3].sum()) > 0
+    for g, w_ in zip(*outs):
+        assert torch.equal(g, w_)
+
+
 def test_slice_on_card_matches_cpu(cuda):
     model = wt.load(FLAGSHIP)
     imgs = _frames(4, (96, 128), seed=2)
@@ -147,7 +206,8 @@ def test_response_kernels_match_plain_on_card(cuda, hw, npo):
     origin, alive, n_weak."""
     packed = packing._packed_plan_cached(hw[0], hw[1], 2, npo, (12, 12),
                                          halo=1)
-    canvas = channel_canvas(packed, hw, 1, cuda)(_frames(3, hw, 4).to(cuda))
+    canvas = channel_canvas(packed, hw, 1, tch.grad_hist,
+                            cuda)(_frames(3, hw, 4).to(cuda))
     valid = window_grid(packed, (12, 12), cuda).valid
     models = [wt.load(FLAGSHIP, device=cuda), wt.load(HARD256, device=cuda),
               _deep_model(cuda)]

@@ -153,7 +153,10 @@ def test_port_import_leaves_jax_out():
             "waldboost_tpu_torch.canvas, waldboost_tpu_torch.device, "
             "waldboost_tpu_torch.ops.cascade, "
             "waldboost_tpu_torch.ops.cascade_static, "
-            "waldboost_tpu_torch.ops.nms; "
+            "waldboost_tpu_torch.ops.nms, waldboost_tpu_torch.fpga, "
+            "waldboost_tpu_torch.ops.fpga; "
+            "waldboost_tpu_torch.channels.resolve_channel_function("
+            "'grad_hist_4_u1+grad_mag_u1'); "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'waldboost_tpu', 'google')); "
@@ -167,7 +170,7 @@ def test_port_import_leaves_jax_out():
 
 def test_unported_options_raise():
     _, tm = make_model_pair(n_stages=2)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A14"):
         tch.resolve_channel_function("grad_mag")
     for kwargs, item in ((dict(mesh=object()), "A11"),
                          (dict(two_phase=True), "A13"),

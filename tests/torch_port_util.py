@@ -25,15 +25,17 @@ from chip_smoke import random_deep_stage  # noqa: E402  (numpy only)
 
 
 def make_model_pair(n_stages=8, shape=(8, 8, 4), seed=0, n_per_oct=2,
-                    smooth=1, thr_max=300.0, depth=None, open_stages=0):
-    """A JAX model with ``n_stages`` random depth-2 trees (or trees
-    ``depth`` deep) whose thresholds span the grad_hist value range of
-    noise frames (so the trees route both ways), every odd stage from
+                    smooth=1, thr_max=300.0, depth=None, open_stages=0,
+                    channels="grad_hist"):
+    """A JAX model over ``channels`` with ``n_stages`` random depth-2 trees
+    (or trees ``depth`` deep) whose thresholds are uniform in ``[0,
+    thr_max)`` (the default spans the grad_hist value range of noise
+    frames, so the trees route both ways), every odd stage from
     ``open_stages`` on rejecting, and the same cascade carried into the
     port with ``model_from_stages`` (on the CPU)."""
     rng = np.random.RandomState(seed)
     opts = dict(shrink=2, n_per_oct=n_per_oct, smooth=smooth,
-                channels="grad_hist")
+                channels=channels)
     model = wb.Model(shape, opts)
     for t in range(n_stages):
         s = random_stage(rng, shape[:2], shape[2]) if depth is None \

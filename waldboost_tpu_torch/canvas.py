@@ -1,17 +1,21 @@
 """The channel-canvas step and the window grid every serving path shares.
 
 :class:`ChannelCanvas` turns a (B, H, W) uint8 batch into the packed
-(B, 4, Hc, Wc) float32 grad_hist canvas of one packed pyramid plan:
+(B, C, Hc, Wc) float32 channel canvas of one packed pyramid plan and one
+channel function:
 
     octaves   uint8 octave chain, flattened (channels.py, integer torch)
     planes    polyphase planes of every level      (kernel B1, ops/planes.py)
-    channels  pooled, smoothed grad_hist canvas    (kernel B2, ops/channels.py)
+    channels  pooled, smoothed channel canvas: grad_hist (C = 4, kernel B2,
+              ops/channels.py) or the FPGA integer family and its "+"
+              composites (kernel B5, ops/fpga.py)
 
 :class:`WindowGrid` holds one window shape's view of that canvas: the valid
 mask of window origins and the level maps that turn an origin into an
 image-space box.  Both are built once per (plan, frame size or window,
-device) and cached, so ``Model``, ``make_batched_detector``,
-``make_batched_detector_boxes`` and the multi-model paths share them.
+channel function, device) and cached, so ``Model``,
+``make_batched_detector``, ``make_batched_detector_boxes`` and the
+multi-model paths share them.
 
 While a torch profiler runs, each step runs inside a ``record_function``
 span named ``wb.<step>``, so a trace attributes host and device time to
@@ -29,7 +33,10 @@ import torch
 from torch.profiler import record_function
 
 from .channels import ChannelFunction, _normalize_opts, octave_chain
+from .channels import grad_hist as grad_hist_cf  # the ops module's name
+from .fpga.channels import fpga_kernel_masks
 from .ops.channels import grad_hist
+from .ops.fpga import fpga_channels
 from .ops.planes import PlaneOperands, octave_buffer, planes
 from .packing import PackedPyramidPlan
 from .polyphase import plane_tables
@@ -54,6 +61,9 @@ def serving_opts(channel_opts: dict, n_channels: int
     if shrink != 2:
         raise NotImplementedError("only the shrink=2 polyphase pipeline is "
                                   "ported (ROADMAP item A2)")
+    if cf.fused_kind is None and cf != grad_hist_cf:
+        raise NotImplementedError(f"the canvas of {cf.name} is not ported "
+                                  "yet (ROADMAP item A14)")
     if n_channels != cf.n_channels:
         raise ValueError(f"model window has {n_channels} channels, {cf.name} "
                          f"makes {cf.n_channels}")
@@ -74,22 +84,32 @@ def as_image(image, ndim: int = 2) -> np.ndarray:
 
 
 class ChannelCanvas:
-    """octaves -> planes (B1) -> grad_hist canvas (B2) of one packed plan
-    for ``image_shape`` frames on one device."""
+    """octaves -> planes (B1) -> channel canvas (B2 for grad_hist, B5 for
+    the FPGA family) of one packed plan and channel function ``cf`` for
+    ``image_shape`` frames on one device."""
 
     def __init__(self, packed: PackedPyramidPlan, image_shape: Tuple[int, int],
-                 smooth: int, device: torch.device):
+                 smooth: int, cf: ChannelFunction, device: torch.device):
         self.packed = packed
         self.image_shape = tuple(image_shape)
         self.smooth = smooth
+        self.cf = cf
         self.device = device
-        # the packer's (even) reflect halo is baked into the plane taps
-        tables = plane_tables(packed, packed.halo, self.image_shape)
+        # the packer's (even) reflect halo is baked into the plane taps of
+        # reflect-boundary functions; the FPGA family reads zeros instead
+        halo = packed.halo if cf.boundary == "reflect" and cf.halo > 0 else 0
+        tables = plane_tables(packed, halo, self.image_shape)
         self.plane_ops = PlaneOperands.build(tables, device)
         self.n_octaves = len(tables.oct_hw)
-        self.interior = torch.as_tensor(
-            packed.smooth_interior_mask().astype(np.uint8), device=device) \
-            if smooth == 1 else None
+        if cf.fused_kind is not None:
+            ring, interior = fpga_kernel_masks(packed, smooth)
+        else:
+            ring = None
+            interior = packed.smooth_interior_mask().astype(np.uint8) \
+                if smooth == 1 else None
+        self.ring, self.interior = (
+            None if a is None else torch.as_tensor(a, device=device)
+            for a in (ring, interior))
 
     def octaves(self, images: torch.Tensor) -> torch.Tensor:
         return octave_buffer(octave_chain(images, self.n_octaves))
@@ -98,10 +118,13 @@ class ChannelCanvas:
         return planes(octs, self.plane_ops)
 
     def channels(self, plane_canvas: torch.Tensor) -> torch.Tensor:
+        if self.cf.fused_kind is not None:
+            return fpga_channels(plane_canvas, self.ring, self.interior,
+                                 self.cf.fused_kind, self.smooth)
         return grad_hist(plane_canvas, self.interior, self.smooth)
 
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, 4, Hc, Wc) float32 canvas of a (B, H, W) uint8 batch."""
+        """(B, C, Hc, Wc) float32 canvas of a (B, H, W) uint8 batch."""
         with span("wb.octaves"):
             octs = self.octaves(images)
         with span("wb.planes"):
@@ -112,8 +135,9 @@ class ChannelCanvas:
 
 @functools.lru_cache(maxsize=32)
 def channel_canvas(packed: PackedPyramidPlan, image_shape: Tuple[int, int],
-                   smooth: int, device: torch.device) -> ChannelCanvas:
-    return ChannelCanvas(packed, image_shape, smooth, device)
+                   smooth: int, cf: ChannelFunction,
+                   device: torch.device) -> ChannelCanvas:
+    return ChannelCanvas(packed, image_shape, smooth, cf, device)
 
 
 class WindowGrid:

@@ -2,57 +2,114 @@
 
 Counterpart of ``waldboost_tpu/channels.py``.  The pyramid plan is the same
 host arithmetic (level sizes snapped with ``int((w*s)/shrink)*shrink``), and
-the registry knows the channel functions the port serves.  The octave
-chain is plain integer torch on the caller's device.
+the registry knows the channel functions the port serves: ``grad_hist``
+here, the FPGA integer family in ``fpga/channels.py`` (imported at the
+first lookup that misses), and ``"a+b"`` composites of either family.  The
+octave chain is plain integer torch on the caller's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Tuple
+import importlib
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 __all__ = ["ChannelFunction", "Level", "grad_hist", "pyramid_plan",
-           "resolve_channel_function", "octave_chain"]
+           "register_channel_function", "resolve_channel_function",
+           "compose_channel_functions", "octave_chain"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ChannelFunction:
     """What the port needs to know of a channel function: its canonical
-    name (written into saved models), channel count, and the image-space
-    reflect halo its stencils read around each level."""
+    name (written into saved models), channel count, the image-space halo
+    its stencils read around each level, how a level's edge is read
+    (``boundary``: ``"reflect"`` halos or the FPGA family's
+    ``"stencil_zero"`` ring), and the FPGA response kind (``fused_kind``,
+    kernel B5's ``kind``; None for the float family)."""
 
     name: str
     n_channels: int
     aliases: Tuple[str, ...] = ()
     halo: int = 1
+    boundary: str = "reflect"
+    fused_kind: Optional[str] = None
 
 
-grad_hist = ChannelFunction(
+_REGISTRY: Dict[str, ChannelFunction] = {}
+
+#: names of the JAX package's float ``grad_mag``, whose canvas is not ported
+_UNPORTED = ("waldboost_tpu.channels.grad_mag", "grad_mag",
+             "waldboost.channels.grad_mag", "waldboost.nb_channels.grad_mag")
+
+
+def register_channel_function(cf: ChannelFunction) -> ChannelFunction:
+    for key in (cf.name,) + tuple(cf.aliases):
+        _REGISTRY[key] = cf
+    return cf
+
+
+grad_hist = register_channel_function(ChannelFunction(
     name="waldboost_tpu.channels.grad_hist",
     n_channels=4,
     aliases=("grad_hist", "waldboost.channels.grad_hist",
              "waldboost.nb_channels.grad_hist"),
     halo=1,
-)
-
-_REGISTRY = {key: cf for cf in (grad_hist,)
-             for key in (cf.name,) + cf.aliases}
+))
 
 
 def resolve_channel_function(name_or_cf) -> ChannelFunction:
-    """Registry lookup by name.  Objects with a ``name`` attribute (such as
-    the JAX package's channel functions) resolve by that name."""
+    """Registry lookup by name, as the JAX package resolves it.  Objects
+    with a ``name`` attribute (such as the JAX package's channel functions)
+    resolve by that name; ``"a+b"`` names resolve to
+    :func:`compose_channel_functions`."""
     if isinstance(name_or_cf, ChannelFunction):
         return name_or_cf
     name = getattr(name_or_cf, "name", name_or_cf)
     if name not in _REGISTRY:
+        # the FPGA family registers on import; pull it in lazily so a saved
+        # model loads without the caller importing it
+        importlib.import_module(__package__ + ".fpga.channels")
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if name in _UNPORTED:
         raise NotImplementedError(
-            f"channel function {name!r} is not ported yet (ROADMAP item A7); "
-            f"the port serves {sorted(_REGISTRY)}")
-    return _REGISTRY[name]
+            f"channel function {name!r} is not ported yet: the float "
+            f"grad_mag canvas is ROADMAP item A14")
+    if isinstance(name, str) and "+" in name:
+        return compose_channel_functions(*name.split("+"))
+    raise KeyError(f"Unknown channel function {name!r}. Registered: "
+                   f"{sorted(set(cf.name for cf in _REGISTRY.values()))}")
+
+
+def compose_channel_functions(*parts) -> ChannelFunction:
+    """Channel functions stacked along the channel axis in argument order,
+    registered under ``"+".join`` of the parts' canonical names (the name
+    the JAX package writes into model files) with the given spelling as an
+    alias.  FPGA parts compose into one B5 kind."""
+    cfs = [resolve_channel_function(p) for p in parts]
+    if len(cfs) < 2:
+        raise ValueError("a composite needs at least two channel functions")
+    name = "+".join(cf.name for cf in cfs)
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if any(cf.boundary != cfs[0].boundary for cf in cfs):
+        raise ValueError("composed channel functions must share a boundary "
+                         "convention")
+    fused = None
+    if all(cf.fused_kind is not None for cf in cfs):
+        fused = "+".join(cf.fused_kind for cf in cfs)
+    return register_channel_function(ChannelFunction(
+        name=name,
+        n_channels=sum(cf.n_channels for cf in cfs),
+        aliases=("+".join(getattr(p, "name", p) for p in parts),),
+        halo=max(cf.halo for cf in cfs),
+        boundary=cfs[0].boundary,
+        fused_kind=fused,
+    ))
 
 
 @dataclasses.dataclass(frozen=True)

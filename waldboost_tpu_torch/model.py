@@ -17,9 +17,10 @@ with ``device="cpu"``.
 The detection paths:
 
 * ``detect``, ``detect_topk`` and :func:`detect_multi`: channel canvas
-  (kernels B1, B2), then kernel B4 over every stage.  JAX's ``detect``
-  takes a two-phase path for cascades longer than 12 stages (a 12-stage
-  prefix, top-4096 compaction, then the suffix on the compacted windows)
+  (kernels B1 and B2, or B5 for the FPGA channels), then kernel B4 over
+  every stage.  JAX's ``detect`` takes a two-phase path for cascades
+  longer than 12 stages (a 12-stage prefix, top-4096 compaction, then
+  the suffix on the compacted windows)
   because the TPU's gathers and device-to-host link are slow (ROADMAP
   A13); it returns the same survivors, scores and n_weak whenever it does
   not overflow, and falls back to the dense path when it does.  The port
@@ -42,7 +43,8 @@ from . import boxes as bbx
 from . import model_io
 from .boxes import Boxes
 from .canvas import as_image, channel_canvas, serving_opts, window_grid
-from .channels import _normalize_opts, resolve_channel_function
+from .channels import (ChannelFunction, _normalize_opts,
+                       resolve_channel_function)
 from .device import resolve_device
 from .ops.cascade import (Cascade, CascadeMeta, cascade_from_stages,
                           cascade_predict_samples, cascade_response_grid,
@@ -93,14 +95,15 @@ def _empty():
     return bbx.empty_boxes(scores=np.empty(0, np.float32))
 
 
-def _canvas(images: np.ndarray, packed, smooth, dev) -> torch.Tensor:
+def _canvas(images: np.ndarray, packed, smooth, cf, dev) -> torch.Tensor:
     """(B, C, Hc, Wc) canvas of a (B, H, W) uint8 numpy batch."""
-    step = channel_canvas(packed, images.shape[1:], smooth, dev)
+    step = channel_canvas(packed, images.shape[1:], smooth, cf, dev)
     return step(torch.from_numpy(np.ascontiguousarray(images)).to(dev))
 
 
-def shared_plan(models, image_hw) -> Tuple[PackedPyramidPlan, int]:
-    """``(packed, smooth)`` of the one canvas several models scan: they
+def shared_plan(models, image_hw
+                ) -> Tuple[PackedPyramidPlan, int, ChannelFunction]:
+    """``(packed, smooth, cf)`` of the one canvas several models scan: they
     must share channel options, and the plan is made for their
     elementwise-minimum window, so every model's levels exist."""
     key0 = _normalize_opts(models[0].channel_opts)
@@ -114,7 +117,7 @@ def shared_plan(models, image_hw) -> Tuple[PackedPyramidPlan, int]:
               min(mm.shape[1] for mm in models))
     packed = _packed_plan_cached(int(image_hw[0]), int(image_hw[1]), shrink,
                                  n_per_oct, window, halo=cf.halo)
-    return packed, smooth
+    return packed, smooth, cf
 
 
 @dataclasses.dataclass
@@ -297,23 +300,26 @@ class Model:
         return out
 
     # -- the packed pyramid ---------------------------------------------------
-    def _plan(self, image_hw) -> Tuple[PackedPyramidPlan, int]:
+    def _plan(self, image_hw
+              ) -> Tuple[PackedPyramidPlan, int, ChannelFunction]:
+        """``(packed, smooth, cf)``: the packed plan of ``image_hw`` frames
+        for this window, and the channel options the canvas needs."""
         m, n, C = self.shape
         shrink, n_per_oct, smooth, cf = serving_opts(self.channel_opts, C)
         packed = _packed_plan_cached(int(image_hw[0]), int(image_hw[1]),
                                      shrink, n_per_oct, (m, n), halo=cf.halo)
-        return packed, smooth
+        return packed, smooth, cf
 
     def _scan_setup(self, images: np.ndarray):
         """``(packed, grid, canvas)`` of a (B, H, W) uint8 numpy batch on
         the model's device: the plan, this window's grid and the (B, C, Hc,
         Wc) canvas; None when the frames are too small for any level."""
-        packed, smooth = self._plan(images.shape[1:])
+        packed, smooth, cf = self._plan(images.shape[1:])
         if not packed.levels:
             return None
         dev = self.device
         grid = window_grid(packed, self.shape[:2], dev)
-        return packed, grid, _canvas(images, packed, smooth, dev)
+        return packed, grid, _canvas(images, packed, smooth, cf, dev)
 
     def _dense(self, image):
         """Canvas and kernel B4 over every stage for one image: ``(packed,
@@ -505,12 +511,12 @@ def detect_multi(models, image, response_scale=None, device=None) -> Boxes:
     image = as_image(image)
     if response_scale is None:
         response_scale = [1.0] * len(models)
-    packed, smooth = shared_plan(models, image.shape)
+    packed, smooth, cf = shared_plan(models, image.shape)
     if not packed.levels:
         return bbx.empty_boxes(scores=np.empty(0, np.float32),
                                label=np.empty(0, np.int64))
     dev = models[0]._device_for(device)
-    canvas = _canvas(image[None], packed, smooth, dev)
+    canvas = _canvas(image[None], packed, smooth, cf, dev)
     out = []
     for kix, mm in enumerate(models):
         grid = window_grid(packed, mm.shape[:2], dev)

@@ -195,6 +195,22 @@ class PackedPyramidPlan:
                                  canvas_w=canvas_w, shrink=shrink, halo=halo,
                                  window=(m, n), bands=bands)
 
+    def image_canvas_shape(self) -> Tuple[int, int]:
+        return self.canvas_h * self.shrink, self.canvas_w * self.shrink
+
+    def stencil_border_mask(self) -> np.ndarray:
+        """Image-space bool mask: True strictly inside each level (1px ring
+        excluded) — the FPGA stencils' zero-border convention."""
+        H, W = self.image_canvas_shape()
+        mask = np.zeros((H, W), bool)
+        s = self.shrink
+        for pl in self.levels:
+            y, x = pl.y * s, pl.x * s
+            h, w = pl.level.height, pl.level.width
+            if h > 2 and w > 2:
+                mask[y + 1:y + h - 1, x + 1:x + w - 1] = True
+        return mask
+
     def smooth_interior_mask(self) -> np.ndarray:
         """Channel-space bool mask: True strictly inside each level's channel
         rect (1px ring excluded) — the per-level smooth's zero border."""

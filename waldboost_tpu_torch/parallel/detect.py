@@ -6,7 +6,8 @@ two-phase ``n_stages_cap``), ``make_batched_detector_boxes`` (its
 one-program masked path), ``make_multi_detector_boxes`` and
 ``detect_batch``.  The main path for a (B, H, W) uint8 batch:
 
-    canvas    octaves, planes (B1), grad_hist canvas (B2)   (canvas.py)
+    canvas    octaves, planes (B1), channel canvas (B2 grad_hist, B5 FPGA)
+              (canvas.py)
     cascade   frozen cascade, masked score map (kernel B3, ops/cascade_static.py)
     extract   exact top-k boxes and greedy NMS     (ops/nms.py, plain torch)
 
@@ -75,7 +76,7 @@ class BatchedDetector:
                  image_shape: Tuple[int, int], k: int,
                  nms_iou: Optional[float], with_n_weak: bool,
                  device: torch.device):
-        _, _, smooth, _ = serving_opts(model.channel_opts, model.shape[2])
+        _, _, smooth, cf = serving_opts(model.channel_opts, model.shape[2])
         self.packed = packed
         self.image_shape = image_shape
         self.window = model.shape[:2]
@@ -83,7 +84,7 @@ class BatchedDetector:
         self.nms_iou = nms_iou
         self.with_n_weak = with_n_weak
         self.device = device
-        self.canvas = channel_canvas(packed, image_shape, smooth, device)
+        self.canvas = channel_canvas(packed, image_shape, smooth, cf, device)
         self.grid = window_grid(packed, self.window, device)
         self.cascade_ops = model._operands(device)
 
@@ -125,13 +126,14 @@ def make_batched_detector(model: Model, image_shape: Tuple[int, int],
     """Build ``fn(images) -> (hs, alive, n_weak)`` for ``image_shape``
     frames: the (B, GU, GV) float32 and bool maps and per-image int32
     ``n_weak`` of the first ``n_stages_cap`` stages (all when None) over
-    the packed canvas (kernels B1, B2, B4).  Returns ``(fn, packed)``."""
+    the packed canvas (kernels B1, B2 or B5, B4).  Returns ``(fn,
+    packed)``."""
     _no_mesh(mesh)
     h, w = (int(s) for s in image_shape)
     dev = model._device_for(device)
-    packed, smooth = model._plan((h, w))
+    packed, smooth, cf = model._plan((h, w))
     grid = window_grid(packed, model.shape[:2], dev)
-    canvas = channel_canvas(packed, (h, w), smooth, dev)
+    canvas = channel_canvas(packed, (h, w), smooth, cf, dev)
     ops = model._operands(dev)
 
     def fn(images: torch.Tensor):
@@ -183,7 +185,7 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
     if int(k) < 1:
         raise ValueError(f"k must be positive, got {k}")
     h, w = (int(s) for s in image_shape)
-    packed, _ = model._plan((h, w))
+    packed, _, _ = model._plan((h, w))
     fn = BatchedDetector(model, packed, (h, w), int(k), nms_iou,
                          with_n_weak, model._device_for(device))
     return fn, packed
@@ -211,9 +213,9 @@ def make_multi_detector_boxes(models: Sequence[Model],
     if len(response_scale) != len(models):
         raise ValueError("Wrong response_scale parameter")
     h, w = (int(s) for s in image_shape)
-    packed, smooth = shared_plan(models, (h, w))
+    packed, smooth, cf = shared_plan(models, (h, w))
     dev = models[0]._device_for(device)
-    canvas = channel_canvas(packed, (h, w), smooth, dev)
+    canvas = channel_canvas(packed, (h, w), smooth, cf, dev)
     scans = [(window_grid(packed, mm.shape[:2], dev), mm._operands(dev),
               float(np.float32(s))) for mm, s in zip(models, response_scale)]
 
