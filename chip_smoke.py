@@ -21,6 +21,12 @@ cascade_generic B6):
     (complete heaps), flagship_hard_256, and a seeded 40-stage model of
     depth-5 trees (bucket 64: 24 inactive stages, general routing), on
     both canvases; hs is compared at every window origin;
+ 3b. tiling edges: B5 at 3x5, 17x45 and 70x257 planes (batch 1 and 3,
+    planes starting one byte past a word boundary, C = 1, 4, 5, both
+    smooths); B3, B4 (n_stages_cap 0, 1, all) and B6 on grids smaller
+    than the walk's 8 x 32 tile, with the 40-stage deep model and a
+    256-stage one whose packed records exceed the walk's shared-memory
+    budget;
  4. serving path (slice 1): make_batched_detector_boxes(k=1024,
     nms_iou=0.5) on the 3 golden scene frames with every launch counter
     set to 0 first: survivor counts, kept boxes and scores equal the
@@ -37,7 +43,8 @@ cascade_generic B6):
  5b. at the config-5 batch-8 shapes (4K noise, halo-0 plan, C = 5), each
     kernel of that path against its plain version, bitwise: B1, B5 (the
     composite kind, smooth 0 and 1), B3, and B4 for both FPGA models with
-    n_stages_cap None and the golden's prefix length; B5 also for each
+    n_stages_cap None and the golden's prefix length, and B6 on both
+    models' padded runtime tables; B5 also for each
     single kind and the reversed composite on VGA planes; then the
     config-5 path: counters
     set to 0, both FPGA models and their prefixes (model_from_stages)
@@ -50,8 +57,10 @@ cascade_generic B6):
     each layer of the serving path, the serving path end to end (60
     batches of 8 per workload, MP/s, p50/p80), Model.detect and the
     three-model wt.detect (ms/frame, p50 of 30 frames) and
-    make_batched_detector (MP/s at batch 8, 30 batches); at config 5: B5
-    and B3 (C = 5) against their plain versions and bounds, and the
+    make_batched_detector (MP/s at batch 8, 30 batches), B3 on the
+    40-stage depth-5 model (GENERAL node records); at config 5: B5
+    (smooth 0, 1), B3 and B4 (C = 5) and B1 (halo 0) against their plain
+    versions and bounds, and the
     serving path end to end (k=128, NMS 0.5, smooth 0 and 1, MP/s with
     p50/p80 over 20 batches of 8) and the peak device memory; probes the
     host;
@@ -553,6 +562,67 @@ def main():
             and not tables["deep40"][1].complete,
             "the deep model must take the padded general-tree tables")
 
+    # -- phase 2b: tiling edges of B5 and the walk --------------------------
+    # B5 at sizes that are no multiple of its 128 x 16 tile or its 4-pixel
+    # vector, planes starting off a word boundary; the walk on grids
+    # smaller than its 8 x 32 tile of origins, and on a cascade whose
+    # records exceed its shared-memory budget (read from global memory)
+    erng = np.random.RandomState(3)
+    for ehw, eb in (((3, 5), 3), ((17, 45), 1), ((70, 257), 3)):
+        buf = torch.from_numpy(erng.randint(0, 256, 4 * eb * ehw[0] * ehw[1]
+                                            + 1).astype(np.uint8)).to(dev)
+        eplanes = buf[1:].view((eb, 2, 2) + ehw)
+        ering = torch.from_numpy((erng.rand(2, 2, *ehw) < 0.8)
+                                 .astype(np.uint8)).to(dev)
+        einner = torch.from_numpy((erng.rand(*ehw) < 0.9)
+                                  .astype(np.uint8)).to(dev)
+        for fkind in ("grad_mag_u1", "grad_hist_4_u1",
+                      "grad_hist_4_u1+grad_mag_u1"):
+            for sm in (0, 1):
+                em = einner if sm else None
+                check_phase("fpga", f"fpga edge {ehw} batch {eb} {fkind} "
+                            f"smooth={sm}",
+                            [fpga_mod.fpga_channels(eplanes, ering, em, fkind,
+                                                    sm)],
+                            [fpga_mod.fpga_channels_plain(eplanes, ering, em,
+                                                          fkind, sm)])
+    big_stages = [random_deep_stage(drng, (12, 12), 4, depth=5)
+                  for _ in range(256)]
+    for st in big_stages:
+        st["threshold"] = drng.uniform(0, 300, len(st["threshold"])) \
+            .astype(np.float32)
+    big = wt.model_from_stages(synth.shape, synth.channel_opts, big_stages,
+                               [-np.inf] * 256, device=dev)
+    for ehw in ((12 + 3, 12 + 50), (12 + 40, 12 + 5), (12 + 19, 12 + 77)):
+        ecv = torch.from_numpy(erng.uniform(0, 300, (3, 4) + ehw)
+                               .astype(np.float32)).to(dev)
+        evalid = torch.from_numpy((erng.rand(ehw[0] - 12, ehw[1] - 12) < 0.8)
+                                  .astype(np.uint8)).to(dev)
+        for mname, mm in (("deep40", deep), ("big256", big)):
+            eops = mm._operands(dev)
+            check_phase("cascade", f"cascade edge {ehw} {mname}",
+                        casc_mod.cascade_masked(ecv, evalid, eops),
+                        casc_mod.cascade_masked_plain(ecv, evalid, eops))
+            for cap in (0, 1, None):
+                check_phase("cascade_response",
+                            f"cascade_response edge {ehw} {mname} cap={cap}",
+                            casc_mod.cascade_response(ecv, evalid, eops, cap),
+                            casc_mod.cascade_response_plain(ecv, evalid, eops,
+                                                            cap))
+            ectab = mm._get_cascade()[0]
+            check_phase("cascade_generic", f"cascade_generic edge {ehw} "
+                        f"{mname} ({ectab.n_stages} stages)",
+                        gen_mod.cascade_response_grid(ecv, ectab, (12, 12),
+                                                      evalid),
+                        gen_mod.cascade_response_grid_plain(ecv, ectab,
+                                                            (12, 12), evalid))
+    print(f"records bytes: big256 "
+          f"{big._operands(dev).records((4, 52, 62)).data.numel() * 4}, "
+          f"deep40 {deep._operands(dev).records((4, 52, 62)).data.numel() * 4}"
+          f" static, {tables['deep40'][0].records((4, 52, 62)).data.numel() * 4}"
+          f" padded")
+    del big, big_stages
+
     # -- phase 3: serving path (slice 1) on the golden frames --------------
     frames = torch.from_numpy(gframes).to(dev)
     zero_counters()
@@ -744,6 +814,14 @@ def main():
                         f"cap={cap} batch {BATCH}", got, want)
             print(f"  alive {got[1].sum(dim=(1, 2)).tolist()}, n_weak "
                   f"{got[2].tolist()}")
+        # B6 at C = 5 on the model's padded runtime tables
+        ctab5 = mm._get_cascade()[0]
+        got = gen_mod.cascade_response_grid(canvas4k[name], ctab5, (12, 12),
+                                            dets4k[name].grid.valid)
+        want = gen_mod.cascade_response_grid_plain(
+            canvas4k[name], ctab5, (12, 12), dets4k[name].grid.valid)
+        check_phase("cascade_generic", f"cascade_generic C=5 4K {name} "
+                    f"batch {BATCH}", got, want)
     del got, want
 
     zero_counters()
@@ -784,6 +862,11 @@ def main():
             lambda: gen_mod.cascade_response_grid_plain(
                 canvas, casc_synth, (12, 12), grid.valid)),
     }
+    # B3 on GENERAL node records: the seeded 40-stage depth-5 model
+    ops_deep = deep._operands(dev)
+    calls["cascade_deep40"] = (
+        lambda: casc_mod.cascade_masked(canvas, grid.valid, ops_deep),
+        lambda: casc_mod.cascade_masked_plain(canvas, grid.valid, ops_deep))
     name0, name1 = FPGA_MODELS
     calls.update({
         "fpga": (lambda: c5[name0].channels(planes4k),
@@ -798,10 +881,20 @@ def main():
                        lambda: casc_mod.cascade_masked_plain(
                            canvas4k[name0], det5.grid.valid,
                            det5.cascade_ops)),
+        "cascade_response_c5": (
+            lambda: casc_mod.cascade_response(canvas4k[name0],
+                                              det5.grid.valid,
+                                              det5.cascade_ops),
+            lambda: casc_mod.cascade_response_plain(
+                canvas4k[name0], det5.grid.valid, det5.cascade_ops)),
+        "planes_4k": (lambda: cs0.planes(octs4k),
+                      lambda: plane_mod.planes_plain(octs4k, cs0.plane_ops)),
     })
+    big_calls = ("fpga", "fpga_smooth", "cascade_c5", "cascade_response_c5",
+                 "planes_4k")
     for name, (kern, plain) in calls.items():
         # plain, kernel, kernel, plain: both orders inside one call
-        big = name in ("fpga", "fpga_smooth", "cascade_c5")
+        big = name in big_calls
         p1 = cuda_ms(plain, 1 if big else 3)
         k1 = cuda_ms(kern, 10 if big else 20)
         k2 = cuda_ms(kern, 10 if big else 20)
@@ -815,32 +908,37 @@ def main():
     # the least time of each kernel's call at these shapes: bytes (each
     # input read once, each output written once) over the HBM rate, or its
     # arithmetic over the peak rate of its type
-    pt = cstep.plane_ops
-    level_elems = int(pt.host.meta[:, -1].sum()) * BATCH
+    def planes_bound(pt, o, p):
+        return bound(nbytes(o, p, pt.meta, pt.blocks, pt.i0h, pt.frh, pt.i0w,
+                            pt.frw),
+                     f32_ops=12 * int(pt.host.meta[:, -1].sum()) * BATCH)
+
+    def records(tab, cv):
+        return tab.records(tuple(cv.shape[1:])).data
+
     nw_synth = int(casc_mod.cascade_response(canvas, grid.valid,
                                              ops_synth)[2].sum())
     resp_out = BATCH * grid.valid.numel() * 5 + 4 * BATCH
     bounds = {
-        "planes": bound(nbytes(octs, planes, pt.meta, pt.blocks, pt.i0h,
-                               pt.frh, pt.i0w, pt.frw),
-                        f32_ops=12 * level_elems),
+        "planes": planes_bound(cstep.plane_ops, octs, planes),
         "grad_hist": bound(nbytes(planes, cstep.interior, canvas),
                            f32_ops=35 * canvas.numel(),
                            f64_ops=12 * canvas.numel()),
         "cascade": bound(nbytes(canvas, grid.valid, *casc,
-                                *det.cascade_ops.tables,
-                                det.cascade_ops.theta),
+                                records(det.cascade_ops, canvas)),
                          f32_ops=4 * int(casc[1].sum())),
         "cascade_response": bound(nbytes(canvas, grid.valid,
-                                         *ops_synth.tables, ops_synth.theta)
+                                         records(ops_synth, canvas))
                                   + resp_out, f32_ops=4 * nw_synth),
-        "cascade_generic": bound(nbytes(canvas, grid.valid, casc_synth.fr,
-                                        casc_synth.fc, casc_synth.fch,
-                                        casc_synth.thr, casc_synth.left,
-                                        casc_synth.right, casc_synth.pred,
-                                        casc_synth.theta, casc_synth.active)
+        "cascade_generic": bound(nbytes(canvas, grid.valid,
+                                        records(casc_synth, canvas))
                                  + resp_out, f32_ops=4 * nw_synth),
+        "planes_4k": planes_bound(cs0.plane_ops, octs4k, planes4k),
     }
+    casc_deep = casc_mod.cascade_masked(canvas, grid.valid, ops_deep)
+    bounds["cascade_deep40"] = bound(
+        nbytes(canvas, grid.valid, *casc_deep, records(ops_deep, canvas)),
+        f32_ops=4 * int(casc_deep[1].sum()))
     # B5: integer work counted at the f32 rate, per pooled pixel the four
     # Sobel pairs (56 operations) and per channel the four responses,
     # quantizations, selects and the wrap pool (25), plus the smooth (18)
@@ -853,9 +951,14 @@ def main():
         nbytes(planes4k, c5[name1].ring, c5[name1].interior, canvas5),
         f32_ops=n_pix * (56 + 43 * n_out))
     bounds["cascade_c5"] = bound(nbytes(canvas5, det5.grid.valid, *casc5,
-                                        *det5.cascade_ops.tables,
-                                        det5.cascade_ops.theta),
+                                        records(det5.cascade_ops, canvas5)),
                                  f32_ops=4 * int(casc5[1].sum()))
+    nw5 = int(casc_mod.cascade_response(canvas5, det5.grid.valid,
+                                        det5.cascade_ops)[2].sum())
+    bounds["cascade_response_c5"] = bound(
+        nbytes(canvas5, det5.grid.valid, records(det5.cascade_ops, canvas5))
+        + BATCH * det5.grid.valid.numel() * 5 + 4 * BATCH,
+        f32_ops=4 * nw5)
     for name, (ms, what) in bounds.items():
         metric(f"{name}_bound_us_per_image", ms * 1e3 / BATCH, "us/image")
         print(f"{name}: bound by {what}; kernel at "

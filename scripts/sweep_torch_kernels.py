@@ -1,0 +1,495 @@
+#!/usr/bin/env python3
+"""Variants of the port's kernel B5 (csrc/fpga.cu) and cascade walk
+(csrc/cascade.cu: B3, B4, B6) on one NVIDIA GPU, each held bitwise
+against the kernel's plain version and timed at config 5's batch-8 shapes.
+
+A variant is the committed source with textual edits, built by nvcc as
+waldboost_tpu_torch/_build.py builds the source (all variants at once):
+
+* a launch bound or a tuning constant (the choices of the source), or
+  the walk's launch without its cached occupancy query;
+* ``poison``: shared memory filled with a pattern before every use, so a
+  read of a byte that no thread wrote changes the output;
+* ``skew``: alternate warps delayed at every phase, so a missing barrier
+  changes the output;
+* ``ablation``: work removed (the values differ by design): timed only,
+  its mismatch count printed, never a failure.
+
+The walk also runs on GENERAL records of the depth-2 models (the tables
+packed as for deeper trees) with the committed build.
+
+Checks of every variant: B5 on the config-5 planes (4K noise, batch 8, both
+committed models' composite, smooth 0 and 1) and at chip_smoke.py's tiling
+edges (3x5, 17x45 and 70x257 planes, batch 3, 1, 3, one byte off a word,
+C = 1, 4, 5, both smooths); the walk: B3 and B4 at C = 5 (4K), B3 and B6
+at VGA (flagship_synth_64, noise batch 8), B3 and B4 with the seeded
+40-stage depth-5 model, and chip_smoke.py's small grids with that model
+and a 256-stage one whose records exceed the shared-memory budget.
+Times: CUDA events, the mean of two turns of 20 calls, and the host
+microseconds per B4 launch on one tile of origins (the median of 5 turns
+of 200 calls); the committed build is timed first and last.  Then 20
+alternating pairs of the committed walk and the one that queries the
+device at every launch, on the host clock.
+
+Prints the card line, one line per variant (ms, mismatches, ptxas
+registers and spill stores per kernel instance), a JSON summary as the
+last line (also written to --out), and exits 1 if a variant other than an
+ablation differs from the plain version.
+
+Usage: python scripts/sweep_torch_kernels.py [--only fpga|walk] [--out FILE]
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+BATCH = 8
+VGA = (480, 640)
+
+# -- variants ----------------------------------------------------------------
+
+FPGA_BOUND = "__launch_bounds__(kThreads, kBlocksPerSm)"
+FPGA_RING_STAGE = "  stage<4, T::kRingRows>(sR, ring, H, W, I0 - 1, J0 - 4);\n"
+FPGA_IMAGE_TOP = ("    __syncthreads();  // the previous image is done with "
+                  "sP / sPo\n")
+FPGA_RING_CELLS = ("    // the pooled ring columns -1 and kTW (rows -1 .. "
+                   "kTH), then the smooth\n")
+FPGA_SMOOTH_TOP = ("    __syncthreads();\n#pragma unroll 1\n"
+                   "    for (int il = ty; il < T::kTH; il += kBY) {\n")
+
+FPGA_POISON = [
+    (FPGA_RING_STAGE,
+     "  for (int i = threadIdx.y * kBX + threadIdx.x;\n"
+     "       i < 4 * T::kRingRows * kWords; i += kThreads)\n"
+     "    sR[i] = 0xA5A5A5A5u ^ (blockIdx.x * 0x9E3779B9u);\n"
+     "  for (int i = threadIdx.y * kBX + threadIdx.x;\n"
+     "       i < (kSmooth ? T::kTH * kWords : 1); i += kThreads)\n"
+     "    sI[i] = 0x3C3C3C3Cu ^ blockIdx.y;\n"
+     "  __syncthreads();\n" + FPGA_RING_STAGE),
+    (FPGA_IMAGE_TOP,
+     FPGA_IMAGE_TOP +
+     "    for (int i = ty * kBX + tx; i < 4 * T::kPlaneRows * kWords;\n"
+     "         i += kThreads)\n"
+     "      sP[i] = 0x5A5A5A5Au ^ (b * 0x01000193u);\n"
+     "    if (kSmooth)\n"
+     "      for (int i = ty * kBX + tx; i < cd.n * T::kPoolRows * kWords;\n"
+     "           i += kThreads)\n"
+     "        sPo[i] = 0xC3C3C3C3u ^ (b * 0x9E3779B9u) ^ blockIdx.x;\n"
+     "    __syncthreads();\n"),
+]
+FPGA_SKEW = [
+    (FPGA_IMAGE_TOP,
+     FPGA_IMAGE_TOP + "    if ((ty ^ b) & 1) __nanosleep(4000);\n"),
+    (FPGA_RING_CELLS,
+     "    if (!((ty ^ b) & 1)) __nanosleep(4000);\n" + FPGA_RING_CELLS),
+    (FPGA_SMOOTH_TOP,
+     "    __syncthreads();\n    if ((ty ^ b) & 1) __nanosleep(4000);\n"
+     + FPGA_SMOOTH_TOP[len("    __syncthreads();\n"):]),
+]
+
+
+def fpga_bound(n):
+    return [(FPGA_BOUND, f"__launch_bounds__(kThreads, {n})")]
+
+
+#: label -> (edits, ablation)
+FPGA_VARIANTS = {"committed (minblocks 6)": ([], False)}
+FPGA_VARIANTS.update({f"minblocks {n}": (fpga_bound(n), False)
+                      for n in (1, 2, 3, 4, 5, 7, 8)})
+FPGA_VARIANTS.update({
+    "poison": (FPGA_POISON, False),
+    "poison+skew": (FPGA_POISON + FPGA_SKEW, False),
+    "poison+skew minblocks 1": (FPGA_POISON + FPGA_SKEW + fpga_bound(1),
+                                False),
+    "ablation: no smooth ring columns": (
+        [("    if (tid < 2 * T::kPoolRows)\n", "    if (tid < 0)\n")], True),
+    "ablation: no smooth (stub)": (
+        [("        smooth4(sPo + (k * T::kPoolRows + il) * kWords, tx, in, "
+          "v);", "        v[0] = v[1] = v[2] = v[3] = in & 63;")], True),
+})
+
+WALK_BOUND = "__launch_bounds__(kBlock)"
+WALK_QUEUES = "  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
+WALK_POISON = [(WALK_QUEUES, WALK_QUEUES +
+                "  for (int i = lane; i < kQueue; i += 32) {\n"
+                "    q_out[warp][i] = 0x7ead0000 | i;\n"
+                "    q_cv[warp][i] = -1 - i;\n"
+                "    q_bt[warp][i] = 0x7fff0000 | i;\n"
+                "    q_hs[warp][i] = __int_as_float(0x7fc00000 | i);\n"
+                "  }\n  __syncwarp();\n")]
+
+
+def walk_const(name, value):
+    pat = re.compile(rf"constexpr int {name} = \d+;")
+    return [(pat, f"constexpr int {name} = {value};")]
+
+
+WALK_VARIANTS = {"committed": ([], False)}
+WALK_VARIANTS.update({f"kRejects {n}": (walk_const("kRejects", n), False)
+                      for n in (2, 3, 6, 8)})
+WALK_VARIANTS.update({f"kChunk {n}": (walk_const("kChunk", n), False)
+                      for n in (1, 8)})
+WALK_VARIANTS.update({
+    f"minblocks {n}": ([(WALK_BOUND, f"__launch_bounds__(kBlock, {n})")],
+                       False) for n in (6, 8)})
+WALK_VARIANTS["poison"] = (WALK_POISON, False)
+WALK_VARIANTS["device queries at every launch"] = ([(
+    "  if (it != fit.end()) return it->second;\n",
+    "  (void)it;  // no cache: query at every launch\n")], False)
+WALK_VARIANTS["prefetch: HEAP2 stage t+1 loaded before t's compares"] = ([(
+    "        while (t < a.n_run) {\n"
+    "          const Heap2 h = fetch(s, t, w);\n",
+    "        Heap2 nx;\n"
+    "        if (t < a.n_run) nx = fetch(s, t, w);\n"
+    "        while (t < a.n_run) {\n"
+    "          const Heap2 h = nx;\n"
+    "          if (t + 1 < a.n_run) nx = fetch(s, t + 1, w);\n")], False)
+
+
+# -- building ----------------------------------------------------------------
+
+def edit(text, edits, label):
+    for old, new in edits:
+        if isinstance(old, re.Pattern):
+            text, n = old.subn(new, text)
+        else:
+            n = text.count(old)
+            text = text.replace(old, new)
+        if n != 1:
+            raise SystemExit(f"variant {label!r}: edit anchor found {n} "
+                             f"times: {old!r}")
+    return text
+
+
+def ptxas_summary(log):
+    """'registers/spill-store bytes' per kernel instance, in build order."""
+    out, spill = [], 0
+    for line in log.splitlines():
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append(f"{m.group(1)}r/{spill}s")
+            spill = 0
+    return " ".join(out)
+
+
+def build_variants(_build, src_name, variants, workdir):
+    """{label: (CDLL, ptxas summary)}, one nvcc per variant, at most as
+    many at once as there are CPU cores."""
+    with open(os.path.join(_build.CSRC, src_name + ".cu")) as f:
+        base = f.read()
+    jobs, running, done = [], [], {}
+    for i, (label, (edits, _)) in enumerate(variants.items()):
+        src = os.path.join(workdir, f"{src_name}_{i}.cu")
+        with open(src, "w") as f:
+            f.write(edit(base, edits, label))
+        jobs.append((label, src, src[:-3] + ".so"))
+    width = max(1, os.cpu_count() or 1)
+    while jobs or running:
+        while jobs and len(running) < width:
+            label, src, lib = jobs.pop(0)
+            proc = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o",
+                 lib, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+            running.append((label, lib, proc))
+        label, lib, proc = running.pop(0)
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed on variant {label!r}:\n{err}")
+        done[label] = (ctypes.CDLL(lib), ptxas_summary(out + err))
+    return done
+
+
+# -- measuring ---------------------------------------------------------------
+
+def mismatches(got, want):
+    import torch
+    torch.cuda.synchronize()
+    return sum(int((g != w).sum()) for g, w in zip(got, want))
+
+
+def timed(cuda_ms, fn):
+    return (cuda_ms(fn, 20) + cuda_ms(fn, 20)) / 2
+
+
+def host_us(fn, calls=200, turns=5):
+    """Host microseconds per call of ``fn`` when the card keeps up (a
+    launch on a tiny input): the median of ``turns`` runs of ``calls``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(turns):
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per))
+
+
+def host_pairs(_build, libs, a, b, fn, pairs=20):
+    """Host microseconds per call of ``fn`` with the walk built as variant
+    ``a`` and as ``b``, in ``pairs`` pairs alternating which runs first:
+    each side's quartiles and how many pairs each side won."""
+    per = {a: [], b: []}
+    for i in range(pairs):
+        for label in ((a, b) if i % 2 == 0 else (b, a)):
+            _build._LIBS["cascade"] = libs[label][0]
+            per[label].append(host_us(fn))
+    _build._LIBS.pop("cascade", None)
+    out = {label: {"quartiles_us": np.percentile(v, [25, 50, 75]).tolist(),
+                   "runs_us": v} for label, v in per.items()}
+    out[a]["wins"] = sum(x < y for x, y in zip(per[a], per[b]))
+    out[b]["wins"] = sum(y < x for x, y in zip(per[a], per[b]))
+    for label, r in out.items():
+        q = ", ".join(f"{v:.2f}" for v in r["quartiles_us"])
+        print(f"host pairs, B4 one tile, {label}: quartiles {q} us, won "
+              f"{r['wins']} of {pairs}", flush=True)
+    return out
+
+
+def sweep(_build, name, variants, libs, checks, times, failures, rows,
+          host=None):
+    """Run every variant: swap its library in as csrc/<name>.cu's build,
+    count mismatches over ``checks``, time ``times`` on the card and
+    ``host`` on the host clock."""
+    from chip_smoke import cuda_ms
+    order = list(variants) + [next(iter(variants))]  # committed first, last
+    for i, label in enumerate(order):
+        lib, ptx = libs[label]
+        _build._LIBS[name] = lib
+        bad = sum(mismatches(check(), want) for check, want in checks)
+        ms = {t: timed(cuda_ms, fn) for t, fn in times.items()}
+        us = {t: host_us(fn) for t, fn in (host or {}).items()}
+        ablation = variants[label][1]
+        tag = label if i < len(variants) else label + " (again)"
+        rows.append({"kernel": name, "variant": tag, "ms": ms,
+                     "host_us": us, "mismatches": bad, "ablation": ablation,
+                     "ptxas": ptx})
+        print(f"{name} {tag}: " + ", ".join(f"{t} {v:.4f} ms"
+                                            for t, v in ms.items())
+              + "".join(f", {t} {v:.2f} us" for t, v in us.items())
+              + f"; mismatches {bad}" + (" (ablation)" if ablation else "")
+              + f"; ptxas {ptx}", flush=True)
+        if bad and not ablation:
+            failures.append(f"{name} {label}")
+    _build._LIBS.pop(name, None)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=("fpga", "walk"), default=None)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    import waldboost_tpu_torch as wt
+    from chip_smoke import card_line, random_deep_stage
+    from waldboost_tpu_torch import _build
+    from waldboost_tpu_torch.ops import cascade as gen_mod
+    from waldboost_tpu_torch.ops import cascade_static as casc_mod
+    from waldboost_tpu_torch.ops import fpga as fpga_mod
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    card = card_line()
+    print(card, flush=True)
+    workdir = os.path.join(_build.BUILD_DIR, "sweep")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.time()
+    todo = [k for k in ("fpga", "walk") if args.only in (None, k)]
+    libs = {}
+    if "fpga" in todo:
+        libs["fpga"] = build_variants(_build, "fpga", FPGA_VARIANTS, workdir)
+    if "walk" in todo:
+        libs["walk"] = build_variants(_build, "cascade", WALK_VARIANTS,
+                                      workdir)
+    print(f"build: {time.time() - t0:.1f} s", flush=True)
+
+    load = lambda n: wt.load(os.path.join(ROOT, "models", n + ".pb"),
+                             device=dev)
+    m5, m5s, synth = (load(n) for n in ("fpga_4k_synth_64",
+                                        "fpga_4k_smooth_synth_64",
+                                        "flagship_synth_64"))
+    hw4k = (2160, 3840)
+    det5 = wt.make_batched_detector_boxes(m5, hw4k, k=128, nms_iou=0.5,
+                                          device=dev)[0]
+    det5s = wt.make_batched_detector_boxes(m5s, hw4k, k=128, nms_iou=0.5,
+                                           device=dev)[0]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    noise4k = torch.randint(0, 256, (BATCH,) + hw4k, generator=gen,
+                            dtype=torch.uint8, device=dev)
+    planes4k = det5.canvas.planes(det5.canvas.octaves(noise4k))
+    rows, failures = [], []
+
+    if "fpga" in todo:
+        checks, times = [], {}
+        for d, sm in ((det5, 0), (det5s, 1)):
+            cs = d.canvas
+            args5 = (planes4k, cs.ring, cs.interior if sm else None,
+                     cs.cf.fused_kind, sm)
+            fn = (lambda a: lambda: [fpga_mod.fpga_channels(*a)])(args5)
+            checks.append((fn, [fpga_mod.fpga_channels_plain(*args5)]))
+            times[f"4K smooth {sm}"] = fn
+        erng = np.random.RandomState(3)
+        for ehw, eb in (((3, 5), 3), ((17, 45), 1), ((70, 257), 3)):
+            buf = torch.from_numpy(erng.randint(
+                0, 256, 4 * eb * ehw[0] * ehw[1] + 1).astype(np.uint8)).to(dev)
+            eplanes = buf[1:].view((eb, 2, 2) + ehw)
+            ering = torch.from_numpy((erng.rand(2, 2, *ehw) < 0.8)
+                                     .astype(np.uint8)).to(dev)
+            einner = torch.from_numpy((erng.rand(*ehw) < 0.9)
+                                      .astype(np.uint8)).to(dev)
+            for kind in ("grad_mag_u1", "grad_hist_4_u1",
+                         "grad_hist_4_u1+grad_mag_u1"):
+                for sm in (0, 1):
+                    a = (eplanes, ering, einner if sm else None, kind, sm)
+                    checks.append((
+                        (lambda a: lambda: [fpga_mod.fpga_channels(*a)])(a),
+                        [fpga_mod.fpga_channels_plain(*a)]))
+        sweep(_build, "fpga", FPGA_VARIANTS, libs["fpga"], checks, times,
+              failures, rows)
+
+    if "walk" in todo:
+        canvas5 = det5.canvas.channels(planes4k)
+        detv = wt.make_batched_detector_boxes(synth, VGA, k=128, nms_iou=0.5,
+                                              device=dev)[0]
+        rng = np.random.RandomState(0)
+        noise = torch.from_numpy(rng.randint(0, 256, (BATCH,) + VGA)
+                                 .astype(np.uint8)).to(dev)
+        canvasv = detv.canvas(noise)
+        drng = np.random.RandomState(1)
+        deep_stages, deep_theta = [], []
+        for t in range(40):
+            s = random_deep_stage(drng, (12, 12), 4, depth=5)
+            s["threshold"] = drng.uniform(0, 300, len(s["threshold"])) \
+                .astype(np.float32)
+            deep_stages.append(s)
+            deep_theta.append(-0.6 - 0.1 * t if t % 2 else -np.inf)
+        deep = wt.model_from_stages(synth.shape, synth.channel_opts,
+                                    deep_stages, deep_theta, device=dev)
+        big_stages = [random_deep_stage(drng, (12, 12), 4, depth=5)
+                      for _ in range(256)]
+        for st in big_stages:
+            st["threshold"] = drng.uniform(0, 300, len(st["threshold"])) \
+                .astype(np.float32)
+        big = wt.model_from_stages(synth.shape, synth.channel_opts,
+                                   big_stages, [-np.inf] * 256, device=dev)
+        ops5, opsv = det5.cascade_ops, detv.cascade_ops
+        opsd, opsb = deep._operands(dev), big._operands(dev)
+        ctabv = synth._get_cascade()[0]
+        valid5, validv = det5.grid.valid, detv.grid.valid
+        walks = {
+            "B3 C=5": (lambda: casc_mod.cascade_masked(canvas5, valid5, ops5),
+                       lambda: casc_mod.cascade_masked_plain(canvas5, valid5,
+                                                             ops5)),
+            "B4 C=5": (lambda: casc_mod.cascade_response(canvas5, valid5,
+                                                         ops5),
+                       lambda: casc_mod.cascade_response_plain(
+                           canvas5, valid5, ops5)),
+            "B3 VGA": (lambda: casc_mod.cascade_masked(canvasv, validv, opsv),
+                       lambda: casc_mod.cascade_masked_plain(canvasv, validv,
+                                                             opsv)),
+            "B6 VGA": (lambda: gen_mod.cascade_response_grid(
+                canvasv, ctabv, (12, 12), validv),
+                       lambda: gen_mod.cascade_response_grid_plain(
+                           canvasv, ctabv, (12, 12), validv)),
+            "B3 VGA deep40": (
+                lambda: casc_mod.cascade_masked(canvasv, validv, opsd),
+                lambda: casc_mod.cascade_masked_plain(canvasv, validv, opsd)),
+        }
+        checks = [(fn, ref()) for fn, ref in walks.values()]
+        checks.append((lambda: casc_mod.cascade_response(canvasv, validv,
+                                                         opsd, 12),
+                       casc_mod.cascade_response_plain(canvasv, validv, opsd,
+                                                       12)))
+        erng = np.random.RandomState(3)
+        for ehw in ((12 + 3, 12 + 50), (12 + 40, 12 + 5), (12 + 19, 12 + 77)):
+            ecv = torch.from_numpy(erng.uniform(0, 300, (3, 4) + ehw)
+                                   .astype(np.float32)).to(dev)
+            evalid = torch.from_numpy((erng.rand(ehw[0] - 12, ehw[1] - 12)
+                                       < 0.8).astype(np.uint8)).to(dev)
+            for eops in (opsd, opsb):
+                a = (ecv, evalid, eops)
+                checks.append(((lambda a: lambda: casc_mod.cascade_masked(
+                    *a))(a), casc_mod.cascade_masked_plain(*a)))
+                for cap in (0, 1, None):
+                    checks.append(((lambda a, c: lambda: casc_mod
+                                    .cascade_response(*a, c))(a, cap),
+                                   casc_mod.cascade_response_plain(*a, cap)))
+        times = {k: fn for k, (fn, _) in walks.items() if "deep" not in k}
+        # host cost of one B4 launch where the card keeps up: one tile of
+        # origins (the launch-bound Model-API calls)
+        tiny = torch.from_numpy(erng.uniform(0, 300, (1, 4, 20, 44))
+                                .astype(np.float32)).to(dev)
+        tiny_valid = torch.ones((8, 32), dtype=torch.uint8, device=dev)
+        host = {"B4 one-tile host": lambda: casc_mod.cascade_response(
+            tiny, tiny_valid, opsv)}
+        sweep(_build, "cascade", WALK_VARIANTS, libs["walk"], checks, times,
+              failures, rows, host)
+        pairs = host_pairs(_build, libs["walk"], "committed",
+                           "device queries at every launch",
+                           host["B4 one-tile host"])
+
+        # the committed build on GENERAL records of the depth-2 models
+        from chip_smoke import cuda_ms
+        targets = ((ops5, tuple(canvas5.shape[1:])),
+                   (opsv, tuple(canvasv.shape[1:])),
+                   (ctabv, tuple(canvasv.shape[1:])))
+        default = [t.records(s).layout for t, s in targets]
+        heap2 = gen_mod._heap2
+        gen_mod._heap2 = lambda tab: None
+        try:
+            for t, s in targets:
+                t._records.pop(s)
+                t.records(s)
+        finally:
+            gen_mod._heap2 = heap2
+        layouts = [t.records(s).layout for t, s in targets]
+        _build._LIBS["cascade"] = libs["walk"]["committed"][0]
+        bad = sum(mismatches(check(), want) for check, want in checks[:4])
+        ms = {k: timed(cuda_ms, fn) for k, fn in times.items()}
+        for t, s in targets:
+            t._records.pop(s)
+        _build._LIBS.pop("cascade", None)
+        label = (f"committed on GENERAL records (layouts {default} -> "
+                 f"{layouts})")
+        rows.append({"kernel": "cascade", "variant": label, "ms": ms,
+                     "mismatches": bad, "ablation": False, "ptxas": ""})
+        print(f"cascade {label}: " + ", ".join(
+            f"{t} {v:.4f} ms" for t, v in ms.items()) + f"; mismatches {bad}",
+            flush=True)
+        if bad:
+            failures.append("cascade GENERAL records")
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    summary = {"card": card, "rows": rows, "failures": failures}
+    if "walk" in todo:
+        summary["host_pairs"] = pairs
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
+    print(json.dumps(summary))
+    if failures:
+        print(f"FAILED: {failures}", file=sys.stderr)
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -136,6 +136,44 @@ def test_fpga_any_mask_on_card(cuda, hw):
             assert torch.equal(got, want), (kind, smooth)
 
 
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one byte past an
+    aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (17, 45), (33, 131),
+                                (16, 128), (70, 257)])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_fpga_tiling_edges_on_card(cuda, hw, batch):
+    """B5 at widths and heights that are no multiple of the 128 x 16 tile
+    or of the 4-pixel vector, narrow levels included, at C = 1, 4 and 5,
+    both smooths, with the planes and masks also starting off a word
+    boundary."""
+    rng = np.random.RandomState(hw[0] * 1000 + hw[1] + batch)
+    planes = torch.from_numpy(rng.randint(0, 256, (batch, 2, 2) + hw)
+                              .astype(np.uint8)).to(cuda)
+    ring = torch.from_numpy((rng.rand(2, 2, *hw) < 0.8).astype(np.uint8)) \
+        .to(cuda)
+    interior = torch.from_numpy((rng.rand(*hw) < 0.9).astype(np.uint8)) \
+        .to(cuda)
+    for kind in ("grad_mag_u1", "grad_hist_4_u1",
+                 "grad_hist_4_u1+grad_mag_u1"):
+        for smooth in (0, 1):
+            mask = interior if smooth else None
+            want = tfp.fpga_channels_plain(planes, ring, mask, kind, smooth)
+            got = tfp.fpga_channels(planes, ring, mask, kind, smooth)
+            odd = tfp.fpga_channels(_misaligned(planes), _misaligned(ring),
+                                    _misaligned(interior) if smooth else None,
+                                    kind, smooth)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kind, smooth)
+            assert torch.equal(odd, want), (kind, smooth)
+
+
 def test_fpga_slice_on_card_matches_cpu(cuda):
     path = os.path.join(ROOT, "models", "fpga_4k_synth_64.pb")
     full = wt.load(path, device="cpu")
@@ -183,13 +221,13 @@ def test_golden_on_card(cuda):
                                       ref[np.lexsort(ref.T)])
 
 
-def _deep_model(device, n_stages=40):
-    """A seeded model of depth-5 trees: its runtime tables are general
-    (not complete heaps) and padded to 64 stages."""
-    rng = np.random.RandomState(1)
+def _deep_model(device, n_stages=40, seed=1, depth=5):
+    """A seeded model of depth-5 trees (by default): its runtime tables are
+    general (not complete heaps) and padded to 64 stages (at 40 stages)."""
+    rng = np.random.RandomState(seed)
     stages = []
     for _ in range(n_stages):
-        st = random_deep_stage(rng, (12, 12), 4, depth=5)
+        st = random_deep_stage(rng, (12, 12), 4, depth=depth)
         st["threshold"] = rng.uniform(0, 300, len(st["threshold"])) \
             .astype(np.float32)
         stages.append(st)
@@ -250,3 +288,64 @@ def test_model_api_on_card_matches_cpu(cuda):
     b = wt.detect(imgs[0], *on["cpu"], response_scale=[1, 0.5])
     for f in ("scores", "label"):
         np.testing.assert_array_equal(a.get_field(f), b.get_field(f))
+
+
+def _walks_match_plain(canvas, valid, model, caps=(None,)):
+    """B3, B4 at each n_stages_cap and B6 on the model's padded runtime
+    tables, bitwise against their plain versions."""
+    m, n = model.shape[:2]
+    ops = model._operands()
+    pairs = [(tcs.cascade_masked(canvas, valid, ops),
+              tcs.cascade_masked_plain(canvas, valid, ops))]
+    for cap in caps:
+        pairs.append((tcs.cascade_response(canvas, valid, ops, cap),
+                      tcs.cascade_response_plain(canvas, valid, ops, cap)))
+    casc, _ = model._get_cascade()
+    pairs.append((tc.cascade_response_grid(canvas, casc, (m, n), valid),
+                  tc.cascade_response_grid_plain(canvas, casc, (m, n),
+                                                 valid)))
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_)
+    return pairs
+
+
+@pytest.mark.parametrize("hw", [(12 + 3, 12 + 50), (12 + 40, 12 + 5),
+                                (12 + 1, 12 + 1), (12 + 19, 12 + 77)])
+def test_walk_small_grids_on_card(cuda, hw):
+    """The walk on grids smaller than (or ragged against) the 8 x 32 tile
+    of origins, with holes in the valid mask: B3, B4 with n_stages_cap 0,
+    1 and all, B6 on the deep model's padded tables (24 inactive
+    stages)."""
+    rng = np.random.RandomState(hw[0] * 100 + hw[1])
+    canvas = torch.from_numpy(rng.uniform(0, 300, (3, 4) + hw)
+                              .astype(np.float32)).to(cuda)
+    valid = torch.from_numpy((rng.rand(hw[0] - 12, hw[1] - 12) < 0.8)
+                             .astype(np.uint8)).to(cuda)
+    for model in (wt.load(FLAGSHIP, device=cuda), _deep_model(cuda)):
+        _walks_match_plain(canvas, valid, model, caps=(0, 1, None))
+
+
+def test_walk_tables_past_shared_memory_on_card(cuda):
+    """Cascades whose packed records exceed the kernel's shared-memory
+    budget (256 depth-5 stages, 1024 depth-2 stages) are read from global
+    memory by the same walk; 40 depth-5 stages fit."""
+    hw = (96, 128)
+    packed = packing._packed_plan_cached(hw[0], hw[1], 2, 2, (12, 12),
+                                         halo=1)
+    canvas = channel_canvas(packed, hw, 1, tch.grad_hist,
+                            cuda)(_frames(2, hw, 9).to(cuda))
+    valid = window_grid(packed, (12, 12), cuda).valid
+    big = _deep_model(cuda, n_stages=256, seed=2)
+    small = _deep_model(cuda)
+    # 1024 depth-2 stages: the HEAP2 layout, 48 KB
+    big2 = _deep_model(cuda, n_stages=1024, seed=3, depth=2)
+    shape = tuple(canvas.shape[1:])
+    size = lambda m: m._operands().records(shape).data.numel() * 4
+    assert size(big) > 48 * 1024 and size(big2) > 40 * 1024
+    assert size(small) < 40 * 1024
+    assert big2._operands().records(shape).layout == tc.HEAP2
+    for model in (big, small, big2):
+        pairs = _walks_match_plain(canvas, valid, model, caps=(1, None))
+        assert int(pairs[0][0][2].sum()) > 0  # some windows survive

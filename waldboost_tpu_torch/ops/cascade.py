@@ -14,7 +14,8 @@ trees when every tree is at most ``MAX_COMPLETE_DEPTH`` deep, and padded to
 :func:`cascade_response_grid` takes a CPU tensor to the plain lockstep
 version (:func:`cascade_response_grid_plain`, the counterpart of the XLA
 function) and a CUDA tensor to kernel B6 (``csrc/cascade.cu``,
-``wb_cascade_generic``).  Per window origin set in the valid mask and per
+``wb_cascade_response``, over :func:`node_records`).  Per window origin
+set in the valid mask and per
 stage in order: ``n_weak`` counts the stage if it is active, the tree
 walk adds the leaf to ``hs`` in f32 from 0, and the window dies when
 ``hs >= theta`` fails.  A dead window keeps the ``hs`` of the stage it died
@@ -34,6 +35,7 @@ from ..device import resolve_device
 
 __all__ = ["Cascade", "CascadeMeta", "NEG_INF", "MAX_COMPLETE_DEPTH",
            "NODE_KEYS", "check_children", "tree_depth", "stage_tables",
+           "GENERAL", "HEAP2", "NodeRecords", "node_records",
            "stack_node_table", "cascade_from_stages", "lockstep",
            "cascade_response_grid", "cascade_response_grid_plain",
            "cascade_survivor_counts", "cascade_predict_samples"]
@@ -94,6 +96,19 @@ class Cascade:
         inner = h["left"] >= 0
         return tuple(int(h[k][inner].max()) + 1 if inner.any() else 0
                      for k in ("fr", "fc", "fch"))
+
+    @functools.cached_property
+    def _records(self) -> dict:
+        return {}
+
+    def records(self, shape: Tuple[int, int, int]) -> "NodeRecords":
+        """The :func:`node_records` of these tables for a (C, H, W) canvas,
+        on the tables' device (built once per shape)."""
+        if shape not in self._records:
+            h = self.host
+            self._records[shape] = NodeRecords.build(
+                h, h["theta"], h["active"], shape, self.device)
+        return self._records[shape]
 
     @property
     def n_stages(self) -> int:
@@ -275,6 +290,97 @@ def cascade_from_stages(stages: Sequence[dict], thetas: Sequence[float],
 
 
 # ---------------------------------------------------------------------------
+# packed node records (the tables as csrc/cascade.cu reads them)
+# ---------------------------------------------------------------------------
+
+#: record layouts of csrc/cascade.cu: general node records, or one record
+#: per stage of a complete depth-2 heap
+GENERAL, HEAP2 = 0, 1
+#: most nodes per stage a record's two 16-bit child fields can address
+MAX_RECORD_NODES = 1 << 15
+
+
+def _offsets(tab: dict, shape: Tuple[int, int, int]) -> np.ndarray:
+    C, H, W = shape
+    if C * H * W >= 2 ** 31:
+        raise ValueError("cascade: canvas offsets must fit in int32")
+    off = (tab["fch"].astype(np.int64) * H + tab["fr"]) * W + tab["fc"]
+    if off.size and (off.min() < 0 or off.max() >= 2 ** 31):
+        raise ValueError("cascade: a feature offset outside int32")
+    return off
+
+
+def _bits(a) -> np.ndarray:
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+def _heap2(tab: dict) -> Optional[dict]:
+    """The (T, 7) tables as complete depth-2 heaps (node n's children 2n+1,
+    2n+2; shallow leaves become pass-through splits, the same responses),
+    or None when a tree is deeper than 2."""
+    T = tab["fr"].shape[0]
+    if any(tree_depth(tab["left"][t], tab["right"][t]) > 2 for t in range(T)):
+        return None
+    out = _empty_tables(T, 7)
+    for t in range(T):
+        ftr = np.stack([tab["fr"][t], tab["fc"][t], tab["fch"][t]], axis=1)
+        _put(out, t, *_tree_to_complete(ftr, tab["thr"][t], tab["left"][t],
+                                        tab["right"][t], tab["pred"][t], 2))
+    return out
+
+
+def node_records(tab: dict, theta, counts, shape: Tuple[int, int, int]
+                 ) -> Tuple[int, np.ndarray]:
+    """``(layout, records)``: the (T, NN) node tables ``tab`` (numpy, keys
+    of ``NODE_KEYS``) packed for a (C, H, W) canvas as one int32 array, with
+    per stage its theta and ``counts`` (1 if the stage counts toward
+    n_weak).  Feature positions become canvas offsets ``fch*H*W + fr*W +
+    fc``; float32 values are stored as their bits.
+
+    * ``HEAP2`` when every tree is at most 2 deep: per stage, as the
+      complete depth-2 heap, 48 bytes ``(off0, thr0, off1, thr1, off2,
+      thr2, theta, counts, pred3, pred4, pred5, pred6)``.
+    * ``GENERAL`` otherwise: per stage the pair ``(theta, counts)``, padded
+      to an even number of stages, then per stage and node the 16-byte
+      record ``(off, thr, left | right << 16 or -1 at a leaf, pred)``."""
+    T, NN = tab["fr"].shape
+    heap = _heap2(tab) if T else None
+    if heap is not None:
+        off = _offsets(heap, shape)
+        rec = np.zeros((T, 12), np.int32)
+        rec[:, 0:6:2] = off[:, :3]
+        rec[:, 1:6:2] = _bits(heap["thr"][:, :3])
+        rec[:, 6] = _bits(theta)
+        rec[:, 7] = np.asarray(counts, bool)
+        rec[:, 8:] = _bits(heap["pred"][:, 3:])
+        return HEAP2, rec.ravel()
+    if NN > MAX_RECORD_NODES:
+        raise ValueError(f"cascade: {NN} nodes per stage, at most "
+                         f"{MAX_RECORD_NODES} are supported")
+    off = _offsets(tab, shape)
+    left, right = tab["left"], tab["right"]
+    kids = np.where(left >= 0, (left & 0xFFFF) | (right.astype(np.int64) << 16),
+                    -1)
+    rec = np.stack([off, _bits(tab["thr"]), kids, _bits(tab["pred"])],
+                   axis=-1).astype(np.int32)
+    stage = np.zeros((T + T % 2, 2), np.int32)
+    stage[:T, 0] = _bits(theta)
+    stage[:T, 1] = np.asarray(counts, bool)
+    return GENERAL, np.concatenate([stage.ravel(), rec.ravel()])
+
+
+class NodeRecords(NamedTuple):
+    """:func:`node_records` on a device."""
+    layout: int
+    data: torch.Tensor
+
+    @staticmethod
+    def build(tab: dict, theta, counts, shape, device) -> "NodeRecords":
+        layout, rec = node_records(tab, theta, counts, shape)
+        return NodeRecords(layout, torch.as_tensor(rec, device=device))
+
+
+# ---------------------------------------------------------------------------
 # plain lockstep evaluation (shared by the plain versions of B3, B4, B6)
 # ---------------------------------------------------------------------------
 
@@ -383,14 +489,13 @@ def cascade_response_grid(canvas: torch.Tensor, casc: Cascade,
     global cascade_generic_launches
     B = cv.shape[0]
     gu, gv = valid.shape
-    hs = torch.zeros((B, gu, gv), dtype=torch.float32, device=cv.device)
-    alive = torch.zeros((B, gu, gv), dtype=torch.bool, device=cv.device)
+    hs = torch.empty((B, gu, gv), dtype=torch.float32, device=cv.device)
+    alive = torch.empty((B, gu, gv), dtype=torch.bool, device=cv.device)
     n_weak = torch.zeros(B, dtype=torch.int32, device=cv.device)
     if B and gu and gv:
-        launch_response("wb_cascade_generic", cv, valid,
-                        [getattr(casc, k) for k in NODE_KEYS],
-                        casc.theta, casc.n_stages, hs, alive, n_weak,
-                        active=casc.active)
+        launch_response("wb_cascade_response", cv, valid,
+                        casc.records(tuple(cv.shape[1:])), casc.n_stages,
+                        casc.n_stages, casc.n_nodes, hs, alive, n_weak)
         cascade_generic_launches += 1
     return _unbatch(batched, hs, alive, n_weak)
 

@@ -26,13 +26,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .._build import check, load_library
-from .cascade import NODE_KEYS, check_children, lockstep, stage_tables
+from ..device import resolve_device
+from .cascade import (NODE_KEYS, NodeRecords, check_children, lockstep,
+                      stage_tables)
 
 __all__ = ["StaticCascade", "static_cascade_from_model", "CascadeOperands",
            "cascade_masked", "cascade_masked_plain", "cascade_response",
@@ -72,23 +75,18 @@ def static_cascade_from_model(model) -> StaticCascade:
     return StaticCascade(*(tab[k] for k in NODE_KEYS), theta)
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class CascadeOperands:
     """A :class:`StaticCascade` checked against its window and channel
-    count and moved to a device.  ``theta`` is -inf where the stage does
-    not reject (non-finite theta)."""
+    count, for one device.  ``theta`` is -inf where the stage does not
+    reject (non-finite theta); :meth:`records` packs the tables for the
+    kernels."""
 
     sc: StaticCascade
     window: Tuple[int, int]
     n_channels: int
-    fr: torch.Tensor
-    fc: torch.Tensor
-    fch: torch.Tensor
-    thr: torch.Tensor
-    left: torch.Tensor
-    right: torch.Tensor
-    pred: torch.Tensor
-    theta: torch.Tensor
+    theta: np.ndarray
+    device: torch.device
 
     @staticmethod
     def build(sc: StaticCascade, window: Tuple[int, int], n_channels: int,
@@ -101,23 +99,25 @@ class CascadeOperands:
             raise ValueError("cascade feature outside the window")
         theta = np.where(np.isfinite(sc.theta), sc.theta,
                          -np.inf).astype(np.float32)
-        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
-        return CascadeOperands(sc, (m, n), n_channels, t(sc.fr), t(sc.fc),
-                               t(sc.fch), t(sc.thr), t(sc.left), t(sc.right),
-                               t(sc.pred), t(theta))
+        return CascadeOperands(sc, (m, n), n_channels, theta,
+                               resolve_device(device))
 
-    @property
-    def device(self) -> torch.device:
-        return self.fr.device
+    @functools.cached_property
+    def _records(self) -> dict:
+        return {}
 
-    @property
-    def tables(self):
-        return [self.fr, self.fc, self.fch, self.thr, self.left, self.right,
-                self.pred]
+    def records(self, shape: Tuple[int, int, int]) -> NodeRecords:
+        """The :func:`~waldboost_tpu_torch.ops.cascade.node_records` of the
+        cascade for a (C, H, W) canvas on :attr:`device` (built once per
+        shape); every stage counts toward n_weak."""
+        if shape not in self._records:
+            self._records[shape] = NodeRecords.build(
+                vars(self.sc), self.theta, np.ones(self.sc.n_stages, bool),
+                shape, self.device)
+        return self._records[shape]
 
     def plain_theta(self) -> Sequence[float]:
-        return np.where(np.isfinite(self.sc.theta), self.sc.theta,
-                        -np.inf).tolist()
+        return self.theta.tolist()
 
 
 def _check(canvas: torch.Tensor, valid: torch.Tensor,
@@ -146,32 +146,30 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 def _entry(name: str):
     fn = getattr(load_library("cascade"), name)
     if fn.argtypes is None:
-        # canvas, B, C, H, W, valid, gu, gv, 7 node tables, theta,
-        # [active,] T, NN, 3 outputs, stream
-        extra = [_VP] if name == "wb_cascade_generic" else []
-        fn.argtypes = [_VP, _CI, _CI, _CI, _CI, _VP, _CI, _CI] + [_VP] * 8 \
-            + extra + [_CI, _CI, _VP, _VP, _VP, _VP]
+        # canvas, B, C, H, W, valid, gu, gv, records, bytes, layout, T,
+        # n_run, NN, 3 outputs, stream
+        fn.argtypes = [_VP, _CI, _CI, _CI, _CI, _VP, _CI, _CI, _VP, _CI, _CI,
+                       _CI, _CI, _CI, _VP, _VP, _VP, _VP]
         fn.restype = ctypes.c_int
     return fn
 
 
 def launch_response(name: str, canvas: torch.Tensor, valid: torch.Tensor,
-                    tables, theta: torch.Tensor, n_stages: int, out0, out1,
-                    n_weak, active: Optional[torch.Tensor] = None) -> None:
+                    records: NodeRecords, n_stages: int, n_run: int,
+                    n_nodes: int, out0, out1, n_weak) -> None:
     """Launch one of the C entry points of ``csrc/cascade.cu`` on the
-    current stream: ``wb_cascade`` (B3: outputs masked, count, n_weak),
-    ``wb_cascade_response`` (B4) or ``wb_cascade_generic`` (B6, with
-    ``active``) (outputs hs, alive, n_weak)."""
+    current stream over the packed ``records`` of ``n_stages`` stages of
+    ``n_nodes`` nodes, walking the first ``n_run``: ``wb_cascade`` (B3:
+    outputs masked, count, n_weak) or ``wb_cascade_response`` (B4, B6:
+    outputs hs, alive, n_weak)."""
     B, C, H, W = canvas.shape
     gu, gv = valid.shape
-    NN = tables[0].shape[1]
-    ptrs = [t.data_ptr() for t in tables] + [theta.data_ptr()]
-    if active is not None:
-        ptrs.append(active.data_ptr())
     stream = torch.cuda.current_stream(canvas.device).cuda_stream
     with torch.cuda.device(canvas.device):
         err = _entry(name)(canvas.data_ptr(), B, C, H, W, valid.data_ptr(),
-                           gu, gv, *ptrs, n_stages, NN, out0.data_ptr(),
+                           gu, gv, records.data.data_ptr(),
+                           records.data.numel() * 4, records.layout,
+                           n_stages, n_run, n_nodes, out0.data_ptr(),
                            out1.data_ptr(), n_weak.data_ptr(), stream)
     check(err, f"{name} kernel")
 
@@ -198,8 +196,10 @@ def cascade_masked(canvas: torch.Tensor, valid: torch.Tensor,
     count = torch.zeros(B, dtype=torch.int32, device=dev)
     n_weak = torch.zeros(B, dtype=torch.int32, device=dev)
     if B and gu and gv:
-        launch_response("wb_cascade", canvas, valid, ops.tables, ops.theta,
-                        ops.sc.n_stages, masked, count, n_weak)
+        T = ops.sc.n_stages
+        launch_response("wb_cascade", canvas, valid,
+                        ops.records(tuple(canvas.shape[1:])), T, T,
+                        ops.sc.fr.shape[1], masked, count, n_weak)
         cascade_launches += 1
     return masked, n_weak, count
 
@@ -232,13 +232,14 @@ def cascade_response(canvas: torch.Tensor, valid: torch.Tensor,
         return cascade_response_plain(canvas, valid, ops, n_stages_cap)
     global cascade_response_launches
     B, dev = canvas.shape[0], canvas.device
-    hs = torch.zeros((B, gu, gv), dtype=torch.float32, device=dev)
-    alive = torch.zeros((B, gu, gv), dtype=torch.bool, device=dev)
+    hs = torch.empty((B, gu, gv), dtype=torch.float32, device=dev)
+    alive = torch.empty((B, gu, gv), dtype=torch.bool, device=dev)
     n_weak = torch.zeros(B, dtype=torch.int32, device=dev)
     if B and gu and gv:
-        launch_response("wb_cascade_response", canvas, valid, ops.tables,
-                        ops.theta, _n_run(ops, n_stages_cap), hs, alive,
-                        n_weak)
+        launch_response("wb_cascade_response", canvas, valid,
+                        ops.records(tuple(canvas.shape[1:])), ops.sc.n_stages,
+                        _n_run(ops, n_stages_cap), ops.sc.fr.shape[1], hs,
+                        alive, n_weak)
         cascade_response_launches += 1
     return hs, alive, n_weak
 
