@@ -21,6 +21,10 @@ cascade_generic B6):
     (complete heaps), flagship_hard_256, and a seeded 40-stage model of
     depth-5 trees (bucket 64: 24 inactive stages, general routing), on
     both canvases; hs is compared at every window origin;
+ 3a. B1 into output buffers pre-filled with 0xAB (a gap byte the kernel
+    missed would show) at VGA, 1080p and 4K; BASELINE config 3's 1080p
+    shapes (1920x1080, flagship_synth_64's plan, 43 levels): B1 and B2
+    (smooth 0 and 1) against their plain versions at batch 8, bitwise;
  3b. tiling edges: B5 at 3x5, 17x45 and 70x257 planes (batch 1 and 3,
     planes starting one byte past a word boundary, C = 1, 4, 5, both
     smooths); B3, B4 (n_stages_cap 0, 1, all) and B6 on grids smaller
@@ -60,7 +64,7 @@ cascade_generic B6):
     make_batched_detector (MP/s at batch 8, 30 batches), B3 on the
     40-stage depth-5 model (GENERAL node records); at config 5: B5
     (smooth 0, 1), B3 and B4 (C = 5) and B1 (halo 0) against their plain
-    versions and bounds, and the
+    versions and bounds; at 1080p B1 and B2 (smooth 1 and 0) likewise; the
     serving path end to end (k=128, NMS 0.5, smooth 0 and 1, MP/s with
     p50/p80 over 20 batches of 8) and the peak device memory; probes the
     host;
@@ -91,6 +95,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VGA = (480, 640)
+HD = (1080, 1920)  # BASELINE config 3's frames
 BATCH = 8
 MODEL_NAMES = ("flagship_synth_64", "flagship_hard_64", "flagship_hard_256")
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_vga_golden.npz")
@@ -425,7 +430,8 @@ def main():
     sys.path.insert(0, ROOT)
     import waldboost_tpu_torch as wt
     from waldboost_tpu_torch import _build, packing
-    from waldboost_tpu_torch.canvas import channel_canvas
+    from waldboost_tpu_torch.canvas import (ChannelCanvas, channel_canvas,
+                                            serving_opts)
     from waldboost_tpu_torch.channels import resolve_channel_function
     from waldboost_tpu_torch.ops import cascade as gen_mod
     from waldboost_tpu_torch.ops import cascade_static as casc_mod
@@ -433,6 +439,7 @@ def main():
     from waldboost_tpu_torch.ops import fpga as fpga_mod
     from waldboost_tpu_torch.ops import planes as plane_mod
     from waldboost_tpu_torch.ops.nms import extract_detections
+    from waldboost_tpu_torch.polyphase import META_COLS
     counters = {name: (importlib.import_module(mod), attr)
                 for name, (mod, attr, _, _) in KERNELS.items()}
 
@@ -460,8 +467,8 @@ def main():
     _build.build(sources)
     for name in sources:
         for line in _build.build_log(name).splitlines():
-            if "ptxas" in line and ("Used" in line or "spill" in line
-                                    or "Compiling" in line):
+            if "spill" in line or "ptxas" in line and (
+                    "Used" in line or "Compiling" in line):
                 print(f"[{name}] {line.strip()}")
     print(f"build: {time.time() - t0:.1f} s")
 
@@ -513,6 +520,10 @@ def main():
         require(bad == 0, f"{phase}: kernel differs from its plain version")
 
     check_phase("planes", "planes", [planes], [planes_ref])
+    check_phase("planes", "planes into a 0xAB buffer",
+                [plane_mod.planes(octs, cstep.plane_ops,
+                                  out=torch.full_like(planes_ref, 0xAB))],
+                [planes_ref])
     check_phase("grad_hist", "grad_hist", [canvas], [canvas_ref])
     check_phase("cascade", "cascade", casc, casc_ref)
     masked, n_weak, count = casc
@@ -561,6 +572,33 @@ def main():
     require(tables["deep40"][0].n_stages == 64
             and not tables["deep40"][1].complete,
             "the deep model must take the padded general-tree tables")
+
+    # -- phase 2a: B1 and B2 at BASELINE config 3's 1080p shapes -------------
+    _, npo, sm1080, cf1080 = serving_opts(synth.channel_opts, synth.shape[2])
+    packed1080 = packing._packed_plan_cached(HD[0], HD[1], 2, npo,
+                                             synth.shape[:2], halo=cf1080.halo)
+    # not the cached canvas step: freed before the end-to-end runs
+    cs1080 = ChannelCanvas(packed1080, HD, sm1080, cf1080, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    noise1080 = torch.randint(0, 256, (BATCH,) + HD, generator=gen,
+                              dtype=torch.uint8, device=dev)
+    octs1080 = cs1080.octaves(noise1080)
+    planes1080 = cs1080.planes(octs1080)
+    print(f"1080p plan: {len(packed1080.levels)} levels, planes "
+          f"{packed1080.canvas_h}x{packed1080.canvas_w}")
+    want = plane_mod.planes_plain(octs1080, cs1080.plane_ops)
+    check_phase("planes", f"planes 1080p batch {BATCH}", [planes1080], [want])
+    check_phase("planes", f"planes 1080p into a 0xAB buffer",
+                [plane_mod.planes(octs1080, cs1080.plane_ops,
+                                  out=torch.full_like(want, 0xAB))], [want])
+    canvas1080 = {}
+    for sm in (1, 0):
+        m = cs1080.interior if sm else None
+        canvas1080[sm] = chan_mod.grad_hist(planes1080, m, sm)
+        check_phase("grad_hist", f"grad_hist 1080p smooth={sm} batch {BATCH}",
+                    [canvas1080[sm]],
+                    [chan_mod.grad_hist_plain(planes1080, m, sm)])
+    del want
 
     # -- phase 2b: tiling edges of B5 and the walk --------------------------
     # B5 at sizes that are no multiple of its 128 x 16 tile or its 4-pixel
@@ -772,8 +810,13 @@ def main():
           f"{det5.packed.halo}, {int(det5.grid.valid.sum())} valid origins")
     require(det5.packed.halo == 0, "the FPGA plan must have halo 0")
     # B1 with no reflect halo: edge levels sit at the canvas border
+    want = plane_mod.planes_plain(octs4k, cs0.plane_ops)
     check_phase("planes", f"planes 4K halo 0 batch {BATCH}", [planes4k],
-                [plane_mod.planes_plain(octs4k, cs0.plane_ops)])
+                [want])
+    check_phase("planes", "planes 4K into a 0xAB buffer",
+                [plane_mod.planes(octs4k, cs0.plane_ops,
+                                  out=torch.full_like(want, 0xAB))], [want])
+    del want
     canvas4k = {}
     for name, cs in c5.items():
         canvas4k[name] = cs.channels(planes4k)
@@ -889,9 +932,19 @@ def main():
                 canvas4k[name0], det5.grid.valid, det5.cascade_ops)),
         "planes_4k": (lambda: cs0.planes(octs4k),
                       lambda: plane_mod.planes_plain(octs4k, cs0.plane_ops)),
+        "planes_1080p": (lambda: cs1080.planes(octs1080),
+                         lambda: plane_mod.planes_plain(octs1080,
+                                                        cs1080.plane_ops)),
+        "grad_hist_1080p": (lambda: cs1080.channels(planes1080),
+                            lambda: chan_mod.grad_hist_plain(
+                                planes1080, cs1080.interior, 1)),
+        "grad_hist_1080p_smooth0": (
+            lambda: chan_mod.grad_hist(planes1080, None, 0),
+            lambda: chan_mod.grad_hist_plain(planes1080, None, 0)),
     })
     big_calls = ("fpga", "fpga_smooth", "cascade_c5", "cascade_response_c5",
-                 "planes_4k")
+                 "planes_4k", "planes_1080p", "grad_hist_1080p",
+                 "grad_hist_1080p_smooth0")
     for name, (kern, plain) in calls.items():
         # plain, kernel, kernel, plain: both orders inside one call
         big = name in big_calls
@@ -909,9 +962,13 @@ def main():
     # input read once, each output written once) over the HBM rate, or its
     # arithmetic over the peak rate of its type
     def planes_bound(pt, o, p):
-        return bound(nbytes(o, p, pt.meta, pt.blocks, pt.i0h, pt.frh, pt.i0w,
-                            pt.frw),
-                     f32_ops=12 * int(pt.host.meta[:, -1].sum()) * BATCH)
+        elems = pt.host.meta[:, META_COLS.index("elems")]
+        return bound(nbytes(o, p, pt.tiles, pt.pieces, pt.rtap, pt.ctap),
+                     f32_ops=12 * int(elems.sum()) * BATCH)
+
+    def grad_hist_bound(p, mask, cv):
+        return bound(nbytes(p, mask, cv), f32_ops=35 * cv.numel(),
+                     f64_ops=12 * cv.numel())
 
     def records(tab, cv):
         return tab.records(tuple(cv.shape[1:])).data
@@ -921,9 +978,12 @@ def main():
     resp_out = BATCH * grid.valid.numel() * 5 + 4 * BATCH
     bounds = {
         "planes": planes_bound(cstep.plane_ops, octs, planes),
-        "grad_hist": bound(nbytes(planes, cstep.interior, canvas),
-                           f32_ops=35 * canvas.numel(),
-                           f64_ops=12 * canvas.numel()),
+        "grad_hist": grad_hist_bound(planes, cstep.interior, canvas),
+        "planes_1080p": planes_bound(cs1080.plane_ops, octs1080, planes1080),
+        "grad_hist_1080p": grad_hist_bound(planes1080, cs1080.interior,
+                                           canvas1080[1]),
+        "grad_hist_1080p_smooth0": grad_hist_bound(planes1080, None,
+                                                   canvas1080[0]),
         "cascade": bound(nbytes(canvas, grid.valid, *casc,
                                 records(det.cascade_ops, canvas)),
                          f32_ops=4 * int(casc[1].sum())),
@@ -963,6 +1023,8 @@ def main():
         metric(f"{name}_bound_us_per_image", ms * 1e3 / BATCH, "us/image")
         print(f"{name}: bound by {what}; kernel at "
               f"{bounds[name][0] / timing[name][0]:.3f} of its bound")
+    # the 1080p tensors are not part of the serving paths measured below
+    del calls, cs1080, noise1080, octs1080, planes1080, canvas1080
 
     # per-layer device time on the noise batch (k=1024 detector, and the
     # config-5 smooth-0 k=128 detector); the extraction is timed with and

@@ -1,46 +1,59 @@
 #!/usr/bin/env python3
-"""Variants of the port's kernel B5 (csrc/fpga.cu) and cascade walk
-(csrc/cascade.cu: B3, B4, B6) on one NVIDIA GPU, each held bitwise
-against the kernel's plain version and timed at config 5's batch-8 shapes.
+"""Variants of the port's kernels B1 (csrc/planes.cu), B2
+(csrc/grad_hist.cu), B5 (csrc/fpga.cu) and the cascade walk
+(csrc/cascade.cu: B3, B4, B6) on one NVIDIA GPU, each held bitwise against
+the kernel's plain version and timed.
 
 A variant is the committed source with textual edits, built by nvcc as
-waldboost_tpu_torch/_build.py builds the source (all variants at once):
+waldboost_tpu_torch/_build.py builds the source (all variants at once), or
+a kernel's first design kept under csrc/baseline/ (the "first design"
+rows, launched as its wrapper launched it: B1 over a zeroed canvas):
 
-* a launch bound or a tuning constant (the choices of the source), or
-  the walk's launch without its cached occupancy query;
+* a launch bound or a tuning constant (the choices of the source), B1's
+  tile shape, tile order (the package's row-major one, or grouped by the
+  octave their levels read) or image order, or the walk's launch without
+  its cached occupancy query;
 * ``poison``: shared memory filled with a pattern before every use, so a
   read of a byte that no thread wrote changes the output;
-* ``skew``: alternate warps delayed at every phase, so a missing barrier
-  changes the output;
+* ``skew``: alternate warps (B1: also alternate lanes) delayed at every
+  phase, so a missing barrier changes the output;
 * ``ablation``: work removed (the values differ by design): timed only,
   its mismatch count printed, never a failure.
 
 The walk also runs on GENERAL records of the depth-2 models (the tables
 packed as for deeper trees) with the committed build.
 
-Checks of every variant: B5 on the config-5 planes (4K noise, batch 8, both
+Checks of every variant: B1 into buffers pre-filled with 0xAB (a gap byte
+it misses is a mismatch) at VGA, BASELINE config 3's 1080p and config 5's
+4K halo 0 (batch 8 of noise), and at 18x18, 97x131 (halo 0) and 61x95 (one
+byte off a word); B2 on the VGA and 1080p planes (batch 8), smooth 0 and
+1, and at 3x5, 17x45 and 70x257 planes (batch 3, 1, 3, random masks, one
+byte off a word); B5 on the config-5 planes (4K noise, batch 8, both
 committed models' composite, smooth 0 and 1) and at chip_smoke.py's tiling
 edges (3x5, 17x45 and 70x257 planes, batch 3, 1, 3, one byte off a word,
 C = 1, 4, 5, both smooths); the walk: B3 and B4 at C = 5 (4K), B3 and B6
 at VGA (flagship_synth_64, noise batch 8), B3 and B4 with the seeded
 40-stage depth-5 model, and chip_smoke.py's small grids with that model
 and a 256-stage one whose records exceed the shared-memory budget.
-Times: CUDA events, the mean of two turns of 20 calls, and the host
-microseconds per B4 launch on one tile of origins (the median of 5 turns
-of 200 calls); the committed build is timed first and last.  Then 20
-alternating pairs of the committed walk and the one that queries the
-device at every launch, on the host clock.
+Times: CUDA events, the mean of two turns of 20 calls at the batch-8
+shapes, and host microseconds per call on a tiny input (the median of 5
+turns of 200 calls; B1 18x18, B2 8x8, B4 one tile of origins); the
+committed build is timed first and last.  Then 20 alternating pairs of the
+committed walk and the one that queries the device at every launch, on
+the host clock.
 
 Prints the card line, one line per variant (ms, mismatches, ptxas
 registers and spill stores per kernel instance), a JSON summary as the
 last line (also written to --out), and exits 1 if a variant other than an
 ablation differs from the plain version.
 
-Usage: python scripts/sweep_torch_kernels.py [--only fpga|walk] [--out FILE]
+Usage: python scripts/sweep_torch_kernels.py
+           [--only planes,grad_hist,fpga,walk] [--out FILE]
 """
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -156,12 +169,147 @@ WALK_VARIANTS["prefetch: HEAP2 stage t+1 loaded before t's compares"] = ([(
     "          if (t + 1 < a.n_run) nx = fetch(s, t + 1, w);\n")], False)
 
 
+FIRST_DESIGN = "first design"
+PLANES_BOUND = "__global__ void __launch_bounds__(kThreads)\nplanes_kernel("
+PLANES_V = "      __syncwarp();  // the previous piece is done with V\n"
+PLANES_ROW = "    uint32_t w[4] = {0, 0, 0, 0};\n"
+PLANES_POISON = [(PLANES_V, PLANES_V +
+                  "      for (int k = lane; k < 2 * kVMax; k += 32)\n"
+                  "        sV[warp][k / kVMax][k % kVMax] = 0x5A5A5A5A ^ "
+                  "(k * 0x01000193) ^ y;\n"
+                  "      __syncwarp();\n")]
+PLANES_SKEW = [(PLANES_ROW, PLANES_ROW +
+                "    if ((warp ^ y ^ blockIdx.x) & 1) __nanosleep(2000);\n"),
+               (PLANES_V,
+                PLANES_V + "      if (lane & 1) __nanosleep(1000);\n")]
+
+
+def planes_const(name, value):
+    pat = re.compile(rf"constexpr int {name} = \d+;")
+    return [(pat, f"constexpr int {name} = {value};")]
+
+
+#: label -> (edits, ablation, tables' (tile rows, tile cols, order))
+PLANES_VARIANTS = {"committed": ([], False, (16, 128, "raster"))}
+PLANES_VARIANTS.update({
+    f"minblocks {n}": ([(PLANES_BOUND, PLANES_BOUND.replace(
+        "(kThreads)", f"(kThreads, {n})"))], False, (16, 128, "raster"))
+    for n in (4, 8)})
+PLANES_VARIANTS.update({
+    f"tile rows {r}": (planes_const("kTR", r), False, (r, 128, "raster"))
+    for r in (8, 32)})
+PLANES_VARIANTS.update({
+    "8 warps a block": (planes_const("kWarps", 8), False,
+                        (16, 128, "raster")),
+    "tiles grouped by octave (each octave's levels together, L2)": (
+        [], False, (16, 128, "octave")),
+    "images interleaved (grid tiles x batch, batch fastest)": ([
+        ("    dim3 grid(n_tiles, batch);", "    dim3 grid(batch, n_tiles);"),
+        ("reinterpret_cast<const int4*>(tiles) + blockIdx.x);",
+         "reinterpret_cast<const int4*>(tiles) + blockIdx.y);"),
+        ("  const uint8_t* img = octs + blockIdx.y * oct_stride;",
+         "  const uint8_t* img = octs + blockIdx.x * oct_stride;"),
+        ("static_cast<size_t>(blockIdx.y) * 4 * plane;",
+         "static_cast<size_t>(blockIdx.x) * 4 * plane;")],
+        False, (16, 128, "raster")),
+    "no copy path for den 1 x 1 levels": ([(
+        "      if (r2_.w == 1 && r3_.x == 1) {",
+        "      if (false) {")], False, (16, 128, "raster")),
+    "ablation: no blend rows filled": ([(
+        "        for (int k = 4 * lane; k < n; k += 128) {",
+        "        for (int k = 4 * lane; k < 0; k += 128) {")], True,
+        (16, 128, "raster")),
+    "poison": (PLANES_POISON, False, (16, 128, "raster")),
+    "poison+skew": (PLANES_POISON + PLANES_SKEW, False, (16, 128, "raster")),
+    # the first design: one thread per output byte over a zeroed canvas
+    FIRST_DESIGN: ("baseline/planes_per_byte.cu", False, None),
+})
+
+GH_BOUND = "__launch_bounds__(kThreads, kBlocksPerSm)"
+GH_IMAGE_TOP = ("    __syncthreads();  // the previous image is done with "
+                "sPo, other buffer\n")
+GH_FIRST = ("  // the planes of the next image are staged while this one is "
+            "computed\n")
+GH_RING = ("    // the pooled ring columns -1 and kTW (rows -1 .. kTH), then "
+           "the smooth\n")
+GH_SMOOTH_TOP = "    __syncthreads();\n#pragma unroll 1\n    for (int il = ty;"
+GH_POISON = [
+    ("  if (kSmooth) stage<1, T::kTH>(sI, mask, H, W, I0, J0 - 4, false);\n",
+     "  for (int i = threadIdx.y * kBX + threadIdx.x;\n"
+     "       i < T::kMask + 2 * T::kPlanes; i += kThreads)\n"
+     "    sPbuf[i] = 0x3C3C3C3Cu ^ blockIdx.y ^ i;\n"
+     "  __syncthreads();\n"
+     "  if (kSmooth) stage<1, T::kTH>(sI, mask, H, W, I0, J0 - 4, false);\n"),
+    (GH_IMAGE_TOP, GH_IMAGE_TOP +
+     "    for (int i = ty * kBX + tx; i < T::kPlanes; i += kThreads)\n"
+     "      sPbuf[(buf ^ 1) * T::kPlanes + i] = 0x5A5A5A5Au ^ (b * "
+     "0x01000193u);\n"
+     "    for (int i = ty * kBX + tx; i < T::kPooled + T::kRing; "
+     "i += kThreads)\n"
+     "      sPo[i] = __int_as_float(0x7fc00000 | i);\n"
+     "    __syncthreads();  // poisoned before any thread stages\n"),
+]
+GH_SKEW = [
+    (GH_IMAGE_TOP,
+     GH_IMAGE_TOP + "    if ((ty ^ b) & 1) __nanosleep(4000);\n"),
+    (GH_RING, "    if (!((ty ^ b) & 1)) __nanosleep(4000);\n" + GH_RING),
+    (GH_SMOOTH_TOP, "    __syncthreads();\n    if ((ty ^ b) & 1) "
+     "__nanosleep(4000);\n#pragma unroll 1\n    for (int il = ty;"),
+]
+
+GH_VARIANTS = {"committed (minblocks 5)": ([], False),
+               # the first design: 32 x 32 tiles staged as int, scalar work
+               FIRST_DESIGN: ("baseline/grad_hist_tile32.cu", False)}
+GH_VARIANTS.update({f"minblocks {n}": ([(GH_BOUND,
+                                         f"__launch_bounds__(kThreads, {n})")],
+                                       False) for n in (2, 3, 4)})
+GH_VARIANTS.update({
+    "smooth as multiply, then add (no fused exact terms)": ([
+        (re.compile(r"__fmaf_rn\(([24]\.0f), (p\[\d\]\[g( \+ \d)?\]), s\)"),
+         r"__fadd_rn(s, __fmul_rn(\1, \2))")], False),
+    "int to f64 by conversion": ([(
+        "  const double dx = to_double(gx), dy = to_double(gy);",
+        "  const double dx = gx, dy = gy;")], False),
+    "ablation: bins in f32": ([(
+        "    const float b = fabsf(__double2float_rn(\n"
+        "        __dsub_rn(__dmul_rn(dx, pj.c[k]), __dmul_rn(dy, pj.s[k]))));",
+        "    const float b = fabsf(__fsub_rn(\n"
+        "        __fmul_rn(gx, __double2float_rn(pj.c[k])),\n"
+        "        __fmul_rn(gy, __double2float_rn(pj.s[k]))));")], True),
+    "ablation: planes staged once for the batch": ([(
+        "    if (b + gridDim.z < batch)\n      stage<4",
+        "    if (false)\n      stage<4"), (
+        "    const uint32_t* sP = sPbuf + buf * T::kPlanes;",
+        "    const uint32_t* sP = sPbuf;")], True),
+    "planes staged synchronously (no cp.async)": ([(
+        "  const bool async =\n      W % 4 == 0",
+        "  const bool async =\n      false && W % 4 == 0")], False),
+    "smooth: bins loop not unrolled": ([(
+        "#pragma unroll\n      for (int k = 0; k < kBins; ++k) {\n"
+        "        // pooled rows il-1",
+        "#pragma unroll 1\n      for (int k = 0; k < kBins; ++k) {\n"
+        "        // pooled rows il-1")], False),
+    "ablation: no smooth ring columns": ([(
+        "    if (tid < 2 * T::kPoolRows) {", "    if (tid < 0) {")], True),
+    "ablation: smooth stubbed (centre only)": ([(
+        "          v[g] = ((in >> (8 * g)) & 255u) ? __fmul_rn(s, 0.0625f) : "
+        "0.0f;", "          v[g] = p[1][g + 1];")], True),
+    "poison": (GH_POISON, False),
+    "poison+skew": (GH_POISON + GH_SKEW, False),
+    "poison+skew minblocks 1": (GH_POISON + GH_SKEW + [(
+        GH_BOUND, "__launch_bounds__(kThreads, 1)")], False),
+})
+
+
 # -- building ----------------------------------------------------------------
 
 def edit(text, edits, label):
+    """``text`` with each (anchor, replacement) applied: a string anchor
+    must occur once, a pattern at least once (every match is replaced)."""
     for old, new in edits:
         if isinstance(old, re.Pattern):
             text, n = old.subn(new, text)
+            n = min(n, 1)
         else:
             n = text.count(old)
             text = text.replace(old, new)
@@ -191,10 +339,15 @@ def build_variants(_build, src_name, variants, workdir):
     with open(os.path.join(_build.CSRC, src_name + ".cu")) as f:
         base = f.read()
     jobs, running, done = [], [], {}
-    for i, (label, (edits, _)) in enumerate(variants.items()):
+    for i, (label, (edits, *_)) in enumerate(variants.items()):
         src = os.path.join(workdir, f"{src_name}_{i}.cu")
+        if isinstance(edits, str):  # another source, as it is
+            with open(os.path.join(_build.CSRC, edits)) as f:
+                text = f.read()
+        else:
+            text = edit(base, edits, label)
         with open(src, "w") as f:
-            f.write(edit(base, edits, label))
+            f.write(text)
         jobs.append((label, src, src[:-3] + ".so"))
     width = max(1, os.cpu_count() or 1)
     while jobs or running:
@@ -290,38 +443,187 @@ def sweep(_build, name, variants, libs, checks, times, failures, rows,
     _build._LIBS.pop(name, None)
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("fpga", "walk"), default=None)
-    ap.add_argument("--out", default=None, help="also write the JSON here")
-    args = ap.parse_args()
+FIRST_PLANES_ARGS = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p)
 
+
+def first_design_planes(lib, ops):
+    """``fn(octs, out)`` launching the first B1 design as its wrapper did:
+    a zeroed canvas, then one thread per output byte in blocks of 256
+    elements of one level (its tables built here from the level table)."""
     import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("needs an NVIDIA GPU")
+    from waldboost_tpu_torch.ops import planes as tpl
+    from waldboost_tpu_torch.polyphase import META_COLS
+    fn = lib.wb_planes
+    fn.argtypes = FIRST_PLANES_ARGS
+    fn.restype = ctypes.c_int
+    dev = ops.device
+    ne = META_COLS.index("elems")
+    meta = torch.as_tensor(np.ascontiguousarray(ops.host.meta[:, :ne + 1]),
+                           device=dev)
+    blocks = torch.tensor([(li, e) for li, n in enumerate(
+        ops.host.meta[:, ne].tolist()) for e in range(0, n, 256)],
+        dtype=torch.int32, device=dev)
+    PH, PW = ops.host.plane_hw
+
+    def call(octs, out=None):
+        B = octs.shape[0]
+        out = torch.zeros((B, 2, 2, PH, PW), dtype=torch.uint8, device=dev)
+        err = fn(octs.data_ptr(), octs.shape[1], meta.data_ptr(),
+                 blocks.data_ptr(), blocks.shape[0], ops.i0h.data_ptr(),
+                 ops.frh.data_ptr(), ops.i0w.data_ptr(), ops.frw.data_ptr(),
+                 out.data_ptr(), B, PH, PW,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"first-design planes kernel: CUDA error {err}")
+        return out
+    return call
+
+
+def sweep_planes(_build, libs, dev, failures, rows):
+    """B1's variants: each into a canvas pre-filled with 0xAB (a gap byte
+    it misses is a mismatch) at VGA, 1080p and 4K halo 0 (batch 8 of
+    noise) and three small frames (one into a buffer one byte off a word),
+    then timed at the three batch-8 shapes."""
+    import torch
+    from chip_smoke import cuda_ms
+    from waldboost_tpu_torch import channels as tch
+    from waldboost_tpu_torch import packing, polyphase
+    from waldboost_tpu_torch.ops import planes as tpl
+    cases = {"VGA": ((480, 640), 8, 1, 8), "1080p": ((1080, 1920), 8, 1, 8),
+             "4K": ((2160, 3840), 4, 0, 8), "18x18": ((18, 18), 2, 1, 3),
+             "97x131 halo 0": ((97, 131), 2, 0, 1),
+             "61x95 odd out": ((61, 95), 2, 1, 3)}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    inputs, ops_cache = {}, {}
+    for name, (hw, npo, halo, batch) in cases.items():
+        window = (12, 12) if batch == 8 else (8, 8)
+        packed = packing._packed_plan_cached(hw[0], hw[1], 2, npo, window,
+                                             halo=halo)
+        imgs = torch.randint(0, 256, (batch,) + hw, generator=gen,
+                             dtype=torch.uint8, device=dev)
+        n_oct = max(pl.level.octave for pl in packed.levels) + 1
+        octs = tpl.octave_buffer(tch.octave_chain(imgs, n_oct))
+        inputs[name] = (packed, hw, octs)
+
+    def ops_for(name, tab):
+        """The tables of a variant: its tile shape (the package's constants
+        set while they are built) and tile order ("octave": the tiles
+        sorted, stably, by the first octave their pieces read)."""
+        key = (name, tab)
+        if key not in ops_cache:
+            packed, hw, _ = inputs[name]
+            shape = (polyphase.PLANE_TILE_ROWS, polyphase.PLANE_TILE_COLS)
+            tr, tc, order = tab or shape + ("raster",)
+            polyphase.PLANE_TILE_ROWS, polyphase.PLANE_TILE_COLS = tr, tc
+            try:
+                t = polyphase.plane_tables(packed, packed.halo, hw)
+            finally:
+                polyphase.PLANE_TILE_ROWS, polyphase.PLANE_TILE_COLS = shape
+            if order == "octave":
+                off = polyphase.PIECE_COLS.index("oct_off")
+                key_of = [t.pieces[b:e, off].min() if e > b else 1 << 40
+                          for _, _, b, e in t.tiles]
+                t = dataclasses.replace(t, tiles=t.tiles[np.argsort(
+                    key_of, kind="stable")])
+            ops_cache[key] = tpl.PlaneOperands.build(t, dev)
+        return ops_cache[key]
+
+    want = {name: tpl.planes_plain(octs, ops_for(name, None))
+            for name, (_, _, octs) in inputs.items()}
+    order = list(PLANES_VARIANTS) + [next(iter(PLANES_VARIANTS))]
+    for i, label in enumerate(order):
+        lib, ptx = libs[label]
+        edits, ablation, tab = PLANES_VARIANTS[label]
+        if tab is None:
+            run = {name: (lambda f, o: lambda out=None: f(o, out))(
+                first_design_planes(lib, ops_for(name, None)), octs)
+                for name, (_, _, octs) in inputs.items()}
+        else:
+            _build._LIBS["planes"] = lib
+            run = {name: (lambda o, p: lambda out=None: tpl.planes(o, p,
+                                                                   out=out))(
+                octs, ops_for(name, tab))
+                for name, (_, _, octs) in inputs.items()}
+        bad = 0
+        for name, fn in run.items():
+            buf = torch.full(tuple(want[name].shape) if "odd" not in name
+                             else (want[name].numel() + 1,), 0xAB,
+                             dtype=torch.uint8, device=dev)
+            out = buf if "odd" not in name else buf[1:].view(want[name].shape)
+            got = fn(out)
+            bad += mismatches([got], [want[name]])
+        ms = {name: timed(cuda_ms, run[name]) for name in ("VGA", "1080p",
+                                                           "4K")}
+        us = {"18x18 host": host_us(run["18x18"])}
+        _build._LIBS.pop("planes", None)
+        tag = label if i < len(PLANES_VARIANTS) else label + " (again)"
+        rows.append({"kernel": "planes", "variant": tag, "ms": ms,
+                     "host_us": us, "mismatches": bad, "ablation": ablation,
+                     "ptxas": ptx})
+        print(f"planes {tag}: " + ", ".join(f"{t} {v:.4f} ms"
+                                            for t, v in ms.items())
+              + "".join(f", {t} {v:.2f} us" for t, v in us.items())
+              + f"; mismatches {bad}; ptxas {ptx}", flush=True)
+        if bad and not ablation:
+            failures.append(f"planes {label}")
+
+
+def grad_hist_cases(dev):
+    """``(checks, times)`` of B2's variants: VGA and 1080p planes of batch-8
+    noise (the committed B1) with each plan's interior mask, both smooths,
+    and the tiling edges (3x5, 17x45, 70x257 planes, batch 3, 1, 3, random
+    masks, planes and mask one byte off a word)."""
+    import torch
+    from waldboost_tpu_torch import channels as tch
+    from waldboost_tpu_torch import packing, polyphase
+    from waldboost_tpu_torch.ops import channels as tcc
+    from waldboost_tpu_torch.ops import planes as tpl
+    gen = torch.Generator(device=dev).manual_seed(12)
+    checks, times = [], {}
+    for name, hw in (("VGA", (480, 640)), ("1080p", (1080, 1920))):
+        packed = packing._packed_plan_cached(hw[0], hw[1], 2, 8, (12, 12),
+                                             halo=1)
+        t = polyphase.plane_tables(packed, packed.halo, hw)
+        imgs = torch.randint(0, 256, (BATCH,) + hw, generator=gen,
+                             dtype=torch.uint8, device=dev)
+        planes = tpl.planes_plain(tpl.octave_buffer(tch.octave_chain(
+            imgs, len(t.oct_hw))), tpl.PlaneOperands.build(t, dev))
+        mask = torch.as_tensor(packed.smooth_interior_mask().astype(np.uint8),
+                               device=dev)
+        for sm in (0, 1):
+            a = (planes, mask if sm else None, sm)
+            fn = (lambda a: lambda: [tcc.grad_hist(*a)])(a)
+            checks.append((fn, [tcc.grad_hist_plain(*a)]))
+            times[f"{name} smooth {sm}"] = fn
+    erng = np.random.RandomState(4)
+    for ehw, eb in (((3, 5), 3), ((17, 45), 1), ((70, 257), 3)):
+        buf = torch.from_numpy(erng.randint(0, 256, 4 * eb * ehw[0] * ehw[1]
+                                            + 1).astype(np.uint8)).to(dev)
+        eplanes = buf[1:].view((eb, 2, 2) + ehw)
+        mbuf = torch.from_numpy((erng.rand(ehw[0] * ehw[1] + 1) < 0.8)
+                                .astype(np.uint8)).to(dev)
+        emask = mbuf[1:].view(ehw)
+        for sm in (0, 1):
+            a = (eplanes, emask if sm else None, sm)
+            checks.append(((lambda a: lambda: [tcc.grad_hist(*a)])(a),
+                           [tcc.grad_hist_plain(*a)]))
+    return checks, times
+
+
+def sweep_fpga_walk(_build, libs, dev, todo, failures, rows):
+    """B5's and the walk's variants at config 5's shapes (and the walk's at
+    VGA); returns the walk's host pairs (None without the walk)."""
+    import torch
     import waldboost_tpu_torch as wt
-    from chip_smoke import card_line, random_deep_stage
-    from waldboost_tpu_torch import _build
+    from chip_smoke import random_deep_stage
     from waldboost_tpu_torch.ops import cascade as gen_mod
     from waldboost_tpu_torch.ops import cascade_static as casc_mod
     from waldboost_tpu_torch.ops import fpga as fpga_mod
-
-    dev = torch.device("cuda", torch.cuda.current_device())
-    card = card_line()
-    print(card, flush=True)
-    workdir = os.path.join(_build.BUILD_DIR, "sweep")
-    shutil.rmtree(workdir, ignore_errors=True)
-    os.makedirs(workdir)
-    t0 = time.time()
-    todo = [k for k in ("fpga", "walk") if args.only in (None, k)]
-    libs = {}
-    if "fpga" in todo:
-        libs["fpga"] = build_variants(_build, "fpga", FPGA_VARIANTS, workdir)
-    if "walk" in todo:
-        libs["walk"] = build_variants(_build, "cascade", WALK_VARIANTS,
-                                      workdir)
-    print(f"build: {time.time() - t0:.1f} s", flush=True)
-
+    pairs = None
     load = lambda n: wt.load(os.path.join(ROOT, "models", n + ".pb"),
                              device=dev)
     m5, m5s, synth = (load(n) for n in ("fpga_4k_synth_64",
@@ -336,7 +638,6 @@ def main():
     noise4k = torch.randint(0, 256, (BATCH,) + hw4k, generator=gen,
                             dtype=torch.uint8, device=dev)
     planes4k = det5.canvas.planes(det5.canvas.octaves(noise4k))
-    rows, failures = [], []
 
     if "fpga" in todo:
         checks, times = [], {}
@@ -477,10 +778,61 @@ def main():
             flush=True)
         if bad:
             failures.append("cascade GENERAL records")
+    return pairs
 
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default="fpga,walk,planes,grad_hist",
+                    help="comma-separated kernels: fpga, walk, planes, "
+                    "grad_hist")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    from chip_smoke import card_line
+    from waldboost_tpu_torch import _build
+    from waldboost_tpu_torch.ops import channels as tcc
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    card = card_line()
+    print(card, flush=True)
+    workdir = os.path.join(_build.BUILD_DIR, "sweep")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    t0 = time.time()
+    todo = args.only.split(",")
+    libs = {}
+    if "planes" in todo:
+        libs["planes"] = build_variants(_build, "planes", PLANES_VARIANTS,
+                                        workdir)
+    if "grad_hist" in todo:
+        libs["grad_hist"] = build_variants(_build, "grad_hist", GH_VARIANTS,
+                                           workdir)
+    if "fpga" in todo:
+        libs["fpga"] = build_variants(_build, "fpga", FPGA_VARIANTS, workdir)
+    if "walk" in todo:
+        libs["walk"] = build_variants(_build, "cascade", WALK_VARIANTS,
+                                      workdir)
+    print(f"build: {time.time() - t0:.1f} s", flush=True)
+
+    rows, failures = [], []
+    if "planes" in todo:
+        sweep_planes(_build, libs["planes"], dev, failures, rows)
+    if "grad_hist" in todo:
+        checks, times = grad_hist_cases(dev)
+        tiny = torch.zeros((1, 2, 2, 8, 8), dtype=torch.uint8, device=dev)
+        host = {"8x8 host": lambda: tcc.grad_hist(tiny, None, 0)}
+        sweep(_build, "grad_hist", GH_VARIANTS, libs["grad_hist"], checks,
+              times, failures, rows, host)
+    pairs = None
+    if "fpga" in todo or "walk" in todo:
+        pairs = sweep_fpga_walk(_build, libs, dev, todo, failures, rows)
     shutil.rmtree(workdir, ignore_errors=True)
     summary = {"card": card, "rows": rows, "failures": failures}
-    if "walk" in todo:
+    if pairs is not None:
         summary["host_pairs"] = pairs
     if args.out:
         with open(args.out, "w") as f:

@@ -84,7 +84,7 @@ def test_kernels_match_plain_on_card(cuda, hw, npo):
 @pytest.mark.parametrize("hw", [(37, 45), (64, 96)])
 def test_grad_hist_any_mask_on_card(cuda, hw):
     # a mask set on the canvas border: the smooth reads the pooled ring
-    # outside the canvas, which both versions take as 0
+    # outside the canvas, which both versions take as 0; and a random mask
     rng = np.random.RandomState(3)
     planes = torch.from_numpy(rng.randint(0, 256, (2, 2, 2) + hw)
                               .astype(np.uint8)).to(cuda)
@@ -92,6 +92,58 @@ def test_grad_hist_any_mask_on_card(cuda, hw):
     got = tcc.grad_hist(planes, mask, 1)
     want = tcc.grad_hist_plain(planes, mask, 1)
     assert torch.equal(got, want)
+    mask = torch.from_numpy((rng.rand(*hw) < 0.7).astype(np.uint8)).to(cuda)
+    assert torch.equal(tcc.grad_hist(planes, mask, 1),
+                       tcc.grad_hist_plain(planes, mask, 1))
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (17, 45), (33, 131),
+                                (14, 128), (16, 128), (70, 257)])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_grad_hist_tiling_edges_on_card(cuda, hw, batch):
+    """B2 at heights and widths that are no multiple of its 128 x 16 (14)
+    tile or of the 4-pixel vector, both smooths, a random mask, with the
+    planes and mask also starting one byte past a word boundary."""
+    rng = np.random.RandomState(hw[0] * 1000 + hw[1] + batch)
+    planes = torch.from_numpy(rng.randint(0, 256, (batch, 2, 2) + hw)
+                              .astype(np.uint8)).to(cuda)
+    mask = torch.from_numpy((rng.rand(*hw) < 0.9).astype(np.uint8)).to(cuda)
+    for smooth in (0, 1):
+        m = mask if smooth else None
+        want = tcc.grad_hist_plain(planes, m, smooth)
+        got = tcc.grad_hist(planes, m, smooth)
+        odd = tcc.grad_hist(_misaligned(planes),
+                            _misaligned(mask) if smooth else None, smooth)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), smooth
+        assert torch.equal(odd, want), smooth
+
+
+@pytest.mark.parametrize("hw", [(18, 18), (19, 27), (31, 45), (48, 64),
+                                (61, 95), (97, 131)])
+@pytest.mark.parametrize("halo", [0, 1])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_planes_every_byte_on_card(cuda, hw, halo, batch):
+    """B1 from the smallest frame that plans a level to 97 x 131, odd
+    widths, baked halo 0 and 2, into an output buffer pre-filled with
+    0xAB (whole, and starting one byte past a word boundary): equal to the
+    plain version, gap bytes included."""
+    packed = packing._packed_plan_cached(hw[0], hw[1], 2, 2, (8, 8),
+                                         halo=halo)
+    tables = polyphase.plane_tables(packed, packed.halo, hw)
+    pops = tpl.PlaneOperands.build(tables, cuda)
+    imgs = _frames(batch, hw, seed=hw[0] + halo).to(cuda)
+    octs = tpl.octave_buffer(tch.octave_chain(imgs, len(tables.oct_hw)))
+    want = tpl.planes_plain(octs, pops)
+    shape = (batch, 2, 2) + tables.plane_hw
+    out = torch.full(shape, 0xAB, dtype=torch.uint8, device=cuda)
+    assert tpl.planes(octs, pops, out=out).data_ptr() == out.data_ptr()
+    odd = _misaligned(torch.full(shape, 0xAB, dtype=torch.uint8,
+                                 device=cuda))
+    tpl.planes(octs, pops, out=odd)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(odd, want)
 
 
 FPGA_KINDS = ("grad_hist_4_u1", "grad_mag_u1", "grad_hist_4_u1+grad_mag_u1",

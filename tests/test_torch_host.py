@@ -128,8 +128,9 @@ def test_geometry_matches_jax(hw, n_per_oct):
 
 def test_plane_tables_place_levels_at_band_rows():
     """The plane kernel's tables put level li at (pl.y - halo/2,
-    pl.x - halo/2) with a (hq, wq) block inside the canvas, and the block
-    table covers every element of every level exactly once."""
+    pl.x - halo/2) with a (hq, wq) block inside the canvas, and the level
+    pieces of the tile table cover every element of every level exactly
+    once."""
     tp = packing._packed_plan_cached(480, 640, 2, 8, (12, 12), halo=1)
     tables = polyphase.plane_tables(tp, tp.halo, (480, 640))
     cols = polyphase.META_COLS
@@ -139,9 +140,14 @@ def test_plane_tables_place_levels_at_band_rows():
     np.testing.assert_array_equal(meta["x0"], [pl.x - he2 for pl in tp.levels])
     assert (meta["y0"] + meta["hq"] <= tp.canvas_h).all()
     assert (meta["x0"] + meta["wq"] <= tp.canvas_w).all()
+    level_at = np.full(tables.plane_hw, -1)
+    for li, (y0, x0, hq, wq) in enumerate(zip(meta["y0"], meta["x0"],
+                                              meta["hq"], meta["wq"])):
+        level_at[y0:y0 + hq, x0:x0 + wq] = li
     covered = np.zeros(len(tp.levels), np.int64)
-    for li, e0 in tables.blocks:
-        covered[li] += min(polyphase.PLANE_BLOCK, meta["elems"][li] - e0)
+    for ya, yb, xa, xb in tables.pieces[:, :4]:
+        assert (level_at[ya:yb, xa:xb] == level_at[ya, xa]).all()
+        covered[level_at[ya, xa]] += 4 * (yb - ya) * (xb - xa)  # 4 planes
     np.testing.assert_array_equal(covered, meta["elems"])
 
 

@@ -54,6 +54,22 @@ def _check(planes: torch.Tensor, mask: Optional[torch.Tensor],
                              "devices")
 
 
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+_DBL4 = ctypes.c_double * N_BINS
+_COS4, _SIN4 = _DBL4(*COS), _DBL4(*SIN)
+
+
+def _entry():
+    fn = load_library("grad_hist").wb_grad_hist
+    if fn.argtypes is None:
+        # planes, mask, out, B, H, W, smooth, cos, sin, stream
+        fn.argtypes = [_VP, _VP, _VP, _CI, _CI, _CI, _CI,
+                       ctypes.POINTER(ctypes.c_double),
+                       ctypes.POINTER(ctypes.c_double), _VP]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def grad_hist(planes: torch.Tensor, mask: Optional[torch.Tensor],
               smooth: int) -> torch.Tensor:
     """(B, 4, H, W) float32 channel canvas of (B, 2, 2, H, W) uint8 planes.
@@ -67,19 +83,11 @@ def grad_hist(planes: torch.Tensor, mask: Optional[torch.Tensor],
     B, _, _, H, W = planes.shape
     out = torch.empty((B, N_BINS, H, W), dtype=torch.float32,
                       device=planes.device)
-    lib = load_library("grad_hist")
-    fn = lib.wb_grad_hist
-    dbl4 = ctypes.c_double * N_BINS
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_double),
-                   ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     with torch.cuda.device(planes.device):
-        err = fn(planes.data_ptr(),
-                 mask.data_ptr() if smooth == 1 else None, out.data_ptr(),
-                 B, H, W, smooth, dbl4(*COS), dbl4(*SIN), stream)
+        err = _entry()(planes.data_ptr(),
+                       mask.data_ptr() if smooth == 1 else None,
+                       out.data_ptr(), B, H, W, smooth, _COS4, _SIN4, stream)
     check(err, "grad_hist kernel")
     grad_hist_launches += 1
     return out

@@ -4,20 +4,21 @@ Counterpart of ``waldboost_tpu/polyphase_fused.py::_poly_planes_fused``
 (pass-1 einsums + ``ops/plane_pallas.py::shelf_pass2_call``).  The CUDA
 kernel is ``csrc/planes.cu``; :func:`planes_plain` is the same formula in
 torch indexing.  A CPU tensor takes the plain version, a CUDA tensor the
-kernel.
+kernel.  Both write every byte of the canvas, the gaps between levels as
+0, so the canvas needs no zero fill first.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from .._build import check, load_library
-from ..polyphase import PlaneTables
+from ..polyphase import META_COLS, PlaneTables
 
 __all__ = ["PlaneOperands", "octave_buffer", "planes", "planes_plain"]
 
@@ -30,8 +31,10 @@ class PlaneOperands:
     """:class:`~waldboost_tpu_torch.polyphase.PlaneTables` on a device."""
 
     host: PlaneTables
-    meta: torch.Tensor
-    blocks: torch.Tensor
+    tiles: torch.Tensor
+    pieces: torch.Tensor
+    rtap: torch.Tensor
+    ctap: torch.Tensor
     i0h: torch.Tensor
     frh: torch.Tensor
     i0w: torch.Tensor
@@ -41,13 +44,14 @@ class PlaneOperands:
     def build(tables: PlaneTables, device) -> "PlaneOperands":
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                       device=device)
-        return PlaneOperands(tables, t(tables.meta), t(tables.blocks),
-                             t(tables.i0h), t(tables.frh), t(tables.i0w),
-                             t(tables.frw))
+        return PlaneOperands(tables, t(tables.tiles),
+                             t(tables.pieces), t(tables.rtap),
+                             t(tables.ctap), t(tables.i0h), t(tables.frh),
+                             t(tables.i0w), t(tables.frw))
 
     @property
     def device(self) -> torch.device:
-        return self.meta.device
+        return self.tiles.device
 
 
 def octave_buffer(octaves: List[torch.Tensor]) -> torch.Tensor:
@@ -57,7 +61,8 @@ def octave_buffer(octaves: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat([o.reshape(B, -1) for o in octaves], dim=1).contiguous()
 
 
-def _check(octs: torch.Tensor, ops: PlaneOperands) -> None:
+def _check(octs: torch.Tensor, ops: PlaneOperands,
+           out: Optional[torch.Tensor]) -> None:
     if octs.dtype != torch.uint8 or octs.dim() != 2:
         raise ValueError("planes: octaves must be a (B, S) uint8 tensor")
     need = sum(h * w for h, w in ops.host.oct_hw)
@@ -68,34 +73,51 @@ def _check(octs: torch.Tensor, ops: PlaneOperands) -> None:
         raise ValueError("planes: octaves and tables on different devices")
     if not octs.is_contiguous():
         raise ValueError("planes: octave buffer must be contiguous")
+    if out is not None:
+        shape = (octs.shape[0], 2, 2) + tuple(ops.host.plane_hw)
+        if out.dtype != torch.uint8 or tuple(out.shape) != shape \
+                or not out.is_contiguous() or out.device != octs.device:
+            raise ValueError(f"planes: out must be a contiguous {shape} "
+                             "uint8 tensor beside the octaves")
 
 
-def planes(octs: torch.Tensor, ops: PlaneOperands) -> torch.Tensor:
-    """(B, 2, 2, PH, PW) uint8 polyphase planes of every pyramid level."""
-    _check(octs, ops)
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+
+
+def _entry():
+    fn = load_library("planes").wb_planes
+    if fn.argtypes is None:
+        # octs, oct_stride, tiles, n_tiles, pieces, rtap, ctap, planes,
+        # batch, PH, PW, tile rows, tile cols, stream
+        fn.argtypes = [_VP, ctypes.c_longlong, _VP, _CI, _VP, _VP, _VP, _VP,
+                       _CI, _CI, _CI, _CI, _CI, _VP]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def planes(octs: torch.Tensor, ops: PlaneOperands,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, 2, 2, PH, PW) uint8 polyphase planes of every pyramid level,
+    into ``out`` when given (every byte of it is written)."""
+    _check(octs, ops, out)
     if octs.device.type == "cpu":
-        return planes_plain(octs, ops)
+        res = planes_plain(octs, ops)
+        return res if out is None else out.copy_(res)
     if octs.device.type != "cuda":
         raise ValueError(f"planes: unsupported device {octs.device}")
     global planes_launches
     B = octs.shape[0]
     PH, PW = ops.host.plane_hw
-    out = torch.zeros((B, 2, 2, PH, PW), dtype=torch.uint8,
-                      device=octs.device)
-    lib = load_library("planes")
-    fn = lib.wb_planes
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if out is None:
+        out = torch.empty((B, 2, 2, PH, PW), dtype=torch.uint8,
+                          device=octs.device)
     stream = torch.cuda.current_stream(octs.device).cuda_stream
     with torch.cuda.device(octs.device):
-        err = fn(octs.data_ptr(), octs.shape[1], ops.meta.data_ptr(),
-                 ops.blocks.data_ptr(), ops.blocks.shape[0],
-                 ops.i0h.data_ptr(), ops.frh.data_ptr(), ops.i0w.data_ptr(),
-                 ops.frw.data_ptr(), out.data_ptr(), B, PH, PW, stream)
+        err = _entry()(octs.data_ptr(), octs.shape[1],
+                       ops.tiles.data_ptr(), ops.tiles.shape[0],
+                       ops.pieces.data_ptr(), ops.rtap.data_ptr(),
+                       ops.ctap.data_ptr(), out.data_ptr(), B, PH, PW,
+                       *ops.host.tile_hw, stream)
     check(err, "planes kernel")
     planes_launches += 1
     return out
@@ -103,13 +125,16 @@ def planes(octs: torch.Tensor, ops: PlaneOperands) -> torch.Tensor:
 
 def planes_plain(octs: torch.Tensor, ops: PlaneOperands) -> torch.Tensor:
     """Plain-torch version of the plane kernel (the same integer formula)."""
-    _check(octs, ops)
+    _check(octs, ops, None)
     B = octs.shape[0]
     PH, PW = ops.host.plane_hw
     dev = octs.device
     out = torch.zeros((B, 2, 2, PH, PW), dtype=torch.uint8, device=dev)
     for row in ops.host.meta.tolist():
-        oct_off, oh, ow, hq, wq, y0, x0, dh, dw, th, tw, _ = row
+        m = dict(zip(META_COLS, row))
+        oct_off, oh, ow = m["oct_off"], m["oh"], m["ow"]
+        hq, wq, y0, x0 = m["hq"], m["wq"], m["y0"], m["x0"]
+        dh, dw, th, tw = m["den_h"], m["den_w"], m["tap_h"], m["tap_w"]
         img = octs[:, oct_off:oct_off + oh * ow].reshape(B, oh, ow)
         img = img.to(torch.int32)
         r0 = ops.i0h[th:th + 2 * hq].view(2, hq, 1, 1).long()

@@ -58,9 +58,48 @@ def _poly_geom_levels(packed: PackedPyramidPlan, halo, image_hw):
     return out
 
 
+
+
+def div_magic(den: int) -> Tuple[int, int]:
+    """``(m, s)`` with ``floor(N / den) == umulhi(2 * N, m) >> s`` for
+    every ``N`` in ``[0, 255 * den]``, ``m`` < 2**32 (the plane kernel's
+    floor of the 4-corner numerator).
+
+    ``f(N) = floor(2*N*m / 2**(32+s))`` never decreases with ``N``, so it
+    equals ``floor(N / den)`` on all of ``[k*den, k*den + den - 1]`` iff it
+    does at both ends: checking the 511 ends for k = 0 .. 255 proves the
+    whole range.  The smallest ``s`` that passes is taken."""
+    if den < 1 or 255 * den >= 2 ** 31:
+        raise ValueError(f"denominator {den}: 255*den must be in [1, 2**31)")
+    ends = [(k * den, k) for k in range(256)] \
+        + [(k * den + den - 1, k) for k in range(255)]
+    for s in range(32):
+        m = -(-(1 << (31 + s)) // den)
+        if m >= 1 << 32:
+            break
+        if all((n * m) >> (31 + s) == k for n, k in ends):
+            return m, s
+    raise ValueError(f"denominator {den}: no 32-bit division magic")
+
+
 #: columns of :attr:`PlaneTables.meta`, one row per level
 META_COLS = ("oct_off", "oh", "ow", "hq", "wq", "y0", "x0", "den_h",
-             "den_w", "tap_h", "tap_w", "elems")
+             "den_w", "tap_h", "tap_w", "elems", "magic", "shift")
+#: columns of :attr:`PlaneTables.tiles` and :attr:`PlaneTables.pieces`
+TILE_COLS = ("y0", "x0", "begin", "end")
+PIECE_COLS = ("ya", "yb", "xa", "xb", "cmin", "n", "oct_off", "ow", "oh",
+              "rbase", "hq", "den_h", "den_w", "jt", "magic", "shift")
+
+#: the plane kernel's tile: rows of the plane canvas, columns (32 lanes x
+#: 4 bytes, csrc/planes.cu kTR, kTC)
+PLANE_TILE_ROWS = 16
+PLANE_TILE_COLS = 128
+
+
+def v_max(tile_cols: int) -> int:
+    """Octave columns one warp's blend row holds (csrc/planes.cu kVMax): a
+    level's column step is below 4 octave pixels per pair of outputs."""
+    return 4 * tile_cols + 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,11 +108,26 @@ class PlaneTables:
 
     ``meta`` (L, len(META_COLS)): per level the octave's offset in the
     flattened octave buffer, octave shape, block shape, plane-space
-    placement, denominators, offsets into the tap arrays and the block's
-    element count ``4*hq*wq``.  ``i0h``/``frh`` concatenate every level's
-    phase-major row taps (``2*hq`` each), ``i0w``/``frw`` the column taps.
-    ``blocks`` (nblk, 2) maps each launched thread block to (level, first
-    element).  ``oct_hw`` are the octave shapes, ``plane_hw`` = (PH, PW).
+    placement, denominators, offsets into the tap arrays, the block's
+    element count ``4*hq*wq`` and the division magic of ``den_h*den_w``
+    (:func:`div_magic`; ``magic`` holds the uint32's bits).
+    ``i0h``/``frh`` concatenate every level's phase-major row taps (``2*hq``
+    each), ``i0w``/``frw`` the column taps; ``rtap`` packs a row tap as
+    ``i0h | frh << 16`` and ``ctap`` (sum of wq, 2) the column taps of
+    output column j of both column phases, level by level (level rows
+    start at ``tap_w // 2``).
+
+    ``tiles`` (T, len(TILE_COLS)) cut the plane canvas into ``tile_hw``
+    rectangles (all four planes), one thread block each, row-major;
+    tile t's ``pieces[begin:end]`` (len(PIECE_COLS) columns) are the
+    clipped rectangles ``[ya, yb) x [xa, xb)`` of the levels it meets (in
+    level order), each with the ``n`` octave columns from
+    ``cmin`` its outputs read and, so that the kernel reads one record,
+    its level's parameters: ``rtap[rbase + y]`` is canvas row y's row tap
+    of row phase 0 (``+ hq``: phase 1), ``ctap[jt + x]`` canvas column x's
+    column taps.  A canvas byte in no piece is a gap byte, written 0 by its
+    tile's block.  ``oct_hw``
+    are the octave shapes, ``plane_hw`` = (PH, PW).
     """
 
     meta: np.ndarray
@@ -81,20 +135,54 @@ class PlaneTables:
     frh: np.ndarray
     i0w: np.ndarray
     frw: np.ndarray
-    blocks: np.ndarray
+    rtap: np.ndarray
+    ctap: np.ndarray
+    tiles: np.ndarray
+    pieces: np.ndarray
     oct_hw: Tuple[Tuple[int, int], ...]
     plane_hw: Tuple[int, int]
+    tile_hw: Tuple[int, int]
 
 
-#: threads per block of the plane kernel (one output element each)
-PLANE_BLOCK = 256
+def _tile_pieces(meta: np.ndarray, ctap: np.ndarray, plane_hw, tile_hw):
+    """``(tiles, pieces)`` of :class:`PlaneTables`, tiles row-major."""
+    PH, PW = plane_hw
+    TR, TC = tile_hw
+    col = {c: i for i, c in enumerate(META_COLS)}
+    tiles, pieces = [], []
+    for Y0 in range(0, PH, TR):
+        for X0 in range(0, PW, TC):
+            begin = len(pieces)
+            for li, m in enumerate(meta):
+                y0, x0 = m[col["y0"]], m[col["x0"]]
+                ya, yb = max(Y0, y0), min(Y0 + TR, y0 + m[col["hq"]])
+                xa, xb = max(X0, x0), min(X0 + TC, x0 + m[col["wq"]])
+                if ya >= yb or xa >= xb:
+                    continue
+                c = ctap[m[col["tap_w"]] // 2 + xa - x0:
+                         m[col["tap_w"]] // 2 + xb - x0] & 0xFFFF
+                cmin = int(c.min())
+                cmax = min(int(c.max()) + 1, int(m[col["ow"]]) - 1)
+                if cmax - cmin + 1 > v_max(TC):
+                    raise ValueError(f"level {li}: {cmax - cmin + 1} octave "
+                                     f"columns exceed a blend row")
+                pieces.append((
+                    ya, yb, xa, xb, cmin, cmax - cmin + 1, m[col["oct_off"]],
+                    m[col["ow"]], m[col["oh"]], m[col["tap_h"]] - y0,
+                    m[col["hq"]], m[col["den_h"]], m[col["den_w"]],
+                    m[col["tap_w"]] // 2 - x0, m[col["magic"]],
+                    m[col["shift"]]))
+            tiles.append((Y0, X0, begin, len(pieces)))
+    return (np.asarray(tiles, np.int32).reshape(-1, len(TILE_COLS)),
+            np.asarray(pieces, np.int32).reshape(-1, len(PIECE_COLS)))
 
 
 def plane_tables(packed: PackedPyramidPlan, halo: int,
                  image_hw: Tuple[int, int]) -> PlaneTables:
     """Build the plane kernel's tables for an unpadded ``(Hc, Wc)`` plane
     canvas.  ``halo`` is the even image-space reflect halo baked into the
-    taps (``packed.halo`` for reflect-boundary channel functions)."""
+    taps (``packed.halo`` for reflect-boundary channel functions);
+    The tiles are (PLANE_TILE_ROWS, PLANE_TILE_COLS), the kernel's."""
     if halo % 2:
         raise ValueError("the packer guarantees an even baked halo")
     he2 = halo // 2
@@ -112,26 +200,39 @@ def plane_tables(packed: PackedPyramidPlan, halo: int,
     # placement rule of the JAX plane assembly
     row0 = {li: ys + top for ys, _pitch, lis in _band_rows(packed, he2, 0, PH)
             for li, top, _col in lis}
-    meta, i0h, frh, i0w, frw, blocks = [], [], [], [], [], []
+    meta, i0h, frh, i0w, frw = [], [], [], [], []
     tap_h = tap_w = 0
     for li, (pl, g) in enumerate(zip(packed.levels, geom)):
-        if 255 * g["den_h"] * g["den_w"] >= 2 ** 31:
+        den = g["den_h"] * g["den_w"]
+        if 255 * den >= 2 ** 31:
             raise ValueError(f"level {li}: 255*den_h*den_w overflows int32")
-        elems = 4 * g["hq"] * g["wq"]
+        if max(g["oh"], g["ow"]) >= 1 << 16:
+            raise ValueError(f"level {li}: octave side exceeds 16 bits")
+        magic, shift = div_magic(den)
         meta.append((oct_off[g["oct"]], g["oh"], g["ow"], g["hq"], g["wq"],
                      row0[li], pl.x - he2, g["den_h"], g["den_w"], tap_h,
-                     tap_w, elems))
+                     tap_w, 4 * g["hq"] * g["wq"],
+                     np.uint32(magic).view(np.int32), shift))
         i0h.append(g["i0h"])
         frh.append(g["frh"])
         i0w.append(g["i0w"])
         frw.append(g["frw"])
         tap_h += 2 * g["hq"]
         tap_w += 2 * g["wq"]
-        blocks += [(li, e) for e in range(0, elems, PLANE_BLOCK)]
     cat = lambda parts: np.concatenate(parts).astype(np.int32) if parts \
         else np.zeros(0, np.int32)
+    meta = np.asarray(meta, np.int32).reshape(-1, len(META_COLS))
+    i0h, frh, i0w, frw = cat(i0h), cat(frh), cat(i0w), cat(frw)
+    ctap = np.zeros((tap_w // 2, 2), np.int32)
+    for m in meta:
+        tw, wq = m[META_COLS.index("tap_w")], m[META_COLS.index("wq")]
+        for q in (0, 1):
+            sl = slice(tw + q * wq, tw + (q + 1) * wq)
+            ctap[tw // 2:tw // 2 + wq, q] = i0w[sl] | (frw[sl] << 16)
+    tile_hw = (PLANE_TILE_ROWS, PLANE_TILE_COLS)
+    tiles, pieces = _tile_pieces(meta, ctap, (PH, PW), tile_hw)
     return PlaneTables(
-        meta=np.asarray(meta, np.int32).reshape(-1, len(META_COLS)),
-        i0h=cat(i0h), frh=cat(frh), i0w=cat(i0w), frw=cat(frw),
-        blocks=np.asarray(blocks, np.int32).reshape(-1, 2),
-        oct_hw=tuple(oct_hw), plane_hw=(PH, PW))
+        meta=meta, i0h=i0h, frh=frh, i0w=i0w, frw=frw,
+        rtap=(i0h | (frh << 16)).astype(np.int32), ctap=ctap, tiles=tiles,
+        pieces=pieces, oct_hw=tuple(oct_hw), plane_hw=(PH, PW),
+        tile_hw=tile_hw)
