@@ -5,9 +5,10 @@ Drives the port's two paths on VGA frames (640x480, shrink 2, n_per_oct 8,
 smooth 1, grad_hist) with the committed models and its BASELINE config-5
 path on 3840x2160 frames (FPGA integer channels grad_hist_4_u1+grad_mag_u1,
 C = 5, shrink 2, n_per_oct 4, smooth 0 and 1, the committed
-models/fpga_4k_*synth_64.pb), and checks and times its six CUDA kernels
-(planes B1, grad_hist B2, cascade B3, cascade_response B4, fpga B5,
-cascade_generic B6):
+models/fpga_4k_*synth_64.pb), its fast serving mode on VGA uint8 and
+float32 frames, and checks and times its eight CUDA kernels (planes B1,
+grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
+B6, grad_hist_fast B2f, cascade_fast B3f):
 
  1. prints torch/CUDA versions and the card's name and power limit;
  2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
@@ -31,11 +32,28 @@ cascade_generic B6):
     than the walk's 8 x 32 tile, with the 40-stage deep model and a
     256-stage one whose packed records exceed the walk's shared-memory
     budget;
+ 3c. B2f against its plain version on the bfloat16 bits, for uint8,
+    float32 and bfloat16 planes, smooth 0 and 1: at VGA batch 8 (the fast
+    canvas step's planes of noise frames), at 1080p batch 8 (seeded
+    planes), and at 3b's small odd shapes with planes and mask also
+    starting one element off a word; B3f (the kernel always counts
+    n_weak, which is compared too) with flagship_synth_64 and
+    flagship_hard_256 on the VGA bfloat16 canvases, and B4 over one;
  4. serving path (slice 1): make_batched_detector_boxes(k=1024,
     nms_iou=0.5) on the 3 golden scene frames with every launch counter
     set to 0 first: survivor counts, kept boxes and scores equal the
     committed JAX outputs (tests/data/torch_port_vga_golden.npz) bitwise,
     and B1-B3 launched;
+ 4a. fast serving mode: make_batched_detector_boxes(fast=True, k=1024,
+    nms_iou=0.5, with_n_weak=False) on the golden frames (uint8) and on
+    their float32 versions with fast_float "f32" and "bf16", the counters
+    set to 0 before each: counts, kept boxes and scores equal the
+    committed JAX fast-mode outputs (tests/data/torch_port_fast_golden.npz)
+    bitwise; B1, B2f and B3f must have launched for uint8 frames, B2f and
+    B3f for float frames, and no exact-mode B2 or B3; then
+    make_multi_detector_boxes(fast=True) over the three models must launch
+    B2f and B3f and give the single-model fast path's boxes for its first
+    model;
  5. Model-API path: counters set to 0, then on the golden frames
     Model.detect, detect_topk(k=1024, nms_iou=0.5) and scan_packed_batch
     of the three committed models, wt.detect over all three
@@ -62,17 +80,21 @@ cascade_generic B6):
     batches of 8 per workload, MP/s, p50/p80), Model.detect and the
     three-model wt.detect (ms/frame, p50 of 30 frames) and
     make_batched_detector (MP/s at batch 8, 30 batches), B3 on the
-    40-stage depth-5 model (GENERAL node records); at config 5: B5
+    40-stage depth-5 model (GENERAL node records); B2f on each plane type
+    and B3f at VGA; fast serving end to end (30 batches per workload:
+    uint8 noise k=128 and scenes k=1024, float32 noise with f32 and bf16
+    planes, k=128); at config 5: B5
     (smooth 0, 1), B3 and B4 (C = 5) and B1 (halo 0) against their plain
     versions and bounds; at 1080p B1 and B2 (smooth 1 and 0) likewise; the
     serving path end to end (k=128, NMS 0.5, smooth 0 and 1, MP/s with
     p50/p80 over 20 batches of 8) and the peak device memory; probes the
     host;
- 7. traces 10 batches of each serving workload with torch.profiler and
-    prints the device idle share and, per layer span (wb.*), host and
-    device time, and 3 batches of each config-5 workload likewise;
+ 7. traces 10 batches of each serving workload (and of the fast scene and
+    bf16 float-fast workloads) with torch.profiler and prints the device
+    idle share and, per layer span (wb.*), host and device time, and 3
+    batches of each config-5 workload likewise;
  8. prints the per-kernel JSON summary (launches from the Model-API path,
-    B5's from the config-5 path,
+    B5's from the config-5 path, B2f's and B3f's from the fast path,
     max_abs_err, ms, plain_ms, bound_ms from this run's shapes), then the
     final ok line.
 
@@ -129,7 +151,18 @@ KERNELS = {
                         "cascade_generic_launches",
                         "waldboost_tpu_torch/csrc/cascade.cu",
                         "waldboost_tpu/ops/cascade_pallas.py:182"),
+    "grad_hist_fast": ("waldboost_tpu_torch.ops.channels",
+                       "grad_hist_fast_launches",
+                       "waldboost_tpu_torch/csrc/grad_hist.cu",
+                       "waldboost_tpu/ops/channels_pallas.py:405 (fast=True)"),
+    "cascade_fast": ("waldboost_tpu_torch.ops.cascade_static",
+                     "cascade_fast_launches",
+                     "waldboost_tpu_torch/csrc/cascade.cu",
+                     "waldboost_tpu/ops/cascade_static.py:764 (fast=True)"),
 }
+#: the fast serving mode's golden (scripts/make_torch_fast_golden.py)
+FAST_GOLDEN = os.path.join(ROOT, "tests", "data",
+                           "torch_port_fast_golden.npz")
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (and the
 #: integer work counted with it) and float64 operations/s outside the
@@ -661,6 +694,83 @@ def main():
           f" padded")
     del big, big_stages
 
+    # -- phase 2c: B2f and B3f against their plain versions ------------------
+    # B2f bitwise on the bfloat16 bits, for uint8, float32 and bfloat16
+    # planes: at VGA (the fast canvas step's own planes of noise frames),
+    # at 1080p (seeded planes), and at phase 2b's small odd shapes with the
+    # planes and mask starting one element off a word; then B3f (and B4 over
+    # the same bfloat16 canvas) on the VGA fast canvas
+    fastg = np.load(FAST_GOLDEN)
+    fsteps = {ff: channel_canvas(packed, VGA, cstep.smooth, cstep.cf, dev,
+                                 True, ff) for ff in ("f32", "bf16")}
+    frng = np.random.RandomState(8)
+    noise_f = [torch.from_numpy((frng.randint(0, 256, (BATCH,) + VGA)
+                                 + frng.rand(BATCH, *VGA)).astype(np.float32))
+               .to(dev) for _ in range(2)]
+    fplanes = {"uint8": planes}
+    for ff, st in fsteps.items():
+        fplanes[ff] = st.planes(st.octaves(noise_f[0]))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rand1080 = torch.rand((BATCH, 2, 2) + tuple(planes1080.shape[3:]),
+                          generator=gen, device=dev) * 256
+    fplanes1080 = {"uint8": planes1080, "f32": rand1080,
+                   "bf16": rand1080.to(torch.bfloat16)}
+    del rand1080
+
+    def fast_phase(phase, p, m, sm):
+        got = chan_mod.grad_hist_fast(p, m, sm)
+        check_phase("grad_hist_fast", phase, [got.view(torch.int16)],
+                    [chan_mod.grad_hist_fast_plain(p, m, sm)
+                     .view(torch.int16)])
+        return got
+
+    fcanvas = {}
+    for label, pl_, mask_ in (("VGA", fplanes, cstep.interior),
+                              ("1080p", fplanes1080, cs1080.interior)):
+        for kind, p in pl_.items():
+            for sm in (1, 0):
+                got = fast_phase(f"grad_hist_fast {label} {kind} planes "
+                                 f"smooth={sm} batch {BATCH}", p,
+                                 mask_ if sm else None, sm)
+                if label == "VGA" and sm == 1:
+                    fcanvas[kind] = got
+    del fplanes1080
+    for ehw, eb in (((3, 5), 3), ((17, 45), 1), ((70, 257), 3)):
+        emask = torch.from_numpy((erng.rand(*ehw) < 0.9).astype(np.uint8)) \
+            .to(dev)
+        vals = torch.from_numpy(erng.rand(eb, 2, 2, *ehw).astype(np.float32)
+                                * 256).to(dev)
+        for kind, p in (("uint8", vals.to(torch.uint8)), ("f32", vals),
+                        ("bf16", vals.to(torch.bfloat16))):
+            for sm in (0, 1):
+                for off in (0, 1):
+                    buf = torch.empty(p.numel() + off, dtype=p.dtype,
+                                      device=dev)
+                    q = buf[off:].view(p.shape)
+                    q.copy_(p)
+                    mbuf = torch.empty(emask.numel() + off, dtype=torch.uint8,
+                                       device=dev)
+                    mq = mbuf[off:].view(ehw)
+                    mq.copy_(emask)
+                    fast_phase(f"grad_hist_fast edge {ehw} batch {eb} {kind} "
+                               f"smooth={sm} offset {off}", q,
+                               mq if sm else None, sm)
+    fcv = fcanvas["uint8"]
+    for mname in ("flagship_synth_64", "flagship_hard_256"):
+        ops = models[mname]._operands(dev)
+        for kind, cv in fcanvas.items():
+            got = casc_mod.cascade_masked(cv, grid.valid, ops)
+            check_phase("cascade_fast", f"cascade_fast {mname} bf16 canvas of "
+                        f"{kind} planes", got,
+                        casc_mod.cascade_masked_plain(cv, grid.valid, ops))
+            print(f"  survivors {got[2].tolist()}, n_weak {got[1].tolist()}")
+        for cap in (None, 12):
+            check_phase("cascade_response", f"cascade_response {mname} "
+                        f"cap={cap} bf16 canvas",
+                        casc_mod.cascade_response(fcv, grid.valid, ops, cap),
+                        casc_mod.cascade_response_plain(fcv, grid.valid, ops,
+                                                        cap))
+
     # -- phase 3: serving path (slice 1) on the golden frames --------------
     frames = torch.from_numpy(gframes).to(dev)
     zero_counters()
@@ -691,6 +801,75 @@ def main():
                 f"frame {b}: kept boxes/scores differ from the JAX golden")
     print("serving path: boxes and scores bitwise equal to JAX")
 
+    # -- phase 3a: fast serving mode on the golden frames -------------------
+    # uint8 frames, and their float32 versions with f32 and bf16 planes,
+    # each run with the counters set to 0 first; then the multi-model
+    # detector in fast mode over the uint8 frames
+    fk, fiou = int(fastg["k"]), float(fastg["nms_iou"])
+    ffloat = torch.from_numpy(gframes + np.random.RandomState(
+        int(fastg["seed"])).rand(*gframes.shape).astype(np.float32)).to(dev)
+    fast_dets = {ff: wt.make_batched_detector_boxes(
+        synth, VGA, k=fk, nms_iou=fiou, with_n_weak=False, device=dev,
+        fast=True, fast_float=ff)[0] for ff in ("f32", "bf16")}
+    fast_runs = (("uint8", fast_dets["f32"], frames,
+                  ("planes", "grad_hist_fast", "cascade_fast")),
+                 ("float_f32", fast_dets["f32"], ffloat,
+                  ("grad_hist_fast", "cascade_fast")),
+                 ("float_bf16", fast_dets["bf16"], ffloat,
+                  ("grad_hist_fast", "cascade_fast")))
+    fast_launches = dict.fromkeys(KERNELS, 0)
+    fast_out = {}
+    for key, fdet, imgs, need in fast_runs:
+        zero_counters()
+        out = fdet(imgs)
+        torch.cuda.synchronize()
+        got = read_counters()
+        print(f"fast path {key} launches: {got}")
+        require(all(got[k] > 0 for k in need),
+                f"fast path {key}: a kernel of the path was not launched")
+        require(got["grad_hist"] == 0 and got["cascade"] == 0,
+                f"fast path {key}: an exact-mode kernel was launched")
+        for k, v in got.items():
+            fast_launches[k] += v
+        fast_out[key] = [a.cpu().numpy() for a in out]
+    for key, (rects, scores, valid, count, n_weak) in fast_out.items():
+        require(np.isfinite(rects).all() and np.isfinite(scores[valid]).all()
+                and not n_weak.any(), f"fast path {key}: bad outputs")
+        require(np.array_equal(count, fastg[key + "_counts"]),
+                f"fast path {key}: survivor counts differ from the JAX "
+                f"golden")
+        for b, ref in enumerate(np.split(
+                fastg[key + "_kept"],
+                np.cumsum(fastg[key + "_kept_counts"])[:-1])):
+            require(np.array_equal(sorted_rows(rects[b][valid[b]],
+                                               scores[b][valid[b]]),
+                                   sorted_rows(ref)),
+                    f"fast path {key} frame {b}: kept boxes/scores differ "
+                    f"from the JAX golden")
+        print(f"fast path {key}: survivors {count.tolist()}, kept "
+              f"{valid.sum(1).tolist()}: bitwise equal to JAX")
+    fn_multi_fast, _ = wt.make_multi_detector_boxes(
+        list(models.values()), VGA, k=fk, nms_iou=fiou, device=dev,
+        fast=True)
+    zero_counters()
+    multi_fast = [a.cpu().numpy() for a in fn_multi_fast(frames)]
+    torch.cuda.synchronize()
+    got = read_counters()
+    print(f"fast multi-model launches: {got}")
+    require(got["grad_hist_fast"] > 0 and got["cascade_fast"] > 0,
+            "make_multi_detector_boxes(fast=True) did not launch B2f and B3f")
+    rects, scores, mvalid, label, _, _ = multi_fast
+    urects, uscores, uvalid, _, _ = fast_out["uint8"]
+    for b in range(len(gframes)):
+        sel = mvalid[b] & (label[b] == 0)
+        require(np.array_equal(sorted_rows(rects[b][sel], scores[b][sel]),
+                               sorted_rows(urects[b][uvalid[b]],
+                                           uscores[b][uvalid[b]])),
+                f"frame {b}: the fast multi-model detector's first model "
+                f"differs from the fast single-model detector")
+    print("fast multi-model detector: its flagship_synth_64 boxes equal the "
+          "single-model fast path's")
+
     # -- phase 4: the Model-API path on the golden frames ------------------
     scales = [float(s) for s in mgold["response_scale"]]
     k_top, iou = int(mgold["topk_k"]), float(mgold["nms_iou"])
@@ -720,7 +899,8 @@ def main():
     torch.cuda.synchronize()
     path_launches = read_counters()
     print(f"Model-API path launches: {path_launches}")
-    require(all(v > 0 for k, v in path_launches.items() if k != "fpga"),
+    require(all(v > 0 for k, v in path_launches.items()
+                if k not in ("fpga", "grad_hist_fast", "cascade_fast")),
             "a kernel of the Model-API path was not launched")
 
     for name, (per, scan, scan_n_weak) in api.items():
@@ -941,7 +1121,18 @@ def main():
         "grad_hist_1080p_smooth0": (
             lambda: chan_mod.grad_hist(planes1080, None, 0),
             lambda: chan_mod.grad_hist_plain(planes1080, None, 0)),
+        "cascade_fast": (
+            lambda: casc_mod.cascade_masked(fcv, grid.valid, ops_synth),
+            lambda: casc_mod.cascade_masked_plain(fcv, grid.valid,
+                                                  ops_synth)),
     })
+    # B2f at VGA smooth 1 on each plane type (uint8: the main path's)
+    for kind, p in fplanes.items():
+        name = "grad_hist_fast" + ("" if kind == "uint8" else f"_{kind}")
+        calls[name] = ((lambda p: lambda: chan_mod.grad_hist_fast(
+            p, cstep.interior, 1))(p),
+            (lambda p: lambda: chan_mod.grad_hist_fast_plain(
+                p, cstep.interior, 1))(p))
     big_calls = ("fpga", "fpga_smooth", "cascade_c5", "cascade_response_c5",
                  "planes_4k", "planes_1080p", "grad_hist_1080p",
                  "grad_hist_1080p_smooth0")
@@ -970,6 +1161,10 @@ def main():
         return bound(nbytes(p, mask, cv), f32_ops=35 * cv.numel(),
                      f64_ops=12 * cv.numel())
 
+    def grad_hist_fast_bound(p, mask, cv):
+        # B2's operations, the projections in f32
+        return bound(nbytes(p, mask, cv), f32_ops=47 * cv.numel())
+
     def records(tab, cv):
         return tab.records(tuple(cv.shape[1:])).data
 
@@ -995,6 +1190,13 @@ def main():
                                  + resp_out, f32_ops=4 * nw_synth),
         "planes_4k": planes_bound(cs0.plane_ops, octs4k, planes4k),
     }
+    for kind, p in fplanes.items():
+        name = "grad_hist_fast" + ("" if kind == "uint8" else f"_{kind}")
+        bounds[name] = grad_hist_fast_bound(p, cstep.interior, fcanvas[kind])
+    casc_fast = casc_mod.cascade_masked(fcv, grid.valid, ops_synth)
+    bounds["cascade_fast"] = bound(
+        nbytes(fcv, grid.valid, *casc_fast, records(ops_synth, fcv)),
+        f32_ops=4 * int(casc_fast[1].sum()))
     casc_deep = casc_mod.cascade_masked(canvas, grid.valid, ops_deep)
     bounds["cascade_deep40"] = bound(
         nbytes(canvas, grid.valid, *casc_deep, records(ops_deep, canvas)),
@@ -1081,6 +1283,20 @@ def main():
            torch.cuda.max_memory_allocated(dev) / 2 ** 20, "MiB")
     e2e("batched_detector_vga_scene", fn_full,
         [scene, torch.flip(scene, dims=[2])], reps=30)
+    # fast serving mode: uint8 frames (B1, B2f, B3f) and float32 frames
+    # (f32 octaves, float planes, B2f, B3f), 30 batches each
+    fast128 = {ff: wt.make_batched_detector_boxes(
+        synth, VGA, k=128, nms_iou=0.5, device=dev, fast=True,
+        fast_float=ff)[0] for ff in ("f32", "bf16")}
+    fast_workloads = {
+        "vga_fast_noise_k128": (fast128["f32"], noise),
+        "vga_fast_scene_k1024": (fast_dets["f32"],
+                                 [scene, torch.flip(scene, dims=[2])]),
+        "vga_float_fast_f32_noise_k128": (fast128["f32"], noise_f),
+        "vga_float_fast_bf16_noise_k128": (fast128["bf16"], noise_f),
+    }
+    for workload, (fn_, batches) in fast_workloads.items():
+        e2e(workload, fn_, batches, reps=30)
     # config 5 as bench.py runs it: k=128, NMS 0.5, uniform noise
     workloads5 = {"fpga_4k_quantized_k128": (dets4k[name0], noise4k),
                   "fpga_4k_smooth_k128": (dets4k[name1], noise4k)}
@@ -1115,9 +1331,13 @@ def main():
     from torch.profiler import ProfilerActivity, profile, record_function
     trace_dir = args.trace_dir or tempfile.mkdtemp(prefix="wb_trace_")
     os.makedirs(trace_dir, exist_ok=True)
+    traced_fast = {k: fast_workloads[k] for k in (
+        "vga_fast_scene_k1024", "vga_float_fast_bf16_noise_k128")}
     n_traced = dict.fromkeys(workloads, 10)
+    n_traced.update(dict.fromkeys(traced_fast, 10))
     n_traced.update(dict.fromkeys(workloads5, 3))
-    for workload, (fn_, batches) in {**workloads, **workloads5}.items():
+    for workload, (fn_, batches) in {**workloads, **traced_fast,
+                                     **workloads5}.items():
         fn_(batches[0])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1148,8 +1368,11 @@ def main():
     if args.trace_dir is None:
         os.rmdir(trace_dir)
 
-    # launches: the Model-API path's, and B5's from the config-5 path
-    launches = dict(path_launches, fpga=fpga_launches["fpga"])
+    # launches: the Model-API path's, B5's from the config-5 path, B2f's
+    # and B3f's from the fast serving path
+    launches = dict(path_launches, fpga=fpga_launches["fpga"],
+                    grad_hist_fast=fast_launches["grad_hist_fast"],
+                    cascade_fast=fast_launches["cascade_fast"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -225,7 +225,7 @@ PLANES_VARIANTS.update({
     FIRST_DESIGN: ("baseline/planes_per_byte.cu", False, None),
 })
 
-GH_BOUND = "__launch_bounds__(kThreads, kBlocksPerSm)"
+GH_BOUND = "__launch_bounds__(kThreads, kBlocksPerSmOf<kIn>)"
 GH_IMAGE_TOP = ("    __syncthreads();  // the previous image is done with "
                 "sPo, other buffer\n")
 GH_FIRST = ("  // the planes of the next image are staged while this one is "
@@ -271,19 +271,20 @@ GH_VARIANTS.update({
         "  const double dx = to_double(gx), dy = to_double(gy);",
         "  const double dx = gx, dy = gy;")], False),
     "ablation: bins in f32": ([(
-        "    const float b = fabsf(__double2float_rn(\n"
-        "        __dsub_rn(__dmul_rn(dx, pj.c[k]), __dmul_rn(dy, pj.s[k]))));",
-        "    const float b = fabsf(__fsub_rn(\n"
-        "        __fmul_rn(gx, __double2float_rn(pj.c[k])),\n"
-        "        __fmul_rn(gy, __double2float_rn(pj.s[k]))));")], True),
+        "      const float b = fabsf(__double2float_rn(\n"
+        "          __dsub_rn(__dmul_rn(dx, pj.c[k]), __dmul_rn(dy, pj.s[k]))));",
+        "      const float b = fabsf(__fsub_rn(\n"
+        "          __fmul_rn(gx, pj.cf[k]), __fmul_rn(gy, pj.sf[k])));")],
+        True),
     "ablation: planes staged once for the batch": ([(
         "    if (b + gridDim.z < batch)\n      stage<4",
         "    if (false)\n      stage<4"), (
         "    const uint32_t* sP = sPbuf + buf * T::kPlanes;",
         "    const uint32_t* sP = sPbuf;")], True),
     "planes staged synchronously (no cp.async)": ([(
-        "  const bool async =\n      W % 4 == 0",
-        "  const bool async =\n      false && W % 4 == 0")], False),
+        "  const bool async = (static_cast<size_t>(W) * kIn) % 4 == 0 &&",
+        "  const bool async = false && (static_cast<size_t>(W) * kIn) % 4 == 0 "
+        "&&")], False),
     "smooth: bins loop not unrolled": ([(
         "#pragma unroll\n      for (int k = 0; k < kBins; ++k) {\n"
         "        // pooled rows il-1",

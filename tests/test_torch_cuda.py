@@ -401,3 +401,112 @@ def test_walk_tables_past_shared_memory_on_card(cuda):
     for model in (big, small, big2):
         pairs = _walks_match_plain(canvas, valid, model, caps=(1, None))
         assert int(pairs[0][0][2].sum()) > 0  # some windows survive
+
+
+def _fast_planes(rng, shape, kind):
+    """Random (B, 2, 2, H, W) planes of B2f's three element types: uint8,
+    float32 in [0, 256), and bfloat16 roundings of such floats."""
+    if kind == "uint8":
+        return torch.from_numpy(rng.randint(0, 256, shape).astype(np.uint8))
+    vals = torch.from_numpy((rng.rand(*shape) * 256).astype(np.float32))
+    return vals if kind == "float32" else vals.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (17, 45), (33, 131),
+                                (14, 128), (70, 257), (104, 128)])
+@pytest.mark.parametrize("kind", ["uint8", "float32", "bfloat16"])
+def test_grad_hist_fast_matches_plain_on_card(cuda, hw, kind):
+    """B2f bitwise (the bfloat16 bits) against its plain version, for each
+    plane type, both smooths, batch 1 and 3, a mask that is set on the
+    canvas border and a random one, the planes and mask also starting one
+    element past a word boundary."""
+    rng = np.random.RandomState(hw[0] * 1000 + hw[1])
+    for batch in (1, 3):
+        planes = _fast_planes(rng, (batch, 2, 2) + hw, kind).to(cuda)
+        masks = [torch.ones(hw, dtype=torch.uint8, device=cuda),
+                 torch.from_numpy((rng.rand(*hw) < 0.7).astype(np.uint8))
+                 .to(cuda)]
+        for smooth, mask in ((0, None), (1, masks[0]), (1, masks[1])):
+            want = tcc.grad_hist_fast_plain(planes, mask, smooth)
+            got = tcc.grad_hist_fast(planes, mask, smooth)
+            odd = tcc.grad_hist_fast(
+                _misaligned(planes),
+                None if mask is None else _misaligned(mask), smooth)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bfloat16
+            assert torch.equal(got.view(torch.int16),
+                               want.view(torch.int16)), (batch, smooth)
+            assert torch.equal(odd.view(torch.int16),
+                               want.view(torch.int16)), (batch, smooth)
+
+
+def test_cascade_fast_matches_plain_on_card(cuda):
+    """B3f over a bfloat16 canvas against its plain version and against B3
+    over the canvas's float32 copy; B4 likewise, with n_stages_cap."""
+    rng = np.random.RandomState(4)
+    hw = (96, 128)
+    packed = packing._packed_plan_cached(hw[0], hw[1], 2, 2, (12, 12),
+                                         halo=1)
+    planes = _fast_planes(rng, (3, 2, 2, packed.canvas_h, packed.canvas_w),
+                          "float32").to(cuda)
+    mask = torch.as_tensor(packed.smooth_interior_mask().astype(np.uint8),
+                           device=cuda)
+    canvas = tcc.grad_hist_fast(planes, mask, 1)
+    valid = torch.as_tensor(packed.valid_mask((12, 12)).astype(np.uint8),
+                            device=cuda)
+    for path in (FLAGSHIP, HARD256):
+        ops = wt.load(path, device=cuda)._operands(cuda)
+        got = tcs.cascade_masked(canvas, valid, ops)
+        for want in (tcs.cascade_masked_plain(canvas, valid, ops),
+                     tcs.cascade_masked(canvas.float(), valid, ops)):
+            for g, w_ in zip(got, want):
+                assert torch.equal(g, w_)
+        for cap in (None, 12):
+            got = tcs.cascade_response(canvas, valid, ops, cap)
+            for want in (tcs.cascade_response_plain(canvas, valid, ops, cap),
+                         tcs.cascade_response(canvas.float(), valid, ops,
+                                              cap)):
+                for g, w_ in zip(got, want):
+                    assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("frames,fast_float", [("uint8", "f32"),
+                                               ("float32", "f32"),
+                                               ("float32", "bf16")])
+def test_fast_slice_on_card_matches_cpu(cuda, frames, fast_float):
+    model = wt.load(FLAGSHIP)
+    imgs = _frames(4, (96, 128), seed=2)
+    if frames == "float32":
+        imgs = imgs.float() + torch.from_numpy(
+            np.random.RandomState(3).rand(4, 96, 128).astype(np.float32))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        fn, _ = wt.make_batched_detector_boxes(
+            model, (96, 128), k=512, nms_iou=0.5, device=dev, fast=True,
+            fast_float=fast_float)
+        outs.append([a.cpu() for a in fn(imgs.to(dev))])
+    for g, w_ in zip(*outs):
+        assert torch.equal(g, w_)
+
+
+def test_grad_hist_second_card(cuda):
+    """The dynamic shared memory above 48 KB (B2 and B2f with the smooth,
+    B2f's float planes) is opted into per device: canvases on cuda:1
+    after cuda:0 equal their plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    rng = np.random.RandomState(6)
+    hw = (70, 257)
+    planes = torch.from_numpy(rng.randint(0, 256, (2, 2, 2) + hw)
+                              .astype(np.uint8))
+    mask = torch.from_numpy((rng.rand(*hw) < 0.9).astype(np.uint8))
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        p, m = planes.to(dev), mask.to(dev)
+        got = tcc.grad_hist(p, m, 1)
+        assert torch.equal(got, tcc.grad_hist_plain(p, m, 1)), dev
+        for q in (p, p.float(), p.to(torch.bfloat16)):
+            got = tcc.grad_hist_fast(q, m, 1)
+            want = tcc.grad_hist_fast_plain(q, m, 1)
+            assert torch.equal(got.view(torch.int16),
+                               want.view(torch.int16)), (dev, q.dtype)
+        torch.cuda.synchronize(dev)

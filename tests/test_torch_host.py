@@ -180,7 +180,6 @@ def test_unported_options_raise():
         tch.resolve_channel_function("grad_mag")
     for kwargs, item in ((dict(mesh=object()), "A11"),
                          (dict(two_phase=True), "A13"),
-                         (dict(fast=True), "A6"),
                          (dict(n_scales=1), "A4")):
         with pytest.raises(NotImplementedError, match=item):
             wt.make_batched_detector_boxes(tm, (48, 64), device="cpu",

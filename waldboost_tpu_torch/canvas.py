@@ -10,6 +10,12 @@ channel function:
               ops/channels.py) or the FPGA integer family and its "+"
               composites (kernel B5, ops/fpga.py)
 
+In fast serving mode (``fast=True``, JAX's ``WB_SERVING_MODE=fast``)
+grad_hist takes kernel B2f and the canvas is bfloat16; float32 frames are
+served too: f32 octave chain, float planes (``ops/planes.py::
+planes_float_fast``, float32 or, with ``fast_float="bf16"``, bfloat16),
+then B2f.  The FPGA family has no fast variant: it ignores ``fast``.
+
 :class:`WindowGrid` holds one window shape's view of that canvas: the valid
 mask of window origins and the level maps that turn an origin into an
 image-space box.  Both are built once per (plan, frame size or window,
@@ -32,14 +38,19 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .channels import ChannelFunction, _normalize_opts, octave_chain
+from .channels import (ChannelFunction, _normalize_opts, octave_chain,
+                       octave_chain_f32)
 from .channels import grad_hist as grad_hist_cf  # the ops module's name
 from .fpga.channels import fpga_kernel_masks
-from .ops.channels import grad_hist
+from .ops.channels import grad_hist, grad_hist_fast
 from .ops.fpga import fpga_channels
-from .ops.planes import PlaneOperands, octave_buffer, planes
+from .ops.planes import (FloatPlaneOperands, PlaneOperands, octave_buffer,
+                         planes, planes_float_fast)
 from .packing import PackedPyramidPlan
-from .polyphase import plane_tables
+from .polyphase import float_plane_tables, plane_tables
+
+#: the plane type of float32 frames in fast serving mode, by ``fast_float``
+FAST_FLOAT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 __all__ = ["ChannelCanvas", "WindowGrid", "channel_canvas", "window_grid",
            "serving_opts", "as_image", "span"]
@@ -86,18 +97,27 @@ def as_image(image, ndim: int = 2) -> np.ndarray:
 class ChannelCanvas:
     """octaves -> planes (B1) -> channel canvas (B2 for grad_hist, B5 for
     the FPGA family) of one packed plan and channel function ``cf`` for
-    ``image_shape`` frames on one device."""
+    ``image_shape`` frames on one device; with ``fast``, B2f and the float
+    frames of fast serving mode, their planes of type ``fast_float``
+    (``"f32"`` or ``"bf16"``)."""
 
     def __init__(self, packed: PackedPyramidPlan, image_shape: Tuple[int, int],
-                 smooth: int, cf: ChannelFunction, device: torch.device):
+                 smooth: int, cf: ChannelFunction, device: torch.device,
+                 fast: bool = False, fast_float: str = "f32"):
+        if fast_float not in FAST_FLOAT:
+            raise ValueError(f"fast_float must be one of {sorted(FAST_FLOAT)}"
+                             f", got {fast_float!r}")
         self.packed = packed
         self.image_shape = tuple(image_shape)
         self.smooth = smooth
         self.cf = cf
         self.device = device
+        self.fast = bool(fast) and cf.fused_kind is None
+        self.fast_float = fast_float
         # the packer's (even) reflect halo is baked into the plane taps of
         # reflect-boundary functions; the FPGA family reads zeros instead
         halo = packed.halo if cf.boundary == "reflect" and cf.halo > 0 else 0
+        self.halo = halo
         tables = plane_tables(packed, halo, self.image_shape)
         self.plane_ops = PlaneOperands.build(tables, device)
         self.n_octaves = len(tables.oct_hw)
@@ -111,20 +131,39 @@ class ChannelCanvas:
             None if a is None else torch.as_tensor(a, device=device)
             for a in (ring, interior))
 
+    @functools.cached_property
+    def float_plane_ops(self) -> FloatPlaneOperands:
+        """The float plane tables (built at the first float batch)."""
+        return FloatPlaneOperands.build(
+            float_plane_tables(self.packed, self.halo, self.image_shape),
+            self.device)
+
     def octaves(self, images: torch.Tensor) -> torch.Tensor:
+        if images.is_floating_point():
+            if not self.fast:
+                raise NotImplementedError(
+                    "float frames are served in fast mode of grad_hist "
+                    "models only; exact float serving is ROADMAP item A6")
+            return octave_buffer(octave_chain_f32(images, self.n_octaves))
         return octave_buffer(octave_chain(images, self.n_octaves))
 
     def planes(self, octs: torch.Tensor) -> torch.Tensor:
+        if octs.is_floating_point():
+            return planes_float_fast(octs, self.float_plane_ops,
+                                     FAST_FLOAT[self.fast_float])
         return planes(octs, self.plane_ops)
 
     def channels(self, plane_canvas: torch.Tensor) -> torch.Tensor:
         if self.cf.fused_kind is not None:
             return fpga_channels(plane_canvas, self.ring, self.interior,
                                  self.cf.fused_kind, self.smooth)
+        if self.fast:
+            return grad_hist_fast(plane_canvas, self.interior, self.smooth)
         return grad_hist(plane_canvas, self.interior, self.smooth)
 
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, C, Hc, Wc) float32 canvas of a (B, H, W) uint8 batch."""
+        """(B, C, Hc, Wc) canvas of a (B, H, W) batch: float32, bfloat16 in
+        fast mode (uint8 or float32 frames)."""
         with span("wb.octaves"):
             octs = self.octaves(images)
         with span("wb.planes"):
@@ -133,11 +172,21 @@ class ChannelCanvas:
             return self.channels(plane_canvas)
 
 
-@functools.lru_cache(maxsize=32)
 def channel_canvas(packed: PackedPyramidPlan, image_shape: Tuple[int, int],
-                   smooth: int, cf: ChannelFunction,
-                   device: torch.device) -> ChannelCanvas:
-    return ChannelCanvas(packed, image_shape, smooth, cf, device)
+                   smooth: int, cf: ChannelFunction, device: torch.device,
+                   fast: bool = False,
+                   fast_float: str = "f32") -> ChannelCanvas:
+    """The cached :class:`ChannelCanvas` of these arguments (the FPGA
+    family's exact and fast canvases are one)."""
+    return _channel_canvas(packed, tuple(image_shape), smooth, cf, device,
+                           bool(fast) and cf.fused_kind is None, fast_float)
+
+
+@functools.lru_cache(maxsize=32)
+def _channel_canvas(packed, image_shape, smooth, cf, device, fast,
+                    fast_float) -> ChannelCanvas:
+    return ChannelCanvas(packed, image_shape, smooth, cf, device, fast,
+                         fast_float)
 
 
 class WindowGrid:

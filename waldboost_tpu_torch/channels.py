@@ -5,7 +5,8 @@ host arithmetic (level sizes snapped with ``int((w*s)/shrink)*shrink``), and
 the registry knows the channel functions the port serves: ``grad_hist``
 here, the FPGA integer family in ``fpga/channels.py`` (imported at the
 first lookup that misses), and ``"a+b"`` composites of either family.  The
-octave chain is plain integer torch on the caller's device.
+octave chains (uint8 frames: integer, float32 frames: f32) are plain torch
+on the caller's device.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 __all__ = ["ChannelFunction", "Level", "grad_hist", "pyramid_plan",
            "register_channel_function", "resolve_channel_function",
-           "compose_channel_functions", "octave_chain"]
+           "compose_channel_functions", "octave_chain", "octave_chain_f32"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,4 +176,23 @@ def octave_chain(images: torch.Tensor, n_octaves: int) -> List[torch.Tensor]:
         rows = (x[:, 0::2] + x[:, 1::2]) % 256
         cols = (rows[:, :, 0::2] + rows[:, :, 1::2]) % 256
         octaves.append((cols // 4).to(torch.uint8))
+    return octaves
+
+
+def octave_chain_f32(images: torch.Tensor,
+                     n_octaves: int) -> List[torch.Tensor]:
+    """float32 octave images of a (B, H, W) float32 batch: each octave is
+    ``(((tl + bl) + tr) + br) / 4`` of the previous one's 2x2 blocks in
+    f32, an odd last row or column dropped (``waldboost_tpu/ops/image.py::
+    avg_pool_2``)."""
+    if images.dtype != torch.float32 or images.dim() != 3:
+        raise ValueError("octave_chain_f32 takes a (B, H, W) float32 tensor")
+    octaves = [images]
+    for _ in range(n_octaves - 1):
+        prev = octaves[-1]
+        h, w = prev.shape[1] // 2 * 2, prev.shape[2] // 2 * 2
+        x = prev[:, :h, :w]
+        tl, bl = x[:, 0::2, 0::2], x[:, 1::2, 0::2]
+        tr, br = x[:, 0::2, 1::2], x[:, 1::2, 1::2]
+        octaves.append(((((tl + bl) + tr) + br) / 4).contiguous())
     return octaves

@@ -5,6 +5,9 @@
 //  wb_cascade          (B3) masked score map, survivor count and n_weak.
 //    Replaces: waldboost_tpu/ops/cascade_static.py::
 //    cascade_masked_grid_static (_make_static_kernel(masked_out=True)).
+//    (B3f) the same over a bfloat16 canvas, fast serving mode.
+//    Replaces: the same pallas_call with fast=True (bfloat16 tiles, each
+//    value widened to f32 at its read, the stage chain in f32).
 //  wb_cascade_response (B4) unmasked hs, alive and n_weak of a frozen
 //    cascade over its first n_run stages (n_stages_cap).
 //    Replaces: waldboost_tpu/ops/cascade_static.py::
@@ -21,6 +24,10 @@
 // monotone: a window rejected at stage t keeps the hs it had after stage t
 // (the TPU kernels add alive*resp = 0 from then on), and n_weak counts the
 // stages a window entered alive.
+//
+// The canvas is float32 or, for B3f (and B4 in fast serving mode),
+// bfloat16: each canvas load widens its value to f32 exactly, so a
+// bfloat16 canvas gives the results of its float32 copy.
 //
 // Bound on the H100: the canvas read once and the outputs written once;
 // but a window's work is a chain of dependent loads (node, feature value,
@@ -70,6 +77,7 @@
 #include <mutex>
 #include <utility>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -83,7 +91,7 @@ constexpr int kSmemTables = 40 * 1024;  // most table bytes staged per block
 constexpr int kLayoutHeap2 = 1;         // ops/cascade.py HEAP2 (else GENERAL)
 
 struct Args {
-  const float* canvas;
+  const void* canvas;  // float32, or bfloat16 (template parameter E)
   int batch, C, H, W;
   const uint8_t* valid;
   int gu, gv;
@@ -95,16 +103,30 @@ struct Args {
   int* n_weak;
 };
 
-__device__ __forceinline__ float value(const float* __restrict__ w,
+// A canvas value as f32: float32 as it is, bfloat16 widened exactly.
+__device__ __forceinline__ float load(const float* __restrict__ w, int off) {
+  return __ldg(w + off);
+}
+__device__ __forceinline__ float load(const __nv_bfloat16* __restrict__ w,
+                                      int off) {
+  return __uint_as_float(
+      static_cast<uint32_t>(
+          __ldg(reinterpret_cast<const unsigned short*>(w) + off))
+      << 16);
+}
+
+template <class E>
+__device__ __forceinline__ float value(const E* __restrict__ w,
                                        const int4& n) {
-  return n.z >= 0 ? __ldg(w + n.x) : 0.0f;
+  return n.z >= 0 ? load(w, n.x) : 0.0f;
 }
 
 // The leaf value of one stage tree for the window at w, from its root n
 // and the root's canvas value v: a node's children and their canvas values
 // are loaded together, before the node's compare picks one.
+template <class E>
 __device__ __forceinline__ float walk(const int4* rec,
-                                      const float* __restrict__ w, int4 n,
+                                      const E* __restrict__ w, int4 n,
                                       float v) {
   while (n.z >= 0) {
     const int4 a = rec[n.z & 0xffff], b = rec[n.z >> 16];
@@ -128,17 +150,18 @@ struct Heap2 {
   float v0, v1, v2;
 };
 
+template <class E>
 __device__ __forceinline__ Heap2 fetch(const int4* s, int t,
-                                       const float* __restrict__ w) {
+                                       const E* __restrict__ w) {
   Heap2 h;
   h.a = s[3 * t];
   h.q = s[3 * t + 1];
   const int4 p = s[3 * t + 2];
   h.p = make_float4(__int_as_float(p.x), __int_as_float(p.y),
                     __int_as_float(p.z), __int_as_float(p.w));
-  h.v0 = __ldg(w + h.a.x);
-  h.v1 = __ldg(w + h.a.z);
-  h.v2 = __ldg(w + h.q.x);
+  h.v0 = load(w, h.a.x);
+  h.v1 = load(w, h.a.z);
+  h.v2 = load(w, h.q.x);
   return h;
 }
 
@@ -166,7 +189,8 @@ __device__ __forceinline__ void flush(int& nw, int& cnt, int b,
 // kMasked: out0 = masked map (hs where alive, -inf elsewhere), count per
 // image.  Otherwise out0 = hs, alive_out = alive (0/1 bytes).  kStaged:
 // the table is copied to shared memory first.  kHeap2: the HEAP2 layout.
-template <bool kMasked, bool kStaged, bool kHeap2>
+// E: the canvas element (float or __nv_bfloat16).
+template <bool kMasked, bool kStaged, bool kHeap2, class E>
 __global__ void __launch_bounds__(kBlock) cascade_kernel(Args a) {
   extern __shared__ int4 s_table[];
   __shared__ int q_out[kTR][kQueue];    // output index r * gv + c
@@ -251,7 +275,7 @@ __global__ void __launch_bounds__(kBlock) cascade_kernel(Args a) {
     int t = t0;  // the next stage this window walks
     bool keep = false;
     if (have) {
-      const float* w = a.canvas + b * img + cv;
+      const E* w = static_cast<const E*>(a.canvas) + b * img + cv;
       bool alive = true;
       int my_nw = 0, rej = 0;
       if (kHeap2) {
@@ -322,7 +346,7 @@ __global__ void __launch_bounds__(kBlock) cascade_kernel(Args a) {
 // Blocks of one instance that fit the card at once: queried once per
 // device and shared-memory size, so the host-bound paths pay no device
 // queries per launch.
-template <bool kMasked, bool kStaged, bool kHeap2>
+template <bool kMasked, bool kStaged, bool kHeap2, class E>
 long long resident_blocks(int smem) {
   static std::mutex mu;
   static std::map<std::pair<int, int>, long long> fit;
@@ -335,51 +359,60 @@ long long resident_blocks(int smem) {
   int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, cascade_kernel<kMasked, kStaged, kHeap2>, kBlock, smem);
+      &per_sm, cascade_kernel<kMasked, kStaged, kHeap2, E>, kBlock, smem);
   return fit[key] = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
 }
 
-template <bool kMasked, bool kStaged, bool kHeap2>
+template <bool kMasked, bool kStaged, bool kHeap2, class E>
 void launch_grid(const Args& a, cudaStream_t stream) {
   const int smem = kStaged ? a.table_bytes : 0;
   const long long n_tiles = static_cast<long long>(a.batch) *
                             ((a.gu + kTR - 1) / kTR) *
                             ((a.gv + kTC - 1) / kTC);
   const long long n_runs = (n_tiles + kChunk - 1) / kChunk;
-  const long long fit = resident_blocks<kMasked, kStaged, kHeap2>(smem);
-  cascade_kernel<kMasked, kStaged, kHeap2>
+  const long long fit = resident_blocks<kMasked, kStaged, kHeap2, E>(smem);
+  cascade_kernel<kMasked, kStaged, kHeap2, E>
       <<<static_cast<int>(n_runs < fit ? n_runs : fit), kBlock, smem,
          stream>>>(a);
 }
 
-template <bool kMasked, bool kHeap2>
+template <bool kMasked, bool kHeap2, class E>
 void launch_layout(const Args& a, cudaStream_t stream) {
   if (a.table_bytes <= kSmemTables)
-    launch_grid<kMasked, true, kHeap2>(a, stream);
+    launch_grid<kMasked, true, kHeap2, E>(a, stream);
   else
-    launch_grid<kMasked, false, kHeap2>(a, stream);
+    launch_grid<kMasked, false, kHeap2, E>(a, stream);
 }
 
-template <bool kMasked>
-int launch(const Args& a, int layout, void* stream) {
+template <bool kMasked, class E>
+int launch_typed(const Args& a, int layout, void* stream) {
   // a queue entry packs image << 16 | stage
   if (a.batch >= (1 << 15) || a.T >= (1 << 16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.batch > 0 && a.gu > 0 && a.gv > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (layout == kLayoutHeap2)
-      launch_layout<kMasked, true>(a, st);
+      launch_layout<kMasked, true, E>(a, st);
     else
-      launch_layout<kMasked, false>(a, st);
+      launch_layout<kMasked, false, E>(a, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// canvas_bytes: 4 float32, 2 bfloat16.
+template <bool kMasked>
+int launch(const Args& a, int canvas_bytes, int layout, void* stream) {
+  if (canvas_bytes == 4) return launch_typed<kMasked, float>(a, layout, stream);
+  if (canvas_bytes == 2)
+    return launch_typed<kMasked, __nv_bfloat16>(a, layout, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 Args args(const void* canvas, int batch, int C, int H, int W,
           const void* valid, int gu, int gv, const void* table,
           int table_bytes, int T, int n_run, int NN, void* out0,
           void* alive_out, void* count, void* n_weak) {
-  return Args{static_cast<const float*>(canvas),
+  return Args{canvas,
               batch, C, H, W,
               static_cast<const uint8_t*>(valid),
               gu, gv,
@@ -393,9 +426,11 @@ Args args(const void* canvas, int batch, int C, int H, int W,
 
 }  // namespace
 
-// B3: masked map, survivor count and n_weak over all T stages (count,
-// n_weak zeroed by the caller).
-extern "C" int wb_cascade(const void* canvas, int batch, int C, int H, int W,
+// B3 and B3f: masked map, survivor count and n_weak over all T stages
+// (count, n_weak zeroed by the caller) of a float32 (canvas_bytes 4) or
+// bfloat16 (2) canvas.
+extern "C" int wb_cascade(const void* canvas, int canvas_bytes, int batch,
+                          int C, int H, int W,
                           const void* valid, int gu, int gv,
                           const void* table, int table_bytes, int layout,
                           int T, int n_run, int NN, void* masked, void* count,
@@ -403,13 +438,14 @@ extern "C" int wb_cascade(const void* canvas, int batch, int C, int H, int W,
   return launch<true>(args(canvas, batch, C, H, W, valid, gu, gv, table,
                            table_bytes, T, n_run, NN, masked, nullptr, count,
                            n_weak),
-                      layout, stream);
+                      canvas_bytes, layout, stream);
 }
 
 // B4 and B6: hs, alive and n_weak over the first n_run stages (n_weak
-// zeroed by the caller).
-extern "C" int wb_cascade_response(const void* canvas, int batch, int C,
-                                   int H, int W, const void* valid, int gu,
+// zeroed by the caller); the canvas as for wb_cascade.
+extern "C" int wb_cascade_response(const void* canvas, int canvas_bytes,
+                                   int batch, int C, int H, int W,
+                                   const void* valid, int gu,
                                    int gv, const void* table,
                                    int table_bytes, int layout, int T,
                                    int n_run, int NN, void* hs, void* alive,
@@ -417,5 +453,5 @@ extern "C" int wb_cascade_response(const void* canvas, int batch, int C,
   return launch<false>(args(canvas, batch, C, H, W, valid, gu, gv, table,
                             table_bytes, T, n_run, NN, hs, alive, nullptr,
                             n_weak),
-                       layout, stream);
+                       canvas_bytes, layout, stream);
 }

@@ -1,4 +1,4 @@
-"""Kernels B3 and B4: the frozen cascade over every window origin.
+"""Kernels B3, B3f and B4: the frozen cascade over every window origin.
 
 Counterpart of ``waldboost_tpu/ops/cascade_static.py`` (``StaticCascade``,
 ``static_cascade_from_model``, ``cascade_masked_grid_static`` and
@@ -16,10 +16,14 @@ stage's theta is finite and ``hs < theta``.  ``n_weak`` counts the stages
 each window entered alive.
 
 * B3, :func:`cascade_masked`: ``hs`` where the window survived, -inf
-  elsewhere, and per-image survivor counts.
+  elsewhere, and per-image survivor counts.  Over a bfloat16 canvas
+  (fast serving mode) it is B3f (``cascade_masked_grid_static(fast=
+  True)``): each canvas value widened to f32 at its read, so the results
+  equal B3's over the canvas's float32 copy.
 * B4, :func:`cascade_response`: the unmasked ``(hs, alive, n_weak)`` over
   the first ``n_stages_cap`` stages.  A rejected window keeps the ``hs`` of
-  the stage it died in; an origin outside the mask keeps 0.
+  the stage it died in; an origin outside the mask keeps 0.  It takes a
+  bfloat16 canvas too, read the same way.
 """
 
 from __future__ import annotations
@@ -41,8 +45,10 @@ __all__ = ["StaticCascade", "static_cascade_from_model", "CascadeOperands",
            "cascade_masked", "cascade_masked_plain", "cascade_response",
            "cascade_response_plain"]
 
-#: kernel launches made by :func:`cascade_masked` (B3)
+#: kernel launches made by :func:`cascade_masked` (B3, float32 canvas)
 cascade_launches = 0
+#: kernel launches made by :func:`cascade_masked` (B3f, bfloat16 canvas)
+cascade_fast_launches = 0
 #: kernel launches made by :func:`cascade_response` (B4)
 cascade_response_launches = 0
 
@@ -122,10 +128,10 @@ class CascadeOperands:
 
 def _check(canvas: torch.Tensor, valid: torch.Tensor,
            ops: CascadeOperands) -> Tuple[int, int]:
-    if canvas.dtype != torch.float32 or canvas.dim() != 4 \
-            or canvas.shape[1] != ops.n_channels:
+    if canvas.dtype not in (torch.float32, torch.bfloat16) \
+            or canvas.dim() != 4 or canvas.shape[1] != ops.n_channels:
         raise ValueError(f"cascade: canvas must be (B, {ops.n_channels}, H, "
-                         "W) float32")
+                         "W) float32 or bfloat16")
     if not canvas.is_contiguous():
         raise ValueError("cascade: canvas must be contiguous")
     m, n = ops.window
@@ -146,10 +152,10 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 def _entry(name: str):
     fn = getattr(load_library("cascade"), name)
     if fn.argtypes is None:
-        # canvas, B, C, H, W, valid, gu, gv, records, bytes, layout, T,
-        # n_run, NN, 3 outputs, stream
-        fn.argtypes = [_VP, _CI, _CI, _CI, _CI, _VP, _CI, _CI, _VP, _CI, _CI,
-                       _CI, _CI, _CI, _VP, _VP, _VP, _VP]
+        # canvas, its element bytes, B, C, H, W, valid, gu, gv, records,
+        # bytes, layout, T, n_run, NN, 3 outputs, stream
+        fn.argtypes = [_VP, _CI, _CI, _CI, _CI, _CI, _VP, _CI, _CI, _VP, _CI,
+                       _CI, _CI, _CI, _CI, _VP, _VP, _VP, _VP]
         fn.restype = ctypes.c_int
     return fn
 
@@ -159,14 +165,15 @@ def launch_response(name: str, canvas: torch.Tensor, valid: torch.Tensor,
                     n_nodes: int, out0, out1, n_weak) -> None:
     """Launch one of the C entry points of ``csrc/cascade.cu`` on the
     current stream over the packed ``records`` of ``n_stages`` stages of
-    ``n_nodes`` nodes, walking the first ``n_run``: ``wb_cascade`` (B3:
-    outputs masked, count, n_weak) or ``wb_cascade_response`` (B4, B6:
-    outputs hs, alive, n_weak)."""
+    ``n_nodes`` nodes, walking the first ``n_run``: ``wb_cascade`` (B3,
+    B3f: outputs masked, count, n_weak) or ``wb_cascade_response`` (B4,
+    B6: outputs hs, alive, n_weak); the canvas float32 or bfloat16."""
     B, C, H, W = canvas.shape
     gu, gv = valid.shape
     stream = torch.cuda.current_stream(canvas.device).cuda_stream
     with torch.cuda.device(canvas.device):
-        err = _entry(name)(canvas.data_ptr(), B, C, H, W, valid.data_ptr(),
+        err = _entry(name)(canvas.data_ptr(), canvas.element_size(), B, C,
+                           H, W, valid.data_ptr(),
                            gu, gv, records.data.data_ptr(),
                            records.data.numel() * 4, records.layout,
                            n_stages, n_run, n_nodes, out0.data_ptr(),
@@ -186,11 +193,11 @@ def cascade_masked(canvas: torch.Tensor, valid: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(masked, n_weak, count)``: the (B, H - m, W - n) float32 map of
     ``hs`` where the window survived and -inf elsewhere, and per-image
-    int32 ``n_weak`` and survivor ``count``."""
+    int32 ``n_weak`` and survivor ``count``; B3f for a bfloat16 canvas."""
     gu, gv = _check(canvas, valid, ops)
     if _device_kind(canvas) == "cpu":
         return cascade_masked_plain(canvas, valid, ops)
-    global cascade_launches
+    global cascade_launches, cascade_fast_launches
     B, dev = canvas.shape[0], canvas.device
     masked = torch.empty((B, gu, gv), dtype=torch.float32, device=dev)
     count = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -200,16 +207,19 @@ def cascade_masked(canvas: torch.Tensor, valid: torch.Tensor,
         launch_response("wb_cascade", canvas, valid,
                         ops.records(tuple(canvas.shape[1:])), T, T,
                         ops.sc.fr.shape[1], masked, count, n_weak)
-        cascade_launches += 1
+        if canvas.dtype == torch.bfloat16:
+            cascade_fast_launches += 1
+        else:
+            cascade_launches += 1
     return masked, n_weak, count
 
 
 def cascade_masked_plain(canvas: torch.Tensor, valid: torch.Tensor,
                          ops: CascadeOperands
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain-torch version of :func:`cascade_masked` (kernel B3)."""
+    """Plain-torch version of :func:`cascade_masked` (kernels B3, B3f)."""
     _check(canvas, valid, ops)
-    hs, alive, n_weak, _ = lockstep(canvas, valid, vars(ops.sc),
+    hs, alive, n_weak, _ = lockstep(canvas.float(), valid, vars(ops.sc),
                                     ops.plain_theta(), ops.sc.n_stages)
     masked = torch.where(alive, hs, torch.tensor(float("-inf"),
                                                  device=canvas.device))
@@ -250,7 +260,7 @@ def cascade_response_plain(canvas: torch.Tensor, valid: torch.Tensor,
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain-torch version of :func:`cascade_response` (kernel B4)."""
     _check(canvas, valid, ops)
-    hs, alive, n_weak, _ = lockstep(canvas, valid, vars(ops.sc),
+    hs, alive, n_weak, _ = lockstep(canvas.float(), valid, vars(ops.sc),
                                     ops.plain_theta(),
                                     _n_run(ops, n_stages_cap))
     return hs, alive, n_weak

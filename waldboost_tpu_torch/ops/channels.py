@@ -1,15 +1,21 @@
-"""Kernel B2: the pooled grad_hist channel canvas from polyphase planes.
+"""Kernels B2 and B2f: the pooled grad_hist channel canvas from polyphase
+planes.
 
 Counterpart of ``waldboost_tpu/ops/channels_pallas.py::
-grad_hist_poly_pallas`` for uint8 content.  The CUDA kernel is
-``csrc/grad_hist.cu``; :func:`grad_hist_plain` is the same chain in torch
-with shifted adds (no ``conv2d``: cuDNN would run it in TF32).  A CPU
-tensor takes the plain version, a CUDA tensor the kernel.
+grad_hist_poly_pallas``: :func:`grad_hist` (B2) its exact uint8 variant,
+:func:`grad_hist_fast` (B2f) its ``fast=True`` variant.  The CUDA kernels
+are ``csrc/grad_hist.cu``; :func:`grad_hist_plain` and
+:func:`grad_hist_fast_plain` are the same chains in torch with shifted
+adds (no ``conv2d``: cuDNN would run it in TF32).  A CPU tensor takes the
+plain version, a CUDA tensor the kernel.
 
-Values: ``f32(f64(gx*cos - gy*sin))`` per bin and phase with cos/sin of
+B2 values: ``f32(f64(gx*cos - gy*sin))`` per bin and phase with cos/sin of
 ``np.linspace(0, pi, 5)[:-1]`` computed by numpy on the host, ``abs``, the
 2x2 pool ``(((TL + BL) + TR) + BR) * 0.25``, and with ``smooth == 1`` the
 3x3/16 smooth in the reference's 9-term order and the interior-mask select.
+B2f: every step in f32, each operation rounded on its own (prefilters
+``(a + 2b) + c`` and the gradients in f32 too), the projection
+``gx*f32(cos) - gy*f32(sin)``, and one round to bfloat16 at the end.
 """
 
 from __future__ import annotations
@@ -22,22 +28,33 @@ import torch
 
 from .._build import check, load_library
 
-__all__ = ["N_BINS", "grad_hist", "grad_hist_plain"]
+__all__ = ["N_BINS", "grad_hist", "grad_hist_plain", "grad_hist_fast",
+           "grad_hist_fast_plain"]
 
 N_BINS = 4
 _THETA = np.linspace(0, np.pi, N_BINS + 1)[:-1]
 COS = tuple(float(v) for v in np.cos(_THETA))
 SIN = tuple(float(v) for v in np.sin(_THETA))
+#: the f32 roundings B2f multiplies by (bin 2's cos is 6.1e-17, not 0)
+COS32 = tuple(float(v) for v in np.cos(_THETA).astype(np.float32))
+SIN32 = tuple(float(v) for v in np.sin(_THETA).astype(np.float32))
 
-#: kernel launches made by :func:`grad_hist`
+#: kernel launches made by :func:`grad_hist` (B2)
 grad_hist_launches = 0
+#: kernel launches made by :func:`grad_hist_fast` (B2f)
+grad_hist_fast_launches = 0
+
+#: plane element types of B2f, and the byte count its C entry keys on
+_FAST_TYPES = {torch.uint8: 1, torch.bfloat16: 2, torch.float32: 4}
 
 
 def _check(planes: torch.Tensor, mask: Optional[torch.Tensor],
-           smooth: int) -> None:
-    if planes.dtype != torch.uint8 or planes.dim() != 5 \
+           smooth: int, types=(torch.uint8,)) -> None:
+    if planes.dtype not in types or planes.dim() != 5 \
             or tuple(planes.shape[1:3]) != (2, 2):
-        raise ValueError("grad_hist: planes must be (B, 2, 2, H, W) uint8")
+        names = ", ".join(str(t).replace("torch.", "") for t in types)
+        raise ValueError(f"grad_hist: planes must be (B, 2, 2, H, W) "
+                         f"{names}")
     if not planes.is_contiguous():
         raise ValueError("grad_hist: planes must be contiguous")
     if smooth not in (0, 1):
@@ -52,6 +69,8 @@ def _check(planes: torch.Tensor, mask: Optional[torch.Tensor],
         if mask.device != planes.device:
             raise ValueError("grad_hist: planes and mask on different "
                              "devices")
+    if planes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grad_hist: unsupported device {planes.device}")
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
@@ -59,15 +78,31 @@ _DBL4 = ctypes.c_double * N_BINS
 _COS4, _SIN4 = _DBL4(*COS), _DBL4(*SIN)
 
 
-def _entry():
-    fn = load_library("grad_hist").wb_grad_hist
+def _entry(name: str):
+    fn = getattr(load_library("grad_hist"), name)
     if fn.argtypes is None:
-        # planes, mask, out, B, H, W, smooth, cos, sin, stream
-        fn.argtypes = [_VP, _VP, _VP, _CI, _CI, _CI, _CI,
+        # planes, mask, out, B, H, W, smooth, [element bytes,] cos, sin,
+        # stream
+        fast = [_CI] if name == "wb_grad_hist_fast" else []
+        fn.argtypes = [_VP, _VP, _VP, _CI, _CI, _CI, _CI, *fast,
                        ctypes.POINTER(ctypes.c_double),
                        ctypes.POINTER(ctypes.c_double), _VP]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name: str, planes: torch.Tensor, mask: Optional[torch.Tensor],
+            smooth: int, dtype: torch.dtype, *extra) -> torch.Tensor:
+    B, _, _, H, W = planes.shape
+    out = torch.empty((B, N_BINS, H, W), dtype=dtype, device=planes.device)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    with torch.cuda.device(planes.device):
+        err = _entry(name)(planes.data_ptr(),
+                           mask.data_ptr() if smooth == 1 else None,
+                           out.data_ptr(), B, H, W, smooth, *extra, _COS4,
+                           _SIN4, stream)
+    check(err, f"{name} kernel")
+    return out
 
 
 def grad_hist(planes: torch.Tensor, mask: Optional[torch.Tensor],
@@ -77,19 +112,23 @@ def grad_hist(planes: torch.Tensor, mask: Optional[torch.Tensor],
     _check(planes, mask, smooth)
     if planes.device.type == "cpu":
         return grad_hist_plain(planes, mask, smooth)
-    if planes.device.type != "cuda":
-        raise ValueError(f"grad_hist: unsupported device {planes.device}")
     global grad_hist_launches
-    B, _, _, H, W = planes.shape
-    out = torch.empty((B, N_BINS, H, W), dtype=torch.float32,
-                      device=planes.device)
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    with torch.cuda.device(planes.device):
-        err = _entry()(planes.data_ptr(),
-                       mask.data_ptr() if smooth == 1 else None,
-                       out.data_ptr(), B, H, W, smooth, _COS4, _SIN4, stream)
-    check(err, "grad_hist kernel")
+    out = _launch("wb_grad_hist", planes, mask, smooth, torch.float32)
     grad_hist_launches += 1
+    return out
+
+
+def grad_hist_fast(planes: torch.Tensor, mask: Optional[torch.Tensor],
+                   smooth: int) -> torch.Tensor:
+    """(B, 4, H, W) bfloat16 channel canvas of fast serving mode (B2f) from
+    (B, 2, 2, H, W) uint8, bfloat16 or float32 planes."""
+    _check(planes, mask, smooth, _FAST_TYPES)
+    if planes.device.type == "cpu":
+        return grad_hist_fast_plain(planes, mask, smooth)
+    global grad_hist_fast_launches
+    out = _launch("wb_grad_hist_fast", planes, mask, smooth, torch.bfloat16,
+                  _FAST_TYPES[planes.dtype])
+    grad_hist_fast_launches += 1
     return out
 
 
@@ -105,11 +144,11 @@ def _shift(p: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
     return out
 
 
-def grad_hist_plain(planes: torch.Tensor, mask: Optional[torch.Tensor],
-                    smooth: int) -> torch.Tensor:
-    """Plain-torch version of the grad_hist kernel."""
-    _check(planes, mask, smooth)
-    P = planes.to(torch.int32)
+def _gradients(P: torch.Tensor):
+    """``(gx, gy)``, each ``[a][q]`` per phase, of (B, 2, 2, H, W) int32 or
+    float32 planes, zero off the canvas: prefilters ``(a + 2b) + c``, gx
+    left minus right of the vertical one, gy above minus below of the
+    horizontal one, each operation rounded on its own."""
     P = [[P[:, 0, 0], P[:, 0, 1]], [P[:, 1, 0], P[:, 1, 1]]]
 
     def tap3(a, b, c):
@@ -123,13 +162,16 @@ def grad_hist_plain(planes: torch.Tensor, mask: Optional[torch.Tensor],
           [tap3(P[0][b], P[1][b], _shift(P[0][b], +1, 0)) for b in (0, 1)]]
     gx = [[_shift(sy[a][1], 0, -1) - sy[a][1],
            sy[a][0] - _shift(sy[a][0], 0, +1)] for a in (0, 1)]
-    gx = [[g.to(torch.float64) for g in row] for row in gx]
-    gy = [[g.to(torch.float64) for g in row] for row in gy]
+    return gx, gy
 
+
+def _pool_smooth(gx, gy, proj, mask: Optional[torch.Tensor],
+                 smooth: int) -> torch.Tensor:
+    """(B, 4, H, W) float32: per bin ``k`` the pool of ``proj(gx, gy, k)``
+    over the four phases, then the smooth and the mask select."""
     chans = []
     for k in range(N_BINS):
-        v = [[(gx[a][b] * COS[k] - gy[a][b] * SIN[k]).to(torch.float32).abs()
-              for b in (0, 1)] for a in (0, 1)]
+        v = [[proj(gx[a][b], gy[a][b], k) for b in (0, 1)] for a in (0, 1)]
         pooled = (((v[0][0] + v[1][0]) + v[0][1]) + v[1][1]) * 0.25
         if smooth == 1:
             pat = lambda dr, dc: _shift(pooled, dr, dc)
@@ -138,6 +180,28 @@ def grad_hist_plain(planes: torch.Tensor, mask: Optional[torch.Tensor],
                 + pat(1, -1) + 2.0 * pat(1, 0) + pat(1, 1)
             pooled = torch.where(mask.bool(), s * (1.0 / 16.0),
                                  torch.zeros((), dtype=torch.float32,
-                                             device=planes.device))
+                                             device=pooled.device))
         chans.append(pooled)
     return torch.stack(chans, dim=1).contiguous()
+
+
+def grad_hist_plain(planes: torch.Tensor, mask: Optional[torch.Tensor],
+                    smooth: int) -> torch.Tensor:
+    """Plain-torch version of the grad_hist kernel."""
+    _check(planes, mask, smooth)
+    gx, gy = _gradients(planes.to(torch.int32))
+    gx = [[g.to(torch.float64) for g in row] for row in gx]
+    gy = [[g.to(torch.float64) for g in row] for row in gy]
+    return _pool_smooth(
+        gx, gy, lambda x, y, k: (x * COS[k] - y * SIN[k]).to(torch.float32)
+        .abs(), mask, smooth)
+
+
+def grad_hist_fast_plain(planes: torch.Tensor, mask: Optional[torch.Tensor],
+                         smooth: int) -> torch.Tensor:
+    """Plain-torch version of the fast grad_hist kernel (B2f)."""
+    _check(planes, mask, smooth, _FAST_TYPES)
+    gx, gy = _gradients(planes.to(torch.float32))
+    return _pool_smooth(gx, gy,
+                        lambda x, y, k: (x * COS32[k] - y * SIN32[k]).abs(),
+                        mask, smooth).to(torch.bfloat16)

@@ -6,6 +6,12 @@ kernel is ``csrc/planes.cu``; :func:`planes_plain` is the same formula in
 torch indexing.  A CPU tensor takes the plain version, a CUDA tensor the
 kernel.  Both write every byte of the canvas, the gaps between levels as
 0, so the canvas needs no zero fill first.
+
+:func:`planes_float_fast` builds the planes of float32 frames in fast
+serving mode.  JAX computes it in XLA, outside any Pallas kernel
+(``waldboost_tpu/polyphase.py::_poly_level_blocks`` with ``fast=True``,
+``_combine_block_plain``), and so does the port: a handful of torch ops
+over the whole canvas.
 """
 
 from __future__ import annotations
@@ -18,9 +24,10 @@ import numpy as np
 import torch
 
 from .._build import check, load_library
-from ..polyphase import META_COLS, PlaneTables
+from ..polyphase import META_COLS, FloatPlaneTables, PlaneTables
 
-__all__ = ["PlaneOperands", "octave_buffer", "planes", "planes_plain"]
+__all__ = ["PlaneOperands", "octave_buffer", "planes", "planes_plain",
+           "FloatPlaneOperands", "planes_float_fast"]
 
 #: kernel launches made by :func:`planes`
 planes_launches = 0
@@ -55,8 +62,8 @@ class PlaneOperands:
 
 
 def octave_buffer(octaves: List[torch.Tensor]) -> torch.Tensor:
-    """(B, sum of octave sizes) uint8: the octave images flattened and
-    concatenated, the layout the plane kernel gathers from."""
+    """(B, sum of octave sizes): the octave images flattened and
+    concatenated, the layout the plane builds gather from."""
     B = octaves[0].shape[0]
     return torch.cat([o.reshape(B, -1) for o in octaves], dim=1).contiguous()
 
@@ -152,3 +159,49 @@ def planes_plain(octs: torch.Tensor, ops: PlaneOperands) -> torch.Tensor:
         out[:, :, :, y0:y0 + hq, x0:x0 + wq] = \
             v.permute(0, 1, 3, 2, 4).to(torch.uint8)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FloatPlaneOperands:
+    """:class:`~waldboost_tpu_torch.polyphase.FloatPlaneTables` on a
+    device."""
+
+    host: FloatPlaneTables
+    index: torch.Tensor
+    fh: torch.Tensor
+    fw: torch.Tensor
+
+    @staticmethod
+    def build(tables: FloatPlaneTables, device) -> "FloatPlaneOperands":
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+        return FloatPlaneOperands(tables, t(tables.index), t(tables.fh),
+                                  t(tables.fw))
+
+
+def planes_float_fast(octs: torch.Tensor, ops: FloatPlaneOperands,
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """(B, 2, 2, PH, PW) planes of a (B, S) float32 octave buffer in fast
+    serving mode: per element its four corners, the row lerps ``r_b = g0b
+    + fh*(g1b - g0b)`` and ``r0 + fw*(r1 - r0)`` in f32, each operation
+    rounded on its own.  ``out_dtype`` float32, or bfloat16: the octave
+    values are rounded to bfloat16 (to nearest even) before the lerp and
+    the result after it."""
+    if octs.dtype != torch.float32 or octs.dim() != 2 \
+            or octs.shape[1] != ops.host.n_src:
+        raise ValueError(f"planes_float_fast: octaves must be a (B, "
+                         f"{ops.host.n_src}) float32 tensor")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("planes_float_fast: out_dtype is float32 or "
+                         "bfloat16")
+    if octs.device != ops.index.device:
+        raise ValueError("planes_float_fast: octaves and tables on "
+                         "different devices")
+    B = octs.shape[0]
+    src = torch.nn.functional.pad(octs, (0, 1))  # the gaps' zero
+    if out_dtype == torch.bfloat16:
+        src = src.to(torch.bfloat16).to(torch.float32)
+    g00, g01, g10, g11 = (src.index_select(1, ops.index[k]) for k in range(4))
+    r0 = g00 + ops.fh * (g10 - g00)
+    r1 = g01 + ops.fh * (g11 - g01)
+    out = r0 + ops.fw * (r1 - r0)
+    return out.view((B, 2, 2) + tuple(ops.host.plane_hw)).to(out_dtype)

@@ -11,6 +11,13 @@ one-program masked path), ``make_multi_detector_boxes`` and
     cascade   frozen cascade, masked score map (kernel B3, ops/cascade_static.py)
     extract   exact top-k boxes and greedy NMS     (ops/nms.py, plain torch)
 
+Fast serving mode (``fast=True``, JAX's ``WB_SERVING_MODE=fast``) makes a
+bfloat16 grad_hist canvas with kernel B2f and walks it with B3f (B4 for
+``make_batched_detector``), and serves float32 frames too, their planes
+float32 or bfloat16 by ``fast_float`` (JAX's ``WB_FAST_FLOAT``).  Both
+are arguments, fixed when the detector is built: the port reads no
+environment variable for them.
+
 While a torch profiler runs, each step runs inside a ``record_function``
 span named ``wb.<step>`` (``wb.octaves``, ``wb.planes``, ``wb.channels``,
 ``wb.cascade``, ``wb.extract``, ``wb.nms``), so a trace attributes host
@@ -46,16 +53,21 @@ def _no_mesh(mesh) -> None:
                                   "(ROADMAP item A11)")
 
 
-def _check_images(images, image_shape, device) -> int:
+def _check_images(images, image_shape, device, floats: bool = False) -> int:
+    """The batch size of a (B, H, W) batch: uint8, or float32 where
+    ``floats`` (fast serving mode of a grad_hist model)."""
     h, w = image_shape
     if not isinstance(images, torch.Tensor):
         raise ValueError("images must be a torch tensor")
-    if images.is_floating_point():
-        raise NotImplementedError("float images are not ported yet "
-                                  "(ROADMAP item A6)")
-    if images.dtype != torch.uint8 or images.dim() != 3 \
+    if images.is_floating_point() and not floats:
+        raise NotImplementedError("float images are served in fast mode of "
+                                  "grad_hist models only; exact float "
+                                  "serving is ROADMAP item A6")
+    types = (torch.uint8, torch.float32) if floats else (torch.uint8,)
+    if images.dtype not in types or images.dim() != 3 \
             or tuple(images.shape[1:]) != (h, w):
-        raise ValueError(f"images must be (B, {h}, {w}) uint8, got "
+        kinds = " or ".join(str(t).replace("torch.", "") for t in types)
+        raise ValueError(f"images must be (B, {h}, {w}) {kinds}, got "
                          f"{tuple(images.shape)} {images.dtype}")
     if images.device != device:
         raise ValueError(f"images on {images.device}, detector built for "
@@ -75,7 +87,8 @@ class BatchedDetector:
     def __init__(self, model: Model, packed: PackedPyramidPlan,
                  image_shape: Tuple[int, int], k: int,
                  nms_iou: Optional[float], with_n_weak: bool,
-                 device: torch.device):
+                 device: torch.device, fast: bool = False,
+                 fast_float: str = "f32"):
         _, _, smooth, cf = serving_opts(model.channel_opts, model.shape[2])
         self.packed = packed
         self.image_shape = image_shape
@@ -84,7 +97,8 @@ class BatchedDetector:
         self.nms_iou = nms_iou
         self.with_n_weak = with_n_weak
         self.device = device
-        self.canvas = channel_canvas(packed, image_shape, smooth, cf, device)
+        self.canvas = channel_canvas(packed, image_shape, smooth, cf, device,
+                                     fast, fast_float)
         self.grid = window_grid(packed, self.window, device)
         self.cascade_ops = model._operands(device)
 
@@ -103,9 +117,10 @@ class BatchedDetector:
         return rects, scores, keep, count
 
     def __call__(self, images: torch.Tensor):
-        """``(rects, scores, valid, count, n_weak)`` of a (B, H, W) uint8
-        batch; see :func:`make_batched_detector_boxes`."""
-        B = _check_images(images, self.image_shape, self.device)
+        """``(rects, scores, valid, count, n_weak)`` of a (B, H, W) batch;
+        see :func:`make_batched_detector_boxes`."""
+        B = _check_images(images, self.image_shape, self.device,
+                          self.canvas.fast)
         if not self.packed.levels:
             z = lambda *s, dt: torch.zeros(s, dtype=dt, device=self.device)
             return (z(B, 0, 4, dt=torch.float32), z(B, 0, dt=torch.float32),
@@ -122,22 +137,24 @@ class BatchedDetector:
 
 def make_batched_detector(model: Model, image_shape: Tuple[int, int],
                           n_stages_cap: Optional[int] = None, device=None,
-                          mesh=None):
+                          mesh=None, fast: bool = False,
+                          fast_float: str = "f32"):
     """Build ``fn(images) -> (hs, alive, n_weak)`` for ``image_shape``
     frames: the (B, GU, GV) float32 and bool maps and per-image int32
     ``n_weak`` of the first ``n_stages_cap`` stages (all when None) over
-    the packed canvas (kernels B1, B2 or B5, B4).  Returns ``(fn,
-    packed)``."""
+    the packed canvas (kernels B1, B2 or B5, B4; with ``fast``, B2f and B4
+    over the bfloat16 canvas, and float32 frames, as in
+    :func:`make_batched_detector_boxes`).  Returns ``(fn, packed)``."""
     _no_mesh(mesh)
     h, w = (int(s) for s in image_shape)
     dev = model._device_for(device)
     packed, smooth, cf = model._plan((h, w))
     grid = window_grid(packed, model.shape[:2], dev)
-    canvas = channel_canvas(packed, (h, w), smooth, cf, dev)
+    canvas = channel_canvas(packed, (h, w), smooth, cf, dev, fast, fast_float)
     ops = model._operands(dev)
 
     def fn(images: torch.Tensor):
-        B = _check_images(images, (h, w), dev)
+        B = _check_images(images, (h, w), dev, canvas.fast)
         if not packed.levels:
             gu, gv = grid.valid.shape
             return (torch.zeros((B, gu, gv), dtype=torch.float32, device=dev),
@@ -157,7 +174,7 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
                                 device=None, mesh=None,
                                 two_phase: bool = False,
                                 n_scales: Optional[int] = None,
-                                fast: bool = False):
+                                fast: bool = False, fast_float: str = "f32"):
     """Build a batched detector for ``model`` on ``image_shape`` frames.
 
     Returns ``(fn, packed)``; ``fn(images)`` takes a (B, H, W) uint8 tensor
@@ -168,14 +185,18 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
     int32 (-1 when it exceeds ``k``), and the number of weak-classifier
     evaluations (B,) int32 (zeros unless ``with_n_weak``).  ``packed`` is
     the packed pyramid plan; ``fn`` is a :class:`BatchedDetector`.
+
+    ``fast`` is fast serving mode (JAX's ``WB_SERVING_MODE=fast``): a
+    bfloat16 canvas from kernel B2f, walked by B3f; ``fn`` then takes
+    float32 frames too, their planes float32 (``fast_float="f32"``) or
+    bfloat16 (``"bf16"``, JAX's ``WB_FAST_FLOAT=bf16``).  The results are
+    JAX's fast mode's, not the exact path's.  FPGA models have no fast
+    variant: they serve uint8 frames as in exact mode.
     """
     _no_mesh(mesh)
     if two_phase:
         raise NotImplementedError("two-phase serving is not ported yet "
                                   "(ROADMAP item A13)")
-    if fast:
-        raise NotImplementedError("fast serving mode is not ported yet "
-                                  "(ROADMAP item A6)")
     if n_scales is not None:
         if not isinstance(n_scales, int) or n_scales < 1:
             raise ValueError(f"n_scales must be a positive int, got "
@@ -187,7 +208,8 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
     h, w = (int(s) for s in image_shape)
     packed, _, _ = model._plan((h, w))
     fn = BatchedDetector(model, packed, (h, w), int(k), nms_iou,
-                         with_n_weak, model._device_for(device))
+                         with_n_weak, model._device_for(device), fast,
+                         fast_float)
     return fn, packed
 
 
@@ -195,7 +217,8 @@ def make_multi_detector_boxes(models: Sequence[Model],
                               image_shape: Tuple[int, int], k: int = 256,
                               nms_iou: Optional[float] = None,
                               response_scale=None, with_n_weak: bool = True,
-                              device=None, mesh=None):
+                              device=None, mesh=None, fast: bool = False,
+                              fast_float: str = "f32"):
     """K models over ONE shared channel canvas, batched.
 
     The canvas is planned from the elementwise-minimum window and built
@@ -206,7 +229,8 @@ def make_multi_detector_boxes(models: Sequence[Model],
     scores, valid, label, count, n_weak)`` with shapes (B, K*k, 4),
     (B, K*k), (B, K*k), (B, K*k) int32 model index, (B, K) per-model exact
     survivor counts (-1 past ``k``) and (B,) int32.  Runs on ``device``
-    (the first model's when None)."""
+    (the first model's when None).  ``fast`` and ``fast_float`` as in
+    :func:`make_batched_detector_boxes` (B2f, B3f)."""
     _no_mesh(mesh)
     if response_scale is None:
         response_scale = [1.0] * len(models)
@@ -215,12 +239,12 @@ def make_multi_detector_boxes(models: Sequence[Model],
     h, w = (int(s) for s in image_shape)
     packed, smooth, cf = shared_plan(models, (h, w))
     dev = models[0]._device_for(device)
-    canvas = channel_canvas(packed, (h, w), smooth, cf, dev)
+    canvas = channel_canvas(packed, (h, w), smooth, cf, dev, fast, fast_float)
     scans = [(window_grid(packed, mm.shape[:2], dev), mm._operands(dev),
               float(np.float32(s))) for mm, s in zip(models, response_scale)]
 
     def fn(images: torch.Tensor):
-        B = _check_images(images, (h, w), dev)
+        B = _check_images(images, (h, w), dev, canvas.fast)
         if not packed.levels:
             z = lambda *s, dt: torch.zeros(s, dtype=dt, device=dev)
             return (z(B, 0, 4, dt=torch.float32), z(B, 0, dt=torch.float32),

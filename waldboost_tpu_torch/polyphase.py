@@ -19,7 +19,8 @@ import numpy as np
 from .ops.exact import axis_taps_exact
 from .packing import PackedPyramidPlan, _band_rows
 
-__all__ = ["PlaneTables", "plane_tables"]
+__all__ = ["PlaneTables", "plane_tables", "FloatPlaneTables",
+           "float_plane_tables", "resize_taps64"]
 
 
 def _ext_pm_taps(R, size, halo):
@@ -29,6 +30,39 @@ def _ext_pm_taps(R, size, halo):
         R = np.concatenate([R[halo - 1::-1], R,
                             R[size - 1:size - halo - 1:-1]])
     return np.concatenate([R[halo % 2::2], R[(1 + halo) % 2::2]])
+
+
+def resize_taps64(n_in: int, n_out: int):
+    """``(i0 int32 (n_out,), frac float64 (n_out,))``: output row r of a
+    half-pixel-centre bilinear resize with edge clamping blends input rows
+    ``i0[r]`` and ``min(i0[r] + 1, n_in - 1)`` with weight ``frac[r]``
+    (``waldboost_tpu/ops/warp.py::resize_taps64``)."""
+    coords = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    coords = np.clip(coords, 0.0, n_in - 1.0)
+    i0 = np.floor(coords).astype(np.int64)
+    i0 = np.minimum(i0, max(n_in - 2, 0))
+    return i0.astype(np.int32), coords - i0
+
+
+def _octave_layout(image_hw: Tuple[int, int], n_oct: int):
+    """``(oct_hw, oct_off, total)``: each octave's shape (the o-fold
+    floor-halving of ``image_hw``), its offset in the flattened octave
+    buffer, and the buffer's length."""
+    oct_hw, oct_off, off = [], [], 0
+    h, w = image_hw
+    for _ in range(n_oct):
+        oct_hw.append((h, w))
+        oct_off.append(off)
+        off += h * w
+        h, w = h // 2, w // 2
+    return oct_hw, oct_off, off
+
+
+def _level_rows(packed: PackedPyramidPlan, he2: int, PH: int):
+    """Each level's first plane row: its band start plus its row in the
+    band, the placement rule of the JAX plane assembly."""
+    return {li: ys + top for ys, _pitch, lis in _band_rows(packed, he2, 0, PH)
+            for li, top, _col in lis}
 
 
 def _poly_geom_levels(packed: PackedPyramidPlan, halo, image_hw):
@@ -189,17 +223,8 @@ def plane_tables(packed: PackedPyramidPlan, halo: int,
     PH, PW = packed.canvas_h, packed.canvas_w
     geom = _poly_geom_levels(packed, halo, image_hw)
     n_oct = max((g["oct"] for g in geom), default=-1) + 1
-    oct_hw, off, oct_off = [], 0, []
-    h, w = image_hw
-    for _ in range(n_oct):
-        oct_hw.append((h, w))
-        oct_off.append(off)
-        off += h * w
-        h, w = h // 2, w // 2
-    # a level's plane row is its band start plus its row in the band, the
-    # placement rule of the JAX plane assembly
-    row0 = {li: ys + top for ys, _pitch, lis in _band_rows(packed, he2, 0, PH)
-            for li, top, _col in lis}
+    oct_hw, oct_off, _ = _octave_layout(image_hw, n_oct)
+    row0 = _level_rows(packed, he2, PH)
     meta, i0h, frh, i0w, frw = [], [], [], [], []
     tap_h = tap_w = 0
     for li, (pl, g) in enumerate(zip(packed.levels, geom)):
@@ -236,3 +261,69 @@ def plane_tables(packed: PackedPyramidPlan, halo: int,
         rtap=(i0h | (frh << 16)).astype(np.int32), ctap=ctap, tiles=tiles,
         pieces=pieces, oct_hw=tuple(oct_hw), plane_hw=(PH, PW),
         tile_hw=tile_hw)
+
+
+@dataclasses.dataclass(frozen=True)
+class FloatPlaneTables:
+    """Host tables of the float-frame plane build of fast serving mode
+    (``ops/planes.py::planes_float_fast``), one entry per element of the
+    flattened ``(2, 2, PH, PW)`` plane canvas.
+
+    ``index`` (4, N) int32: the element's four corners as offsets into the
+    flattened octave buffer, in the order (row i0, col i0), (row i0, col
+    i1), (row i1, col i0), (row i1, col i1) with ``i1 = min(i0 + 1, n -
+    1)``; gap elements point at ``n_src``, one zero appended to the buffer.
+    ``fh``/``fw`` (N,) float32: the f32 roundings of the row and column
+    fractions (0 in gaps).  ``oct_hw`` are the octave shapes, ``plane_hw``
+    = (PH, PW)."""
+
+    index: np.ndarray
+    fh: np.ndarray
+    fw: np.ndarray
+    n_src: int
+    oct_hw: Tuple[Tuple[int, int], ...]
+    plane_hw: Tuple[int, int]
+
+
+def float_plane_tables(packed: PackedPyramidPlan, halo: int,
+                       image_hw: Tuple[int, int]) -> FloatPlaneTables:
+    """The tables of every level's float resize into the plane canvas:
+    ``resize_taps64`` taps with the (even) reflect ``halo`` baked in and
+    phase-major (``_ext_pm_taps``), placed as the uint8 planes are, for an
+    unpadded ``(Hc, Wc)`` plane canvas."""
+    if halo % 2:
+        raise ValueError("the packer guarantees an even baked halo")
+    he2 = halo // 2
+    PH, PW = packed.canvas_h, packed.canvas_w
+    n_oct = max((pl.level.octave for pl in packed.levels), default=-1) + 1
+    oct_hw, oct_off, n_src = _octave_layout(image_hw, n_oct)
+    if n_src >= 2 ** 31:
+        raise ValueError("octave buffer exceeds int32 offsets")
+    row0 = _level_rows(packed, he2, PH)
+    N = 4 * PH * PW
+    index = np.full((4, N), n_src, np.int32)
+    fh = np.zeros(N, np.float32)
+    fw = np.zeros(N, np.float32)
+    for li, pl in enumerate(packed.levels):
+        lv = pl.level
+        oh, ow = oct_hw[lv.octave]
+        i0h, frh = (_ext_pm_taps(t, lv.height, halo)
+                    for t in resize_taps64(oh, lv.height))
+        i0w, frw = (_ext_pm_taps(t, lv.width, halo)
+                    for t in resize_taps64(ow, lv.width))
+        hq, wq = len(i0h) // 2, len(i0w) // 2
+        rows = [i0h.astype(np.int64), np.minimum(i0h + 1, oh - 1)]
+        cols = [i0w.astype(np.int64), np.minimum(i0w + 1, ow - 1)]
+        # (p, q, r, c) of the level block -> flat canvas element
+        p, q, r, c = np.meshgrid(np.arange(2), np.arange(2), np.arange(hq),
+                                 np.arange(wq), indexing="ij")
+        y0, x0 = row0[li], pl.x - he2
+        pos = ((p * 2 + q) * PH + y0 + r) * PW + x0 + c
+        hr, wc = p * hq + r, q * wq + c
+        for k in range(4):
+            index[k, pos] = oct_off[lv.octave] + rows[k >> 1][hr] * ow \
+                + cols[k & 1][wc]
+        fh[pos] = frh.astype(np.float32)[hr]
+        fw[pos] = frw.astype(np.float32)[wc]
+    return FloatPlaneTables(index=index, fh=fh, fw=fw, n_src=n_src,
+                            oct_hw=tuple(oct_hw), plane_hw=(PH, PW))
