@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths on VGA frames (640x480, shrink 2, n_per_oct 8,
+Drives the port's serving paths on VGA frames (640x480, shrink 2, n_per_oct 8,
 smooth 1, grad_hist) with the committed models and its BASELINE config-5
 path on 3840x2160 frames (FPGA integer channels grad_hist_4_u1+grad_mag_u1,
 C = 5, shrink 2, n_per_oct 4, smooth 0 and 1, the committed
 models/fpga_4k_*synth_64.pb), its fast serving mode on VGA uint8 and
-float32 frames, and checks and times its eight CUDA kernels (planes B1,
+float32 frames, its host-pool training loop (BASELINE config 4) and the
+FPGA trainer, and checks and times its eight CUDA kernels (planes B1,
 grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
 B6, grad_hist_fast B2f, cascade_fast B3f):
 
@@ -75,6 +76,31 @@ B6, grad_hist_fast B2f, cascade_fast B3f):
     noise frames of tests/data/torch_port_fpga_golden.npz; counters read
     (B1, B5, B3, B4 must have launched), then counts, n_weak, alive counts,
     kept boxes and scores checked against that file bitwise;
+ 6t. BASELINE config 4 (host-pool training: 12x12x4 grad_hist, shrink 2,
+    n_per_oct 4, smooth 1, fake_data_generator(seed=11), pool 1000/1000,
+    alpha 0.2, depth 2), teacher-forced against the JAX golden
+    (tests/data/torch_port_train_golden.npz, 6 stages) with the counters
+    set to 0 first: per stage the pool update (mining on the card) equals
+    the golden bitwise (labels, scores, instance ids, the samples' SHA-256
+    with values below 2**-30 as 0, counts, n_weak / n_loc / n_images), the
+    card's fit equals the golden tree (structure and thresholds bitwise,
+    predictions within 1e-5; on a differing split both gains are printed,
+    recomputed in float64), the SPRT on the pool's scores plus the golden
+    tree's responses equals the golden theta and learner stats bitwise;
+    the golden tree and theta are then appended; B1, B2 and B6 must have
+    launched;
+ 6u. the stage-0 and stage-5 pools fitted twice on the card: bitwise equal
+    trees;
+ 6v. the FPGA trainer: wt.fpga.train 2 stages (8x8x4 grad_hist_4_u1,
+    n_per_oct 2, smooth 1, pool 60/60, fake_data_generator(seed=3)) with
+    the counters set to 0 first, teacher-forced against the JAX golden
+    (tests/data/torch_port_fpga_train_golden.npz) as in 6t: each stage's
+    pool and counters bitwise, the card's fit equal to the golden tree,
+    theta and learner stats bitwise; integer thresholds, predictions on
+    the 1/32 grid within +-3; B1, B5 and B6 must have launched; then at
+    the trainer's mining shapes (8 of its 256x256 frames) B1, B5 and B6
+    against their plain versions, bitwise, on the canvas the mining
+    scans; save, load and detect give equal boxes;
  6. times each kernel against its plain version (CUDA events, in turns),
     each layer of the serving path, the serving path end to end (60
     batches of 8 per workload, MP/s, p50/p80), Model.detect and the
@@ -87,12 +113,16 @@ B6, grad_hist_fast B2f, cascade_fast B3f):
     (smooth 0, 1), B3 and B4 (C = 5) and B1 (halo 0) against their plain
     versions and bounds; at 1080p B1 and B2 (smooth 1 and 0) likewise; the
     serving path end to end (k=128, NMS 0.5, smooth 0 and 1, MP/s with
-    p50/p80 over 20 batches of 8) and the peak device memory; probes the
-    host;
+    p50/p80 over 20 batches of 8) and the peak device memory; config 4 as
+    bench.py times it (2 warm stages, then 6 timed: stages/min, each
+    stage's ms, the launches per stage of B1, B2 and B6); probes the host;
  7. traces 10 batches of each serving workload (and of the fast scene and
     bf16 float-fast workloads) with torch.profiler and prints the device
     idle share and, per layer span (wb.*), host and device time, and 3
-    batches of each config-5 workload likewise;
+    batches of each config-5 workload likewise; then 6 more config-4
+    stages in one train call: the device idle share, host and device
+    time per span, and each stage's host time split over the wb.train.*
+    spans (mine, label, gather, rescore, fit, sprt) and the rest;
  8. prints the per-kernel JSON summary (launches from the Model-API path,
     B5's from the config-5 path, B2f's and B3f's from the fast path,
     max_abs_err, ms, plain_ms, bound_ms from this run's shapes), then the
@@ -337,6 +367,27 @@ def trace_breakdown(trace, window):
             "n_device_events": len(dev), "layers": per}
 
 
+def stage_splits(trace, window):
+    """Per ``window`` span of a Chrome trace (in time order): its host
+    milliseconds, those of each ``wb.train.*`` span inside it, and the
+    rest ("other")."""
+    ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+          and e.get("cat") == "user_annotation"]
+    out = []
+    for w in sorted((e for e in ev if e["name"] == window),
+                    key=lambda e: e["ts"]):
+        w0, w1 = w["ts"], w["ts"] + w["dur"]
+        split = {"stage": w["dur"] / 1e3}
+        for e in ev:
+            if e["name"].startswith("wb.train.") and w0 <= e["ts"] <= w1:
+                name = e["name"][len("wb.train."):]
+                split[name] = split.get(name, 0.0) + e["dur"] / 1e3
+        split["other"] = split["stage"] - sum(
+            v for k, v in split.items() if k != "stage")
+        out.append(split)
+    return out
+
+
 def sorted_rows(*cols):
     """(N, k) float32 rows of the given columns in lexicographic order."""
     cols = [np.asarray(c, np.float32) for c in cols]
@@ -447,6 +498,248 @@ def check_fpga_path(g, res):
               f"{alive.tolist()}: bitwise equal to JAX")
 
 
+#: BASELINE config 4 (bench.py::bench_train_loop): the training golden of
+#: scripts/make_torch_train_golden.py and the settings it was made with
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                            "torch_port_train_golden.npz")
+TRAIN_SHAPE = (12, 12, 4)
+TRAIN_OPTS = dict(shrink=2, n_per_oct=4, smooth=1, channels="grad_hist")
+TRAIN_SEED, TRAIN_POOL, TRAIN_ALPHA, TRAIN_DEPTH = 11, 1000, 0.2, 2
+#: the FPGA trainer at tests/test_fpga.py::test_fpga_train_end_to_end's
+#: settings (fpga.train's defaults otherwise: alpha 0.1, banks 2 x 2, clip
+#: 3, quantizer 32): its golden, made by the same script
+FPGA_TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                                 "torch_port_fpga_train_golden.npz")
+FPGA_TRAIN_SHAPE = (8, 8, 4)
+FPGA_TRAIN_OPTS = dict(shrink=2, n_per_oct=2, smooth=1,
+                       channels="grad_hist_4_u1")
+FPGA_TRAIN_SEED, FPGA_TRAIN_POOL, FPGA_TRAIN_DEPTH = 3, 60, 2
+
+
+def samples_digest(samples) -> str:
+    """SHA-256 of a pool's samples as float32 bytes, values of magnitude
+    below 2**-30 written as 0 (the canvas's exact-cancellation tolerance,
+    PARITY.md section 1c), as scripts/make_torch_train_golden.py hashes
+    them."""
+    import hashlib
+    a = np.asarray(samples, np.float32)
+    a = np.ascontiguousarray(np.where(np.abs(a) < 2.0 ** -30,
+                                      np.float32(0), a))
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def golden_tree(g, s):
+    """Stage ``s``'s tree of the training golden as a stage dict."""
+    return {k: g[f"s{s}_{k}"] for k in ("feature", "threshold", "left",
+                                        "right", "prediction")}
+
+
+def tree_diff(tree, ref):
+    """None when ``tree`` (a DTree) equals the stage dict ``ref`` in
+    structure and thresholds bitwise and in predictions within 1e-5, else
+    what differs."""
+    got = tree.to_stage_dict()
+    for k in ("feature", "left", "right", "threshold"):
+        if not np.array_equal(got[k], ref[k]):
+            return f"{k}: {got[k].tolist()} against {ref[k].tolist()}"
+    err = float(np.max(np.abs(got["prediction"] - ref["prediction"])))
+    if not err <= 1e-5:
+        return f"prediction differs by {err}"
+    return None
+
+
+def split_gains_f64(X0, W0, X1, W1, tree):
+    """The entropy gain of each inner node's split of ``tree`` (a stage
+    dict), recomputed in float64 from the pool with the fit's
+    class-balanced weights: ``{node: gain}``."""
+    X = np.concatenate([X0, X1]).reshape(len(X0) + len(X1), -1)
+    X = X.astype(np.float64)
+    y = np.concatenate([np.zeros(len(X0)), np.ones(len(X1))])
+    W0, W1 = np.asarray(W0, np.float64), np.asarray(W1, np.float64)
+    w = np.concatenate([W0 / max(W0.sum() * 2, 1e-300),
+                        W1 / max(W1.sum() * 2, 1e-300)])
+    m, n, C = X0.shape[1:]
+
+    def ent(p0, p1):
+        t = p0 + p1
+        q = np.array([p0, p1]) / (t if t > 0 else 1.0)
+        return float(-sum(v * np.log2(v) for v in q if v > 0))
+
+    out, reach = {}, {0: np.ones(len(y), bool)}
+    for k in range(len(tree["left"])):
+        if k not in reach or tree["left"][k] < 0:
+            continue
+        r, c, ch = tree["feature"][k]
+        at = reach[k]
+        go_left = at & (X[:, (r * n + c) * C + ch] <= tree["threshold"][k])
+        go_right = at & ~go_left
+        reach[int(tree["left"][k])] = go_left
+        reach[int(tree["right"][k])] = go_right
+        mass = [[float(w[sel & (y == cl)].sum()) for cl in (0, 1)]
+                for sel in (at, go_left, go_right)]
+        tot = sum(mass[0])
+        out[k] = ent(*mass[0]) - sum(
+            sum(mm) / (tot if tot > 0 else 1.0) * ent(mm[0] + 1e-4,
+                                                       mm[1] + 1e-4)
+            for mm in mass[1:])
+    return out
+
+
+def check_golden_pool(g, s, pool, model):
+    """Require stage ``s``'s pool and the model's counters to equal the
+    training golden ``g`` bitwise (labels, scores, instance ids, the
+    samples' SHA-256, counts, n_weak / n_loc / n_images); the pool's
+    stats."""
+    box = pool.samples
+    digest = samples_digest(box.get_field("samples"))
+    st, cost = pool.pool_stats(), model.cost_stats()
+    require(np.array_equal(box.get_field("tp_label"), g[f"s{s}_labels"])
+            and np.array_equal(box.get_field("scores"), g[f"s{s}_scores"])
+            and np.array_equal(box.get_field("instance_id"),
+                               g[f"s{s}_instance_id"])
+            and digest == str(g["digest"][s])
+            and (st["num_tp"], st["num_fp"]) == (g["n_tp"][s], g["n_fp"][s]),
+            f"training stage {s}: the pool differs from JAX's")
+    require((cost["n_weak"], cost["n_loc"], cost["n_images"]) == (
+        g["n_weak"][s], g["n_loc"][s], g["n_images"][s]),
+        f"training stage {s}: the model's counters differ from JAX's")
+    return st
+
+
+def check_golden_tree(s, tree, ref, X0, W0, X1, W1):
+    """Require the port's fitted ``tree`` to equal the golden stage dict
+    ``ref`` (structure and thresholds bitwise, predictions within 1e-5);
+    on a differing split print both gains, recomputed in float64."""
+    diff = tree_diff(tree, ref)
+    if diff is not None:
+        print(f"training stage {s}: split gains in float64, port "
+              f"{split_gains_f64(X0, W0, X1, W1, tree.to_stage_dict())}, "
+              f"JAX {split_gains_f64(X0, W0, X1, W1, ref)}")
+    require(diff is None, f"training stage {s}: the tree differs from "
+            f"JAX's: {diff}")
+
+
+def check_golden_loss(g, s, lo):
+    """Require the loss ``lo`` of stage ``s`` to equal the golden's: the
+    loss sums numpy's float32 exp, whose SIMD paths differ by an ULP
+    between hosts, so bitwise on the golden's host, else within 1e-6."""
+    require(abs(lo - g["loss"][s]) <= 1e-6 * abs(g["loss"][s]),
+            f"training stage {s}: loss {lo!r} against JAX's "
+            f"{g['loss'][s]!r}")
+    if lo != g["loss"][s]:
+        print(f"training stage {s}: loss {lo!r}, the golden's "
+              f"{g['loss'][s]!r} (numpy exp on this host)")
+
+
+def fpga_train_golden_run(wt, dev, g):
+    """``wt.fpga.train`` at the ``FPGA_TRAIN_*`` settings on ``dev`` (its
+    mining runs B1, B5 and B6 there), teacher-forced against the FPGA
+    training golden ``g``: each stage's fit (fpga.DTree.fit on ``dev``:
+    bank-restricted features, integer thresholds, clipped and quantized
+    leaves) is held to the golden tree and the golden tree is used in its
+    place; after each stage a callback holds the pool and counters to the
+    golden bitwise, and the theta (float32 in the port) and learner stats
+    too.  Returns the trained model and its record generator."""
+    from waldboost_tpu_torch.fpga import training as fpga_training
+    from waldboost_tpu_torch.utils import fake_data_generator
+
+    plain_fit = fpga_training.DTree.fit
+    fits = []
+
+    def forced_fit(X0, W0, X1, W1, **kwargs):
+        s = len(fits)
+        fits.append(plain_fit(X0, W0, X1, W1, **kwargs))
+        ref = golden_tree(g, s)
+        check_golden_tree(s, fits[-1], ref, X0, W0, X1, W1)
+        return wt.DTree(ref["feature"], ref["threshold"], ref["left"],
+                        ref["right"], ref["prediction"])
+
+    def check_stage(model, learner, s):
+        check_golden_pool(g, s, pool, model)
+        rec = learner.history[-1]
+        require(model.theta[-1] == float(np.float32(g["theta"][s]))
+                and rec.p0 == g["p0"][s] and rec.p1 == g["p1"][s],
+                f"FPGA training stage {s}: theta {model.theta[-1]!r}, p0 "
+                f"{rec.p0!r}, p1 {rec.p1!r} against JAX's "
+                f"{g['theta'][s]!r}, {g['p0'][s]!r}, {g['p1'][s]!r}")
+        check_golden_loss(g, s, rec.loss)
+        print(f"FPGA training stage {s}: pool tp {pool.pool_stats()['num_tp']}"
+              f" fp {pool.pool_stats()['num_fp']}, tree and theta "
+              f"{model.theta[-1]!r} equal to JAX's")
+
+    gen = fake_data_generator(seed=FPGA_TRAIN_SEED)
+    model = wt.Model(FPGA_TRAIN_SHAPE, FPGA_TRAIN_OPTS, device=dev)
+    pool = wt.SamplePool(min_tp=FPGA_TRAIN_POOL, min_fp=FPGA_TRAIN_POOL,
+                         seed=0)
+    fpga_training.DTree.fit = staticmethod(forced_fit)
+    try:
+        wt.fpga.train(model, gen, pool=pool, length=len(g["theta"]),
+                      max_depth=FPGA_TRAIN_DEPTH, callbacks=[check_stage])
+    finally:
+        fpga_training.DTree.fit = staticmethod(plain_fit)
+    require(len(fits) == len(model) == len(g["theta"]),
+            "FPGA training: not every stage was fitted")
+    return model, gen
+
+
+def train_golden_run(wt, dev, g, refit=()):
+    """Config 4 teacher-forced against the training golden ``g`` on
+    ``dev``: per stage the pool update (mining on ``dev``), held to the
+    golden bitwise (labels, scores, instance ids, samples' SHA-256, pool
+    counts and the model's counters); the port's fit on ``dev``, held to
+    the golden tree (structure and thresholds bitwise, predictions within
+    1e-5); the host SPRT on the pool's scores plus the golden tree's
+    responses with the golden P0 and P1, held to the golden theta and
+    learner stats bitwise; then the golden tree and theta are appended.
+    Returns per-stage fit milliseconds and, for the stages in ``refit``,
+    the pool ``(X0, W0, X1, W1)``."""
+    import torch
+    from waldboost_tpu_torch.training import (fit_rejection_threshold, loss,
+                                              weights)
+    from waldboost_tpu_torch.utils import fake_data_generator
+
+    gen = fake_data_generator(seed=TRAIN_SEED)
+    model = wt.Model(TRAIN_SHAPE, TRAIN_OPTS, device=dev)
+    pool = wt.SamplePool(min_tp=TRAIN_POOL, min_fp=TRAIN_POOL, seed=0)
+    fit_ms, pools = [], {}
+    P0 = P1 = 1.0
+    for s in range(len(g["theta"])):
+        pool.update(model, gen)
+        st = check_golden_pool(g, s, pool, model)
+        X0, H0 = pool.get_false_positives()
+        X1, H1 = pool.get_true_positives()
+        W0, W1 = weights(H0), weights(-np.asarray(H1))
+        if s in refit:
+            pools[s] = (X0, W0, X1, W1)
+        ref = golden_tree(g, s)
+        t = time.perf_counter()
+        tree = wt.DTree.fit(X0, W0, X1, W1, max_depth=TRAIN_DEPTH,
+                            device=dev)
+        fit_ms.append((time.perf_counter() - t) * 1e3)
+        check_golden_tree(s, tree, ref, X0, W0, X1, W1)
+        gtree = wt.DTree(ref["feature"], ref["threshold"], ref["left"],
+                         ref["right"], ref["prediction"])
+        H0g = H0 + gtree.predict(X0)
+        H1g = H1 + gtree.predict(X1)
+        theta = fit_rejection_threshold(H0g, P0, H1g, P1, TRAIN_ALPHA)
+        p0 = (H0g >= theta).sum() / max(H0g.size, 1)
+        p1 = (H1g >= theta).sum() / max(H1g.size, 1)
+        lo = loss(H0g, H1g)
+        require(theta == g["theta"][s] and p0 == g["p0"][s]
+                and p1 == g["p1"][s],
+                f"training stage {s}: theta {theta!r}, p0 {p0!r}, p1 {p1!r} "
+                f"against JAX's {g['theta'][s]!r}, {g['p0'][s]!r}, "
+                f"{g['p1'][s]!r}")
+        check_golden_loss(g, s, lo)
+        P0 *= float(g["p0"][s])
+        P1 *= float(g["p1"][s])
+        model.append(ref, float(g["theta"][s]))
+        print(f"training stage {s}: pool tp {st['num_tp']} fp "
+              f"{st['num_fp']}, tree and theta {theta!r} equal to JAX's "
+              f"(fit {fit_ms[-1]:.1f} ms)")
+    return fit_ms, pools
+
+
 def main():
     import importlib
 
@@ -473,6 +766,7 @@ def main():
     from waldboost_tpu_torch.ops import planes as plane_mod
     from waldboost_tpu_torch.ops.nms import extract_detections
     from waldboost_tpu_torch.polyphase import META_COLS
+    from waldboost_tpu_torch.utils import fake_data_generator
     counters = {name: (importlib.import_module(mod), attr)
                 for name, (mod, attr, _, _) in KERNELS.items()}
 
@@ -488,7 +782,8 @@ def main():
     device_name = torch.cuda.get_device_name(dev)
     card = card_line()
     power_limit = card.split(",")[-1].strip()
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} numpy "
+          f"{np.__version__}")
     print(card)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1057,6 +1352,83 @@ def main():
             "a kernel of the config-5 path was not launched")
     check_fpga_path(fgold, fres)
 
+    # -- phase 6t: config 4 training, teacher-forced against the golden ----
+    tgold = np.load(TRAIN_GOLDEN)
+    zero_counters()
+    fit_ms, tpools = train_golden_run(wt, dev, tgold, refit=(0, 5))
+    torch.cuda.synchronize()
+    train_launches = read_counters()
+    print(f"phase 6t: {len(fit_ms)} stages equal to JAX's, mining "
+          f"launches {train_launches}")
+    require(all(train_launches[k] > 0 for k in ("planes", "grad_hist",
+                                                "cascade_generic")),
+            "a kernel of the mining path (B1, B2, B6) was not launched")
+
+    # -- phase 6u: the fit on the card is deterministic --------------------
+    for s_, (X0, W0, X1, W1) in tpools.items():
+        a, b = (wt.DTree.fit(X0, W0, X1, W1, max_depth=TRAIN_DEPTH,
+                             device=dev).to_stage_dict() for _ in range(2))
+        require(all(np.array_equal(a[k], b[k]) for k in a),
+                f"phase 6u: two fits of stage {s_}'s pool differ")
+        print(f"phase 6u: stage {s_} ({len(X0)} + {len(X1)} samples) "
+              f"fitted twice, bitwise equal")
+    del tpools
+
+    # -- phase 6v: the FPGA trainer, teacher-forced, B5 in its mining -------
+    zero_counters()
+    fmodel, fgen = fpga_train_golden_run(wt, dev, np.load(FPGA_TRAIN_GOLDEN))
+    torch.cuda.synchronize()
+    fl = read_counters()
+    require(all(fl[k] > 0 for k in ("planes", "fpga", "cascade_generic")),
+            f"phase 6v: FPGA training did not run on B1, B5 and B6 ({fl})")
+    for st in fmodel.stages:
+        require(np.array_equal(st["threshold"], np.floor(st["threshold"]))
+                and np.array_equal(st["prediction"] * 32,
+                                   np.round(st["prediction"] * 32))
+                and np.abs(st["prediction"]).max() <= 3,
+                "phase 6v: FPGA stage not integer / 1/32-quantized")
+    # the trainer's mining shapes (a batch of 8 of its 256 x 256 frames):
+    # B1, B5 and B6 against their plain versions; the canvas is the one
+    # Model.scan_packed_batch mines
+    vframes = np.stack([next(fgen)["image"] for _ in range(BATCH)])
+    vpacked, vsmooth, vcf = fmodel._plan(vframes.shape[1:])
+    vstep = channel_canvas(vpacked, vframes.shape[1:], vsmooth, vcf, dev)
+    voct = vstep.octaves(torch.from_numpy(vframes).to(dev))
+    vplanes = vstep.planes(voct)
+    check_phase("planes", f"planes FPGA trainer {vframes.shape[1:]} batch "
+                f"{BATCH}", [vplanes], [plane_mod.planes_plain(
+                    voct, vstep.plane_ops)])
+    vcanvas = vstep.channels(vplanes)
+    check_phase("fpga", f"fpga {vcf.fused_kind} smooth={vsmooth} FPGA "
+                f"trainer batch {BATCH}", [vcanvas],
+                [fpga_mod.fpga_channels_plain(vplanes, vstep.ring,
+                                              vstep.interior, vcf.fused_kind,
+                                              vsmooth)])
+    _, vgrid, mined = fmodel._scan_setup(vframes)
+    require(torch.equal(mined, vcanvas),
+            "phase 6v: the mining canvas is not the checked one")
+    vtab = fmodel._get_cascade()[0]
+    check_phase("cascade_generic", f"cascade_generic FPGA trainer "
+                f"({len(fmodel)} stages in {vtab.n_stages}) batch {BATCH}",
+                gen_mod.cascade_response_grid(vcanvas, vtab, (8, 8),
+                                              vgrid.valid),
+                gen_mod.cascade_response_grid_plain(vcanvas, vtab, (8, 8),
+                                                    vgrid.valid))
+    del voct, vplanes, vcanvas, mined
+    frame = vframes[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        fpath = os.path.join(tmp, "fpga.pb")
+        fmodel.save(fpath)
+        reloaded = wt.load(fpath, device=dev)
+    before, after = fmodel.detect(frame), reloaded.detect(frame)
+    require(np.array_equal(box_rows(before, "scores"),
+                           box_rows(after, "scores")),
+            "phase 6v: the saved FPGA model detects other boxes")
+    print(f"phase 6v: fpga.train {len(fmodel)} stages equal to JAX's, "
+          f"launches {fl}; thresholds "
+          f"{[st['threshold'].tolist() for st in fmodel.stages]}; save, "
+          f"load, detect: {len(after)} boxes, equal")
+
     # -- phase 5: timing and the host --------------------------------------
     def metric(name, value, unit):
         print(json.dumps({"metric": name, "value": value, "unit": unit,
@@ -1318,6 +1690,33 @@ def main():
             ms.append((time.perf_counter() - t) * 1e3)
         metric(f"{name}_ms_per_frame_p50", float(np.median(ms)), "ms")
 
+    # config 4 as bench.py times it: 2 warm stages, then 6 timed stages
+    # (host clock; a callback stamps each stage's end)
+    tmodel = wt.Model(TRAIN_SHAPE, TRAIN_OPTS, device=dev)
+    tgen = fake_data_generator(seed=TRAIN_SEED)
+    tpool = wt.SamplePool(min_tp=TRAIN_POOL, min_fp=TRAIN_POOL, seed=0)
+    tlearner = wt.Learner(alpha=TRAIN_ALPHA, max_depth=TRAIN_DEPTH)
+
+    def train_to(length, **kw):
+        wt.train(tmodel, tgen, pool=tpool, learner=tlearner, length=length,
+                 **kw)
+        torch.cuda.synchronize()
+
+    train_to(2)
+    stamps = []
+    zero_counters()
+    t = time.perf_counter()
+    train_to(8, callbacks=[lambda *a: stamps.append(time.perf_counter())])
+    dt = time.perf_counter() - t
+    per_stage = np.diff([t] + stamps) * 1e3
+    tl = read_counters()
+    metric("train_config4_stages_per_min", 6 / dt * 60.0, "stages/min")
+    print(f"config 4 timed stages 2-7 ({card}): "
+          f"{per_stage.round(3).tolist()} ms; launches per stage: B1 "
+          f"{tl['planes'] / 6}, B2 {tl['grad_hist'] / 6}, B6 "
+          f"{tl['cascade_generic'] / 6}; fpr "
+          f"{tlearner.false_positive_rate:.5f}")
+
     per_frame("model_detect_synth64", synth.detect)
     per_frame("model_detect_hard256", hard256.detect)
     per_frame("wt_detect_three_models",
@@ -1365,6 +1764,43 @@ def main():
         else:
             print(f"trace {workload}: the profiler recorded no device "
                   f"events; device idle share not measured")
+    # config 4: 6 more stages traced in one train call; a callback closes
+    # each stage's span at the stage's end and opens the next one
+    stage_span = []
+
+    def next_stage(*_):
+        if stage_span:
+            stage_span.pop().__exit__(None, None, None)
+        stage_span.append(record_function("smoke.stage"))
+        stage_span[0].__enter__()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.window"):
+            next_stage()
+            train_to(14, callbacks=[next_stage])
+            stage_span.pop().__exit__(None, None, None)
+    path = os.path.join(trace_dir, "train_config4.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    if args.trace_dir is None:
+        os.remove(path)
+    bd = trace_breakdown(trace, "smoke.window")
+    print(f"trace train_config4 ({card}): 6 stages in "
+          f"{bd['window_ms']:.3f} ms, "
+          f"device busy {bd['device_busy_ms']:.3f} ms "
+          f"({bd['n_device_events']} device events)")
+    for layer, t in bd["layers"].items():
+        print(f"  {layer}: host {t['host_ms']:.3f} ms, device "
+              f"{t['device_ms']:.3f} ms")
+    if bd["n_device_events"]:
+        metric("train_config4_device_idle_share", bd["device_idle_share"],
+               "1")
+    # the last span holds only the end of the train call
+    for i, split in enumerate(stage_splits(trace, "smoke.stage")[:6]):
+        print(f"train stage {8 + i} split (host ms, {card}): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()))
     if args.trace_dir is None:
         os.rmdir(trace_dir)
 

@@ -33,7 +33,9 @@ FLAGSHIP = os.path.join(ROOT, "models", "flagship_synth_64.pb")
 HARD256 = os.path.join(ROOT, "models", "flagship_hard_256.pb")
 
 sys.path.insert(0, ROOT)
-from chip_smoke import random_deep_stage  # noqa: E402  (numpy only)
+from chip_smoke import (FPGA_TRAIN_GOLDEN, TRAIN_DEPTH,  # noqa: E402
+                        TRAIN_GOLDEN, fpga_train_golden_run,
+                        random_deep_stage, train_golden_run, tree_diff)
 
 pytestmark = pytest.mark.cuda
 
@@ -510,3 +512,70 @@ def test_grad_hist_second_card(cuda):
             assert torch.equal(got.view(torch.int16),
                                want.view(torch.int16)), (dev, q.dtype)
         torch.cuda.synchronize(dev)
+
+
+@pytest.fixture(scope="module")
+def golden_pools():
+    """The pools of stages 0, 2 and 5 of BASELINE config 4, teacher-forced
+    against the training golden on the card (chip_smoke.py phase 6t)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _, pools = train_golden_run(wt, dev, np.load(TRAIN_GOLDEN),
+                                refit=(0, 2, 5))
+    return dev, pools
+
+
+def _fit(pool, device):
+    X0, W0, X1, W1 = pool
+    return wt.DTree.fit(X0, W0, X1, W1, max_depth=TRAIN_DEPTH, device=device)
+
+
+@pytest.mark.parametrize("stage", [0, 2, 5])
+def test_fit_on_card_matches_cpu(golden_pools, stage):
+    """The card's fit equals the port's CPU fit (structure and thresholds
+    bitwise, predictions within 1e-5) and repeats bitwise."""
+    dev, pools = golden_pools
+    card = _fit(pools[stage], dev)
+    cpu = _fit(pools[stage], "cpu")
+    assert tree_diff(card, cpu.to_stage_dict()) is None
+    again = _fit(pools[stage], dev).to_stage_dict()
+    for k, v in card.to_stage_dict().items():
+        assert np.array_equal(v, again[k]), k
+
+
+def test_fit_ignores_global_tf32(golden_pools, monkeypatch):
+    """With TF32 switched on globally the fit's products still run in full
+    float32 (the precision seen inside is "highest"), the tree is bitwise
+    the one fitted with TF32 off, and the caller's setting is restored."""
+    from waldboost_tpu_torch.ops import fit as tfit
+    dev, pools = golden_pools
+    seen = []
+    inner = tfit._cum_masses
+
+    def spy(*args):
+        seen.append(torch.get_float32_matmul_precision())
+        return inner(*args)
+
+    monkeypatch.setattr(tfit, "_cum_masses", spy)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = _fit(pools[0], dev).to_stage_dict()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = _fit(pools[0], dev).to_stage_dict()
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert seen and set(seen) == {"highest"}
+    for k, v in off.items():
+        assert np.array_equal(v, on[k]), k
+
+
+def test_fpga_train_golden_on_card(cuda):
+    """wt.fpga.train on the card, teacher-forced against the JAX golden
+    (chip_smoke.py phase 6v): pools, counters, trees, thetas and learner
+    stats of both stages."""
+    model, _ = fpga_train_golden_run(wt, cuda, np.load(FPGA_TRAIN_GOLDEN))
+    assert len(model) == 2 and model.device.type == "cuda"

@@ -160,7 +160,12 @@ def test_port_import_leaves_jax_out():
             "waldboost_tpu_torch.ops.cascade, "
             "waldboost_tpu_torch.ops.cascade_static, "
             "waldboost_tpu_torch.ops.nms, waldboost_tpu_torch.fpga, "
-            "waldboost_tpu_torch.ops.fpga; "
+            "waldboost_tpu_torch.ops.fpga, waldboost_tpu_torch.ops.fit, "
+            "waldboost_tpu_torch.training, waldboost_tpu_torch.samples, "
+            "waldboost_tpu_torch.mining, waldboost_tpu_torch.io, "
+            "waldboost_tpu_torch.testing, waldboost_tpu_torch.utils, "
+            "waldboost_tpu_torch.groundtruth, "
+            "waldboost_tpu_torch.fpga.training; "
             "waldboost_tpu_torch.channels.resolve_channel_function("
             "'grad_hist_4_u1+grad_mag_u1'); "
             "new = set(sys.modules) - before; "
@@ -192,3 +197,6 @@ def test_unported_options_raise():
         fn(torch.zeros((1, 48, 64), dtype=torch.float32))
     with pytest.raises(ValueError):
         fn(torch.zeros((1, 40, 64), dtype=torch.uint8))
+    for train in (wt.train, wt.fpga.train):
+        with pytest.raises(NotImplementedError, match="A11"):
+            train(tm, iter(()), mesh=object(), length=3)

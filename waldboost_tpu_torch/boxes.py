@@ -2,7 +2,8 @@
 
 The port's own copy of ``waldboost_tpu/boxes.py`` (``Boxes``,
 ``empty_boxes``, ``concatenate``, ``iou``, ``iou_matrix``,
-``non_max_suppression``, ``sort_by_field``) with the same semantics.  Box
+``non_max_suppression``, ``sort_by_field``, ``set_aspect_ratio``,
+``boxes_in_window``) with the same semantics.  Box
 lists are ragged, so they live on the host at the API boundary; the
 fixed-shape device NMS is :func:`waldboost_tpu_torch.ops.nms.nms`.
 
@@ -15,8 +16,9 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["Boxes", "concatenate", "empty_boxes", "iou", "iou_matrix",
-           "non_max_suppression", "sort_by_field"]
+__all__ = ["Boxes", "boxes_in_window", "concatenate", "empty_boxes", "iou",
+           "iou_matrix", "non_max_suppression", "set_aspect_ratio",
+           "sort_by_field"]
 
 
 class Boxes:
@@ -194,3 +196,35 @@ def sort_by_field(boxes: Boxes, field: str, descending: bool = False) -> Boxes:
     if descending:
         order = order[::-1]
     return boxes[order]
+
+
+def set_aspect_ratio(boxes: Boxes, aspect_ratio: float) -> Boxes:
+    """Boxes whose width is set about the centre so that w / h equals
+    ``aspect_ratio`` (heights kept), fields copied."""
+    r = boxes.get().copy()
+    cx = (r[:, 0] + r[:, 2]) / 2
+    h = r[:, 3] - r[:, 1]
+    w = h * aspect_ratio
+    r[:, 0] = cx - w / 2
+    r[:, 2] = cx + w / 2
+    out = Boxes(r)
+    for name in boxes.field_names():
+        out.set_field(name, boxes.get_field(name))
+    return out
+
+
+def boxes_in_window(boxes: Boxes, window: Boxes,
+                    min_overlap: float = 1.0) -> np.ndarray:
+    """Bool per box: at least ``min_overlap`` of its area lies inside
+    ``window`` (one box)."""
+    r = boxes.get()
+    win = np.atleast_2d(window.get())[0]
+    x1 = np.maximum(r[:, 0], win[0])
+    y1 = np.maximum(r[:, 1], win[1])
+    x2 = np.minimum(r[:, 2], win[2])
+    y2 = np.minimum(r[:, 3], win[3])
+    inter = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+    area = boxes.area()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        frac = np.where(area > 0, inter / area, 0.0)
+    return frac >= min_overlap

@@ -26,7 +26,10 @@ The detection paths:
   not overflow, and falls back to the dense path when it does.  The port
   runs the dense path always.
 * ``scan_packed``, ``scan_packed_batch`` and ``predict_on_image``: kernel
-  B6 over the padded runtime tables of :meth:`Model._get_cascade`.
+  B6 over the padded runtime tables of :meth:`Model._get_cascade`;
+  ``scan_packed_batch`` is training's mining scan, and
+  ``gather_windows_device`` crops windows of a frame's canvas on the
+  device.
 * ``predict`` and ``survivor_histogram``: plain torch (the JAX package has
   no kernel for either).
 """
@@ -46,6 +49,7 @@ from .canvas import as_image, channel_canvas, serving_opts, window_grid
 from .channels import (ChannelFunction, _normalize_opts,
                        resolve_channel_function)
 from .device import resolve_device
+from .mining import gather_windows
 from .ops.cascade import (Cascade, CascadeMeta, cascade_from_stages,
                           cascade_predict_samples, cascade_response_grid,
                           cascade_survivor_counts)
@@ -212,7 +216,13 @@ class Model:
     def __iter__(self):
         yield from zip(self.stages, self.theta)
 
-    def append(self, stage: Dict, theta: float) -> None:
+    def append(self, stage, theta: float) -> None:
+        """Add a stage: a stage dict or a weak learner with
+        ``to_stage_dict()`` (a :class:`~waldboost_tpu_torch.training.DTree`).
+        ``theta`` is kept as its float32 value, which the cascades compare
+        against (JAX keeps the float64 value and compares in float32)."""
+        if hasattr(stage, "to_stage_dict"):
+            stage = stage.to_stage_dict()
         self.stages.append({
             "feature": np.asarray(stage["feature"], np.int32).reshape(-1, 3),
             "threshold": np.asarray(stage["threshold"], np.float32),
@@ -413,6 +423,21 @@ class Model:
         per_image = [(rc[rc[:, 0] == i, 1], rc[rc[:, 0] == i, 2])
                      for i in range(n_real)]
         return canvas, hs, packed, per_image
+
+    def gather_windows_device(self, image, rs, cs) -> np.ndarray:
+        """(K, m, n, C) crops of ``image``'s canvas at canvas origins
+        ``(rs, cs)``, gathered on the device; only the crops come to the
+        host.  (The JAX package's ``is_canvas`` and ``as_device`` options
+        serve its CNN verifier, which is not ported.)"""
+        m, n, _ = self.shape
+        setup = self._scan_setup(as_image(image)[None])
+        if setup is None:
+            raise ValueError("image too small for any pyramid level")
+        rs = torch.as_tensor(np.asarray(rs, np.int64))
+        cs = torch.as_tensor(np.asarray(cs, np.int64))
+        crops = gather_windows(setup[2], torch.zeros_like(rs), rs, cs,
+                               (m, n))
+        return crops.cpu().numpy()
 
     def survivor_histogram(self, image) -> np.ndarray:
         """Windows alive entering each stage over the packed pyramid of one
