@@ -6,8 +6,10 @@ smooth 1, grad_hist) with the committed models and its BASELINE config-5
 path on 3840x2160 frames (FPGA integer channels grad_hist_4_u1+grad_mag_u1,
 C = 5, shrink 2, n_per_oct 4, smooth 0 and 1, the committed
 models/fpga_4k_*synth_64.pb), its fast serving mode on VGA uint8 and
-float32 frames, its host-pool training loop (BASELINE config 4) and the
-FPGA trainer, and checks and times its eight CUDA kernels (planes B1,
+float32 frames, its host-pool training loop (BASELINE config 4), the
+FPGA trainer, the device-pool trainer (BASELINE config 4b) and the
+per-level channel pyramid, and checks and times its eight CUDA kernels
+(planes B1,
 grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
 B6, grad_hist_fast B2f, cascade_fast B3f):
 
@@ -101,6 +103,32 @@ B6, grad_hist_fast B2f, cascade_fast B3f):
     the trainer's mining shapes (8 of its 256x256 frames) B1, B5 and B6
     against their plain versions, bitwise, on the canvas the mining
     scans; save, load and detect give equal boxes;
+ 6w. the device-pool trainer (BASELINE config 4b: config 4's model, data,
+    quotas and learner through parallel.trainer.train_sharded, mining seed
+    0, a 32-deep prefetcher, a warm call to 2 stages then the rest, one
+    pools dict) with the counters set to 0 first, teacher-forced against
+    the JAX golden (tests/data/torch_port_device_train_golden.npz, 6
+    stages): per stage the pools entering the step (v, H, counts, the
+    SHA-256 of each padded x with values below 2**-30 as 0) and n_weak /
+    n_loc / n_images bitwise; the card's fit equal to the golden heap tree
+    (features and thresholds bitwise, predictions within 1e-5; on a
+    differing split both gains printed in float64); with the golden tree
+    forced, theta, p0, p1, n0, n1 and the pruned masks bitwise, the loss
+    within 1e-6; B1, B2 and B6 must have launched; then at config 4b's
+    mining shapes (8 of its 256x256 frames, the trained 6-stage tables)
+    B1, B2 and B6 against their plain versions, bitwise, on the canvas
+    the mining scans; then train_sharded 2 stages at 6v's size with the
+    FPGA options in-step (bank masks from PixelBanks / BankScheduler, clip
+    3, quantizer 32, integer thresholds), teacher-forced in the same way
+    against its JAX golden
+    (tests/data/torch_port_device_fpga_train_golden.npz; the fit held to
+    JAX's tree before the FPGA transforms, the step's tree after them):
+    integer thresholds, leaves on the 1/32 grid within +-3, every split
+    feature in its depth's scheduled bank, B5 launched; then on the 3
+    golden frames channel_pyramid on the card equals its CPU run bitwise
+    (grad_hist, smooth 1), Model.scan_channels' survivors equal
+    Model.scan_packed's level by level, and wt.detect over models with
+    different channel options equals its per-level loop on the CPU;
  6. times each kernel against its plain version (CUDA events, in turns),
     each layer of the serving path, the serving path end to end (60
     batches of 8 per workload, MP/s, p50/p80), Model.detect and the
@@ -115,14 +143,21 @@ B6, grad_hist_fast B2f, cascade_fast B3f):
     serving path end to end (k=128, NMS 0.5, smooth 0 and 1, MP/s with
     p50/p80 over 20 batches of 8) and the peak device memory; config 4 as
     bench.py times it (2 warm stages, then 6 timed: stages/min, each
-    stage's ms, the launches per stage of B1, B2 and B6); probes the host;
+    stage's ms, the launches per stage of B1, B2 and B6) and config 4b
+    likewise (a warm call to 2 stages, then 12 timed), both rates on one
+    line; probes the host;
  7. traces 10 batches of each serving workload (and of the fast scene and
     bf16 float-fast workloads) with torch.profiler and prints the device
     idle share and, per layer span (wb.*), host and device time, and 3
     batches of each config-5 workload likewise; then 6 more config-4
     stages in one train call: the device idle share, host and device
     time per span, and each stage's host time split over the wb.train.*
-    spans (mine, label, gather, rescore, fit, sprt) and the rest;
+    spans (mine, label, gather, rescore, fit, sprt) and the rest; then 6
+    more config-4b stages in one train_sharded call likewise (spans mine,
+    label, insert, step), and per stage the bytes copied each way (from the
+    trace's memcpy events): a stage that does not mine copies at most 256
+    KB to the host and 64 KB to the device, and no copy is as large as a
+    pool's samples (2048 x 576 float32);
  8. prints the per-kernel JSON summary (launches from the Model-API path,
     B5's from the config-5 path, B2f's and B3f's from the fast path,
     max_abs_err, ms, plain_ms, bound_ms from this run's shapes), then the
@@ -514,6 +549,24 @@ FPGA_TRAIN_SHAPE = (8, 8, 4)
 FPGA_TRAIN_OPTS = dict(shrink=2, n_per_oct=2, smooth=1,
                        channels="grad_hist_4_u1")
 FPGA_TRAIN_SEED, FPGA_TRAIN_POOL, FPGA_TRAIN_DEPTH = 3, 60, 2
+#: BASELINE config 4b (bench.py::bench_train_loop_device_pool): the
+#: device-pool trainer at config 4's model, data, quotas and learner, with
+#: mining seed 0, the records behind a 32-deep prefetcher and a warm
+#: segment to length 2 before the rest, sharing one ``pools`` dict; its
+#: golden is made by scripts/make_torch_device_train_golden.py
+DEVICE_TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                                   "torch_port_device_train_golden.npz")
+DEVICE_TRAIN_SEED, DEVICE_TRAIN_PREFETCH, DEVICE_TRAIN_WARM = 0, 32, 2
+#: the device-pool trainer with the FPGA options in-step (as wb.fpga.train
+#: drives it over a mesh) at the FPGA_TRAIN_* model, data and quotas:
+#: bank masks from PixelBanks (2 x 2) and BankScheduler
+#: (:func:`bank_masks_fn`), clip 3, quantizer 32, integer thresholds, one
+#: call to 2 stages; its golden is made by the same script
+DEVICE_FPGA_TRAIN_GOLDEN = os.path.join(
+    ROOT, "tests", "data", "torch_port_device_fpga_train_golden.npz")
+DEVICE_FPGA_TRAIN_KW = dict(min_tp=FPGA_TRAIN_POOL, min_fp=FPGA_TRAIN_POOL,
+                            seed=0, max_depth=FPGA_TRAIN_DEPTH, clip=3,
+                            quantizer=32, integer_thresholds=True)
 
 
 def samples_digest(samples) -> str:
@@ -738,6 +791,322 @@ def train_golden_run(wt, dev, g, refit=()):
               f"{st['num_fp']}, tree and theta {theta!r} equal to JAX's "
               f"(fit {fit_ms[-1]:.1f} ms)")
     return fit_ms, pools
+
+
+def heap_stage_dict(tree, shape):
+    """The stage dict of a heap-layout tree ``(feature, threshold, left,
+    right, pred)`` (numpy), unreachable nodes pruned."""
+    from waldboost_tpu_torch.parallel.trainer import _dtree_from_fit
+    return _dtree_from_fit(tree, shape).to_stage_dict()
+
+
+def heap_tree_diff(tree, g, s, key="heap"):
+    """None when the heap tables ``tree`` (numpy) equal stage ``s``'s
+    ``key`` tree of the device-training golden ``g`` (features, children
+    and thresholds bitwise, predictions within 1e-5), else what
+    differs."""
+    for i, k in enumerate(("feature", "threshold", "left", "right")):
+        ref = g[f"s{s}_{key}_{k}"]
+        if not np.array_equal(tree[i], ref):
+            return f"{k}: {tree[i].tolist()} against {ref.tolist()}"
+    err = float(np.max(np.abs(tree[4] - g[f"s{s}_{key}_pred"])))
+    if not err <= 1e-5:
+        return f"pred differs by {err}"
+    return None
+
+
+def bank_masks_fn(banks, scheduler, scheduled):
+    """``feature_masks_fn`` of the FPGA device-training run: each stage's
+    (depth, F) mask allows one bank of ``banks`` (a ``PixelBanks``) per
+    depth, as ``scheduler`` (a ``BankScheduler``) schedules them; each
+    stage's banks are appended to ``scheduled``.  Takes the objects, so
+    that the golden script passes the JAX package's."""
+    depth = FPGA_TRAIN_DEPTH
+    F = int(np.prod(FPGA_TRAIN_SHAPE))
+
+    def masks_fn(stage):
+        mask = np.zeros((depth, F), bool)
+        scheduled.append(scheduler.schedule(depth))
+        for d, b in enumerate(scheduled[-1]):
+            mask[d, banks.bank_pixels(b)] = True
+        return mask
+    return masks_fn
+
+
+def check_bank_stages(model, banks, scheduled):
+    """The FPGA device-training run's invariants: integer thresholds,
+    leaves on the 1/32 grid within +-3, every split feature in its
+    depth's scheduled bank."""
+    m, n, C = model.shape
+    require(len(model) == len(scheduled),
+            "FPGA device training: a stage without its bank schedule")
+    for st, banks_s in zip(model.stages, scheduled):
+        thr, pred = st["threshold"], st["prediction"]
+        require(np.array_equal(thr, np.floor(thr))
+                and np.array_equal(pred * 32, np.round(pred * 32))
+                and np.abs(pred).max() <= 3,
+                "FPGA device training: a stage is not integer / "
+                "1/32-quantized")
+        node_depth = {0: 0}
+        for k in range(len(st["left"])):
+            if st["left"][k] < 0:
+                continue
+            d = node_depth[k]
+            node_depth[int(st["left"][k])] = node_depth[
+                int(st["right"][k])] = d + 1
+            r, c, ch = st["feature"][k]
+            require((r * n + c) * C + ch in set(banks.bank_pixels(
+                banks_s[d]).tolist()),
+                f"FPGA device training: node {k}'s feature is outside "
+                f"depth {d}'s bank {banks_s[d]}")
+
+
+def device_train_golden_run(wt, dev, g, fpga=False):
+    """The device-pool trainer on ``dev``, teacher-forced against the
+    device-training golden ``g``.  Config 4b (``fpga`` false):
+    ``train_sharded`` as bench.py runs it (the prefetched generator, a
+    warm call to ``DEVICE_TRAIN_WARM`` stages, then the rest, one
+    ``pools`` dict).  ``fpga``: one call at the ``FPGA_TRAIN_*`` settings
+    with ``DEVICE_FPGA_TRAIN_KW`` and :func:`bank_masks_fn`, and
+    :func:`check_bank_stages` at the end.
+
+    Each stage step is wrapped: the pools entering it (v, H, counts, the
+    digests of x), the model's mining counters and the step's inputs
+    (P0, P1, use_sprt, the feature mask; none where the golden has none)
+    are held to the golden bitwise;
+    the step's fit is held to the golden's fitted heap tree (``fit`` keys
+    where the golden has them, the tree before the FPGA transforms, else
+    ``heap``): features, children and thresholds bitwise, predictions
+    within 1e-5 (on a differing split both gains are printed, recomputed
+    in float64), and the golden tree is used in its place; then the
+    step's tree, theta, p0, p1, n0, n1 and the pruned masks are held
+    bitwise and the loss within 1e-6.  Returns the trained model and the
+    record generator, which goes on past the records the run took."""
+    import torch
+    from waldboost_tpu_torch.fpga.banks import BankScheduler, PixelBanks
+    from waldboost_tpu_torch.io import prefetch_iterable
+    from waldboost_tpu_torch.ops.fit import TreeFitResult
+    from waldboost_tpu_torch.parallel import train_step, trainer
+    from waldboost_tpu_torch.utils import fake_data_generator
+
+    n_stages = len(g["theta"])
+    if fpga:
+        shape, opts, depth = FPGA_TRAIN_SHAPE, FPGA_TRAIN_OPTS, \
+            FPGA_TRAIN_DEPTH
+        gen = fake_data_generator(seed=FPGA_TRAIN_SEED)
+        banks, scheduled = PixelBanks(shape, (2, 2)), []
+        kw = dict(DEVICE_FPGA_TRAIN_KW, feature_masks_fn=bank_masks_fn(
+            banks, BankScheduler(int(banks.n_banks)), scheduled))
+        lengths = (n_stages,)
+    else:
+        shape, opts, depth = TRAIN_SHAPE, TRAIN_OPTS, TRAIN_DEPTH
+        gen = prefetch_iterable(fake_data_generator(seed=TRAIN_SEED),
+                                depth=DEVICE_TRAIN_PREFETCH)
+        kw = dict(min_tp=TRAIN_POOL, min_fp=TRAIN_POOL,
+                  seed=DEVICE_TRAIN_SEED, pools={})
+        lengths = (DEVICE_TRAIN_WARM, n_stages)
+    fit_key = "fit" if "s0_fit_feature" in g else "heap"
+    model = wt.Model(shape, opts, device=dev)
+    m, n, C = shape
+    real_make, real_fit = trainer.make_train_step, train_step.fit_tree_complete
+    done = []
+
+    def host(t):
+        return t.cpu().numpy()
+
+    def forced_fit(s):
+        def fit(xf, y, w_split, w_pred, valid, **kwargs):
+            res = real_fit(xf, y, w_split, w_pred, valid, **kwargs)
+            got = tuple(host(t) for t in res)
+            diff = heap_tree_diff(got, g, s, fit_key)
+            if diff is not None:
+                ref = tuple(g[f"s{s}_{fit_key}_{k}"]
+                            for k in TreeFitResult._fields)
+                sel = [host(valid & (y == c)) for c in (0, 1)]
+                X = host(xf).reshape(-1, m, n, C)
+                W = host(w_pred)
+                pools = (X[sel[0]], W[sel[0]], X[sel[1]], W[sel[1]])
+                gains = [split_gains_f64(*pools, heap_stage_dict(t, shape))
+                         for t in (got, ref)]
+                print(f"device training stage {s}: split gains in float64, "
+                      f"port {gains[0]}, JAX {gains[1]}")
+            require(diff is None, f"device training stage {s}: the tree "
+                    f"differs from JAX's: {diff}")
+            return TreeFitResult(*(
+                torch.from_numpy(np.array(g[f"s{s}_{fit_key}_{k}"])).to(dev)
+                for k in TreeFitResult._fields))
+        return fit
+
+    def make(**kwargs):
+        step = real_make(**kwargs)
+
+        def checked(x0, H0, v0, x1, H1, v1, P0, P1, theta_in, use_sprt,
+                    fmask=None):
+            s = len(done)
+            require(s < n_stages, "device training: more stages than the "
+                    "golden holds")
+            cost = model.cost_stats()
+            pools_in = (host(v0), host(v1), host(H0), host(H1))
+            require(all(np.array_equal(a, g[f"s{s}_{k}"]) for a, k in zip(
+                        pools_in, ("v0", "v1", "H0", "H1")))
+                    and (int(pools_in[0].sum()), int(pools_in[1].sum()))
+                    == (g["n_fp"][s], g["n_tp"][s])
+                    and samples_digest(host(x0)) == str(g["digest_fp"][s])
+                    and samples_digest(host(x1)) == str(g["digest_tp"][s]),
+                    f"device training stage {s}: the pools differ from "
+                    f"JAX's")
+            require((cost["n_weak"], cost["n_loc"], cost["n_images"]) == (
+                g["n_weak"][s], g["n_loc"][s], g["n_images"][s]),
+                f"device training stage {s}: the model's counters differ "
+                f"from JAX's")
+            ref_mask = g.get(f"s{s}_fmask")
+            require(np.float32(P0) == g["P0"][s]
+                    and np.float32(P1) == g["P1"][s]
+                    and bool(use_sprt) == bool(g["use_sprt"][s])
+                    and (np.array_equal(np.asarray(fmask), ref_mask)
+                         if ref_mask is not None else
+                         fmask is None or np.all(fmask)),
+                    f"device training stage {s}: the step's inputs differ")
+            train_step.fit_tree_complete = forced_fit(s)
+            try:
+                res = step(x0, H0, v0, x1, H1, v1, P0, P1, theta_in,
+                           use_sprt, fmask)
+            finally:
+                train_step.fit_tree_complete = real_fit
+            got = {k: host(getattr(res, k)) for k in (
+                "theta", "p0", "p1", "n0", "n1", "loss")}
+            require(all(np.array_equal(host(t), g[f"s{s}_heap_{k}"])
+                        for k, t in res.tree._asdict().items()),
+                    f"device training stage {s}: the step's tree differs "
+                    f"from JAX's")
+            require(all(got[k] == g[k][s] for k in ("theta", "p0", "p1",
+                                                   "n0", "n1"))
+                    and np.array_equal(host(res.v0), g[f"s{s}_v0_out"])
+                    and np.array_equal(host(res.v1), g[f"s{s}_v1_out"]),
+                    f"device training stage {s}: theta, p0, p1, counts or "
+                    f"pruned pools {got} differ from JAX's")
+            require(abs(got["loss"] - g["loss"][s]) <= 1e-6 * g["loss"][s],
+                    f"device training stage {s}: loss {got['loss']!r} "
+                    f"against JAX's {g['loss'][s]!r}")
+            done.append(s)
+            print(f"device training stage {s}: pools fp {g['n_fp'][s]} tp "
+                  f"{g['n_tp'][s]} and tree equal to JAX's, theta "
+                  f"{float(got['theta'])!r}, pruned to {int(got['n0'])} / "
+                  f"{int(got['n1'])}")
+            return res
+        return checked
+
+    trainer.make_train_step = make
+    try:
+        learner = wt.Learner(alpha=TRAIN_ALPHA, max_depth=depth)
+        for length in lengths:
+            trainer.train_sharded(model, gen, learner=learner, length=length,
+                                  **kw)
+    finally:
+        trainer.make_train_step = real_make
+    require(len(done) == len(model) == n_stages,
+            "device training: not every stage ran")
+    for s, (stage, theta) in enumerate(model):
+        ref = golden_tree(g, s)
+        require(all(np.array_equal(stage[k], ref[k]) for k in ref)
+                and theta == float(g["theta"][s]),
+                f"device training stage {s}: the appended tree or theta "
+                f"differs from JAX's")
+    if fpga:
+        check_bank_stages(model, banks, scheduled)
+    return model, gen
+
+
+def pyramid_checks(wt, dev, frames, model, other):
+    """On each frame: ``channel_pyramid`` on ``dev`` equals its CPU run
+    bitwise (``model``'s channel options); ``model.scan_channels``'
+    survivors and scores equal ``model.scan_packed``'s, level by level;
+    ``wt.detect`` over ``model`` and ``other`` (other channel options)
+    equals the per-level loop run on the CPU.  Returns the levels,
+    survivors and mixed-detect boxes per frame."""
+    from waldboost_tpu_torch.channels import channel_pyramid
+
+    def on_cpu(mm):
+        return wt.model_from_stages(mm.shape, mm.channel_opts, mm.stages,
+                                    mm.theta, device="cpu")
+
+    cpu_pair = [on_cpu(model), on_cpu(other)]
+    out = []
+    for i, frame in enumerate(frames):
+        got = list(channel_pyramid(frame, model.channel_opts, device=dev))
+        want = list(channel_pyramid(frame, model.channel_opts,
+                                    device="cpu"))
+        require(len(got) == len(want) > 0 and all(
+            sa == sb and np.array_equal(a, b)
+            for (a, sa), (b, sb) in zip(got, want)),
+            f"pyramid frame {i}: channel_pyramid on the card differs from "
+            f"the CPU's")
+        _, packed, rs, cs, hs = model.scan_packed(frame)
+        lid = packed.level_maps(model.shape[:2])[0][rs, cs]
+        where = {pl.plan_index: (li, pl) for li, pl in
+                 enumerate(packed.levels)}
+        n_surv = 0
+        for pi, (_, _, (r, c, h)) in enumerate(model.scan_channels(frame)):
+            if pi in where:
+                li, pl = where[pi]
+                sel = lid == li
+                ref = (rs[sel] - pl.y, cs[sel] - pl.x, hs[sel])
+            else:
+                ref = (np.empty(0, np.int64),) * 2 + (
+                    np.empty(0, np.float32),)
+            require(all(np.array_equal(a, b) for a, b in zip((r, c, h),
+                                                             ref)),
+                    f"pyramid frame {i} level {pi}: scan_channels differs "
+                    f"from scan_packed")
+            n_surv += len(r)
+        mixed = wt.detect(frame, model, other, response_scale=[1, 0.5])
+        ref = wt.detect(frame, *cpu_pair, response_scale=[1, 0.5])
+        require(np.array_equal(box_rows(mixed, "scores", "label"),
+                               box_rows(ref, "scores", "label")),
+                f"pyramid frame {i}: mixed-option wt.detect differs from "
+                f"the per-level loop on the CPU")
+        out.append((len(got), n_surv, len(mixed)))
+    return out
+
+
+def stage_memcpy(trace, window):
+    """Per ``window`` span of a Chrome trace (in time order): the bytes of
+    the device copies launched inside it, host-to-device and
+    device-to-host, its largest single copy, and whether it mined (holds a
+    ``wb.train.mine`` span).  A copy's size is its ``bytes`` argument, or
+    its bandwidth times its duration where the trace has no such field."""
+    ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in ev
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    spans = [e for e in ev if e.get("cat") == "user_annotation"]
+    copies = []
+    for e in ev:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        a = e.get("args", {})
+        size = a.get("bytes")
+        if size is None:
+            size = a.get("memory bandwidth (GB/s)", 0.0) * e["dur"] * 1e3
+        kind = ("h2d" if "HtoD" in e["name"] else
+                "d2h" if "DtoH" in e["name"] else "d2d")
+        copies.append((launch_ts.get(a.get("correlation")), kind,
+                       int(size)))
+    out = []
+    for w in sorted((e for e in spans if e["name"] == window),
+                    key=lambda e: e["ts"]):
+        w0, w1 = w["ts"], w["ts"] + w["dur"]
+        rec = {"h2d": 0, "d2h": 0, "d2d": 0, "largest": 0,
+               "mined": any(e["name"] == "wb.train.mine"
+                            and w0 <= e["ts"] <= w1 for e in spans)}
+        for lt, kind, size in copies:
+            if lt is not None and w0 <= lt <= w1:
+                rec[kind] += size
+                if kind != "d2d":
+                    rec["largest"] = max(rec["largest"], size)
+        out.append(rec)
+    n_unmatched = sum(lt is None for lt, _, _ in copies)
+    return out, n_unmatched
 
 
 def main():
@@ -1429,6 +1798,71 @@ def main():
           f"{[st['threshold'].tolist() for st in fmodel.stages]}; save, "
           f"load, detect: {len(after)} boxes, equal")
 
+    # -- phase 6w: the device-pool trainer (config 4b), teacher-forced ------
+    zero_counters()
+    wmodel, wgen = device_train_golden_run(wt, dev,
+                                           np.load(DEVICE_TRAIN_GOLDEN))
+    torch.cuda.synchronize()
+    wl = read_counters()
+    require(all(wl[k] > 0 for k in ("planes", "grad_hist", "cascade_generic")),
+            f"phase 6w: config 4b's mining did not run B1, B2 and B6 ({wl})")
+    print(f"phase 6w: config 4b {len(wmodel)} stages equal to JAX's, "
+          f"launches {wl}")
+    # config 4b's mining shapes (a batch of 8 of its 256 x 256 frames, the
+    # trained model's tables): B1, B2 and B6 against their plain versions
+    # over the whole canvas and grid; the canvas is the one
+    # Model.scan_packed_batch mines
+    wframes = np.stack([next(wgen)["image"] for _ in range(BATCH)])
+    wpacked, wsmooth, wcf = wmodel._plan(wframes.shape[1:])
+    wstep = channel_canvas(wpacked, wframes.shape[1:], wsmooth, wcf, dev)
+    woct = wstep.octaves(torch.from_numpy(wframes).to(dev))
+    wplanes = wstep.planes(woct)
+    check_phase("planes", f"planes config 4b {wframes.shape[1:]} batch "
+                f"{BATCH}", [wplanes], [plane_mod.planes_plain(
+                    woct, wstep.plane_ops)])
+    wcanvas = wstep.channels(wplanes)
+    check_phase("grad_hist", f"grad_hist smooth={wsmooth} config 4b batch "
+                f"{BATCH}", [wcanvas],
+                [chan_mod.grad_hist_plain(wplanes, wstep.interior,
+                                          wstep.smooth)])
+    _, wgrid, mined = wmodel._scan_setup(wframes)
+    require(torch.equal(mined, wcanvas),
+            "phase 6w: the mining canvas is not the checked one")
+    wtab = wmodel._get_cascade()[0]
+    check_phase("cascade_generic", f"cascade_generic config 4b "
+                f"({len(wmodel)} stages in {wtab.n_stages}) batch {BATCH}",
+                gen_mod.cascade_response_grid(wcanvas, wtab,
+                                              wmodel.shape[:2], wgrid.valid),
+                gen_mod.cascade_response_grid_plain(
+                    wcanvas, wtab, wmodel.shape[:2], wgrid.valid))
+    del wmodel, woct, wplanes, wcanvas, mined
+    # the FPGA options in-step (bank masks, clip, quantizer, integer
+    # thresholds), teacher-forced against their own golden; mining runs B5
+    zero_counters()
+    fdmodel, _ = device_train_golden_run(
+        wt, dev, np.load(DEVICE_FPGA_TRAIN_GOLDEN), fpga=True)
+    torch.cuda.synchronize()
+    fdl = read_counters()
+    require(all(fdl[k] > 0 for k in ("planes", "fpga", "cascade_generic")),
+            f"phase 6w: FPGA device training did not run B1, B5 and B6 "
+            f"({fdl})")
+    print(f"phase 6w: FPGA device training {len(fdmodel)} stages equal to "
+          f"JAX's, integer thresholds "
+          f"{[st['threshold'].tolist() for st in fdmodel.stages]}, features "
+          f"in their banks; launches {fdl}")
+    # the per-level pyramid on the golden frames (synth_64's options), and
+    # wt.detect over synth_64 and hard_64 moved to n_per_oct 4
+    hard64 = models["flagship_hard_64"]
+    other = wt.model_from_stages(hard64.shape, dict(hard64.channel_opts,
+                                                    n_per_oct=4),
+                                 hard64.stages, hard64.theta, device=dev)
+    t = time.perf_counter()
+    pyr = pyramid_checks(wt, dev, gframes, synth, other)
+    print(f"phase 6w: pyramid on {len(gframes)} frames (levels, "
+          f"scan_channels survivors, mixed wt.detect boxes) {pyr}: card "
+          f"equals CPU, scan_channels equals scan_packed "
+          f"({time.perf_counter() - t:.1f} s)")
+
     # -- phase 5: timing and the host --------------------------------------
     def metric(name, value, unit):
         print(json.dumps({"metric": name, "value": value, "unit": unit,
@@ -1716,6 +2150,42 @@ def main():
           f"{tl['planes'] / 6}, B2 {tl['grad_hist'] / 6}, B6 "
           f"{tl['cascade_generic'] / 6}; fpr "
           f"{tlearner.false_positive_rate:.5f}")
+    config4_rate = 6 / dt * 60.0
+
+    # config 4b as bench.py times it (bench_train_loop_device_pool): a warm
+    # call to 2 stages, then 12 timed stages (host clock; a callback stamps
+    # each stage's end), one pools dict
+    from waldboost_tpu_torch.io import prefetch_iterable
+    from waldboost_tpu_torch.parallel.trainer import train_sharded
+    bmodel = wt.Model(TRAIN_SHAPE, TRAIN_OPTS, device=dev)
+    bgen = prefetch_iterable(fake_data_generator(seed=TRAIN_SEED),
+                             depth=DEVICE_TRAIN_PREFETCH)
+    blearner = wt.Learner(alpha=TRAIN_ALPHA, max_depth=TRAIN_DEPTH)
+    bpools = {}
+
+    def train_b(length, **kw):
+        train_sharded(bmodel, bgen, learner=blearner, length=length,
+                      min_tp=TRAIN_POOL, min_fp=TRAIN_POOL,
+                      seed=DEVICE_TRAIN_SEED, pools=bpools, **kw)
+        torch.cuda.synchronize()
+
+    train_b(DEVICE_TRAIN_WARM)
+    stamps = []
+    zero_counters()
+    t = time.perf_counter()
+    train_b(DEVICE_TRAIN_WARM + 12,
+            callbacks=[lambda *a: stamps.append(time.perf_counter())])
+    dt = time.perf_counter() - t
+    per_stage = np.diff([t] + stamps) * 1e3
+    bl = read_counters()
+    metric("train_config4b_stages_per_min", 12 / dt * 60.0, "stages/min")
+    print(f"config 4b timed stages 2-13 ({card}): "
+          f"{per_stage.round(3).tolist()} ms; launches per stage: B1 "
+          f"{bl['planes'] / 12}, B2 {bl['grad_hist'] / 12}, B6 "
+          f"{bl['cascade_generic'] / 12}; fpr "
+          f"{blearner.false_positive_rate:.5f}")
+    print(f"training ({card}): config 4b {12 / dt * 60.0:.1f} stages/min, "
+          f"config 4 {config4_rate:.1f} stages/min in the same run")
 
     per_frame("model_detect_synth64", synth.detect)
     per_frame("model_detect_hard256", hard256.detect)
@@ -1801,6 +2271,53 @@ def main():
     for i, split in enumerate(stage_splits(trace, "smoke.stage")[:6]):
         print(f"train stage {8 + i} split (host ms, {card}): " + ", ".join(
             f"{k} {v:.3f}" for k, v in split.items()))
+
+    # config 4b: 6 more stages traced in one train_sharded call, stage
+    # spans as above; the bytes each stage copies each way
+    b0 = len(bmodel)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.window"):
+            next_stage()
+            train_b(b0 + 6, callbacks=[next_stage])
+            stage_span.pop().__exit__(None, None, None)
+    path = os.path.join(trace_dir, "train_config4b.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    if args.trace_dir is None:
+        os.remove(path)
+    bd = trace_breakdown(trace, "smoke.window")
+    print(f"trace train_config4b ({card}): 6 stages in "
+          f"{bd['window_ms']:.3f} ms, device busy "
+          f"{bd['device_busy_ms']:.3f} ms ({bd['n_device_events']} device "
+          f"events)")
+    for layer, t in bd["layers"].items():
+        print(f"  {layer}: host {t['host_ms']:.3f} ms, device "
+              f"{t['device_ms']:.3f} ms")
+    require(bd["n_device_events"] > 0, "config 4b: the profiler recorded no "
+            "device events")
+    metric("train_config4b_device_idle_share", bd["device_idle_share"], "1")
+    for i, split in enumerate(stage_splits(trace, "smoke.stage")[:6]):
+        print(f"train 4b stage {b0 + i} split (host ms, {card}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    copies, n_unmatched = stage_memcpy(trace, "smoke.stage")
+    x_bytes = 2048 * TRAIN_SHAPE[0] * TRAIN_SHAPE[1] * TRAIN_SHAPE[2] * 4
+    for i, rec in enumerate(copies[:6]):
+        print(f"train 4b stage {b0 + i} copies ({card}): host-to-device "
+              f"{rec['h2d']} B, device-to-host {rec['d2h']} B, on the "
+              f"device {rec['d2d']} B, largest {rec['largest']} B"
+              + (", mined" if rec["mined"] else ""))
+        require(rec["largest"] < x_bytes,
+                f"config 4b stage {b0 + i}: a pool's samples crossed")
+        if not rec["mined"]:
+            require(rec["d2h"] <= 256 * 1024 and rec["h2d"] <= 64 * 1024,
+                    f"config 4b stage {b0 + i} (no mining) copied more than "
+                    f"256 KB to the host or 64 KB to the device")
+    require(len(copies) >= 6 and any(not r["mined"] for r in copies[:6]),
+            "config 4b: the trace holds no stage without mining")
+    print(f"trace train_config4b: {n_unmatched} copies not matched to a "
+          f"launch")
     if args.trace_dir is None:
         os.rmdir(trace_dir)
 

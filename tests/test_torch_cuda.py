@@ -33,8 +33,10 @@ FLAGSHIP = os.path.join(ROOT, "models", "flagship_synth_64.pb")
 HARD256 = os.path.join(ROOT, "models", "flagship_hard_256.pb")
 
 sys.path.insert(0, ROOT)
-from chip_smoke import (FPGA_TRAIN_GOLDEN, TRAIN_DEPTH,  # noqa: E402
-                        TRAIN_GOLDEN, fpga_train_golden_run,
+from chip_smoke import (DEVICE_FPGA_TRAIN_GOLDEN,  # noqa: E402
+                        DEVICE_TRAIN_GOLDEN, FPGA_TRAIN_GOLDEN, TRAIN_DEPTH,
+                        TRAIN_GOLDEN,
+                        device_train_golden_run, fpga_train_golden_run,
                         random_deep_stage, train_golden_run, tree_diff)
 
 pytestmark = pytest.mark.cuda
@@ -579,3 +581,30 @@ def test_fpga_train_golden_on_card(cuda):
     stats of both stages."""
     model, _ = fpga_train_golden_run(wt, cuda, np.load(FPGA_TRAIN_GOLDEN))
     assert len(model) == 2 and model.device.type == "cuda"
+
+
+def test_device_train_golden_on_card(cuda):
+    """The device-pool trainer (config 4b) on the card, teacher-forced
+    against the JAX golden (chip_smoke.py phase 6w): pools, counters,
+    trees, thetas, p0/p1, counts and pruned pools of all 6 stages; then the
+    FPGA options in-step against their own golden."""
+    model, _ = device_train_golden_run(wt, cuda,
+                                       np.load(DEVICE_TRAIN_GOLDEN))
+    assert len(model) == 6 and model.device.type == "cuda"
+    model, _ = device_train_golden_run(
+        wt, cuda, np.load(DEVICE_FPGA_TRAIN_GOLDEN), fpga=True)
+    assert len(model) == 2 and model.device.type == "cuda"
+
+
+@pytest.mark.parametrize("channels,smooth", [("grad_hist", 1),
+                                             ("grad_hist_4_u1", 0)])
+def test_channel_pyramid_on_card_matches_cpu(cuda, channels, smooth):
+    """channel_pyramid on the card (B1 and B2 or B5) equals its plain run
+    on the CPU bitwise, every level of a VGA frame."""
+    img = _frames(1, (480, 640), seed=6)[0].numpy()
+    opts = dict(shrink=2, n_per_oct=8, smooth=smooth, channels=channels)
+    got = list(tch.channel_pyramid(img, opts, device=cuda))
+    want = list(tch.channel_pyramid(img, opts, device="cpu"))
+    assert len(got) == len(want) > 30
+    for (a, sa), (b, sb) in zip(got, want):
+        assert sa == sb and np.array_equal(a, b)

@@ -110,7 +110,14 @@ def test_multi_model_errors():
     other = wt.model_from_stages((8, 8, 4), dict(tms[0].channel_opts,
                                                  n_per_oct=4),
                                  tms[0].stages, tms[0].theta, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        wt.detect(img, tms[0], other)
+    # models with other channel options: the per-level pyramid of the
+    # first model's options, each model on every level, as JAX does
+    jother = wb.Model((8, 8, 4), dict(jms[0].channel_opts, n_per_oct=4))
+    for weak, theta in jms[0]:
+        jother.append(weak, theta)
+    mixed = wt.detect(img, tms[0], other, response_scale=[1.0, 0.5])
+    want = wb.detect(img, jms[0], jother, response_scale=[1.0, 0.5])
+    assert set(mixed.get_field("label")) == {0, 1}
+    np.testing.assert_array_equal(_label_rows(mixed), _label_rows(want))
     with pytest.raises(ValueError, match="channel options"):
         wt.make_multi_detector_boxes([tms[0], other], (48, 64), device="cpu")

@@ -32,8 +32,9 @@ import numpy as np
 from . import boxes as bbx  # noqa: F401  (host box lists)
 from . import fpga, groundtruth, testing, utils  # noqa: F401
 from .boxes import Boxes
-from .channels import _normalize_opts
+from .channels import _normalize_opts, channel_pyramid
 from .convert import model_from_stages
+from .device import no_mesh as _no_mesh
 from .model import Model, detect_multi, load
 from .parallel.detect import (detect_batch, make_batched_detector,
                               make_batched_detector_boxes,
@@ -60,10 +61,12 @@ save = save_model
 
 def detect(image: np.ndarray, *models: Model, channel_opts: dict = None,
            response_scale=None, device=None) -> Boxes:
-    """Detect with several models over one shared channel pyramid: boxes
-    with 'scores' (scaled per model by ``response_scale``) and 'label'
-    (the emitting model's index) fields, before NMS.  Runs on ``device``
-    (the first model's when None)."""
+    """Detect with several models: boxes with 'scores' (scaled per model
+    by ``response_scale``) and 'label' (the emitting model's index)
+    fields, before NMS.  Models that share channel options scan one
+    packed canvas (:func:`detect_multi`); otherwise every model scans each
+    level of ``channel_opts``' pyramid (the first model's when None).
+    Runs on ``device`` (the first model's when None)."""
     channel_opts = channel_opts or models[0].channel_opts
     if response_scale is None:
         response_scale = [1] * len(models)
@@ -71,13 +74,21 @@ def detect(image: np.ndarray, *models: Model, channel_opts: dict = None,
     if response_scale.size != len(models):
         raise ValueError("Wrong response_scale parameter")
     opts_key = _normalize_opts(channel_opts)
-    if not all(_normalize_opts(m.channel_opts) == opts_key for m in models):
-        raise NotImplementedError(
-            "models with different channel options need the per-level "
-            "channel pyramid (channels.channel_pyramid), which is not ported "
-            "yet (ROADMAP item A9)")
-    return detect_multi(models, image, response_scale=response_scale,
-                        device=device)
+    if all(_normalize_opts(m.channel_opts) == opts_key for m in models):
+        return detect_multi(models, image, response_scale=response_scale,
+                            device=device)
+    dev = models[0]._device_for(device)
+    dt_boxes = []
+    for chns, scale in channel_pyramid(image, channel_opts, device=dev):
+        for k, model in enumerate(models):
+            r, c, h = model.predict_on_image(chns)
+            if r.size == 0:
+                continue
+            b = model.get_boxes(r, c, scale)
+            b.set_field("scores", h * response_scale[k])
+            b.set_field("label", np.full(r.size, k, dtype=np.int64))
+            dt_boxes.append(b)
+    return bbx.concatenate(dt_boxes, ["scores", "label"])
 
 
 def train_softcascade(shape, channel_opts, length, training_images,
@@ -135,9 +146,7 @@ def train(model: Model,
     consumed are handed back to the next ``train`` call on the same
     iterable, so a resumed run sees the frames it would have seen.
     """
-    if mesh is not None:
-        raise NotImplementedError("sharded training (mesh) is not ported "
-                                  "yet (ROADMAP item A11)")
+    _no_mesh(mesh, "training")
     return _train_loop(model, training_images, learner, pool, length,
                        theta_schedule, callbacks,
                        logger or logging.getLogger("Training"), prefetch)

@@ -14,13 +14,15 @@ from __future__ import annotations
 import dataclasses
 import functools
 import importlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["ChannelFunction", "Level", "grad_hist", "pyramid_plan",
            "register_channel_function", "resolve_channel_function",
-           "compose_channel_functions", "octave_chain", "octave_chain_f32"]
+           "compose_channel_functions", "octave_chain", "octave_chain_f32",
+           "channel_pyramid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,3 +198,38 @@ def octave_chain_f32(images: torch.Tensor,
         tr, br = x[:, 0::2, 1::2], x[:, 1::2, 1::2]
         octaves.append(((((tl + bl) + tr) + br) / 4).contiguous())
     return octaves
+
+
+def channel_pyramid(image, channel_opts: dict, device=None
+                    ) -> Iterator[Tuple[np.ndarray, float]]:
+    """``(chns, scale)`` for each level of :func:`pyramid_plan`, in plan
+    order: the level's (out_height, out_width, C) channels as numpy.
+
+    ``image`` is a 2-D uint8 array.  The levels are cut out of one packed
+    channel canvas of every level (a plan for a 0 x 0 window), made on
+    ``device`` (the card when None) and copied to the host once.  The
+    FPGA family's integer channels come as uint8, as the JAX package
+    gives them; grad_hist's as float32.
+    """
+    from .canvas import as_image, channel_canvas, serving_opts
+    from .device import resolve_device
+    from .packing import _packed_plan_cached
+
+    image = as_image(image)
+    cf = _normalize_opts(channel_opts)[3]
+    shrink, n_per_oct, smooth, cf = serving_opts(channel_opts, cf.n_channels)
+    h, w = image.shape
+    packed = _packed_plan_cached(h, w, shrink, n_per_oct, (0, 0),
+                                 halo=cf.halo)
+    if not packed.levels:
+        return
+    dev = resolve_device(device)
+    step = channel_canvas(packed, (h, w), smooth, cf, dev)
+    canvas = step(torch.from_numpy(np.ascontiguousarray(image[None])).to(
+        dev))[0].cpu().numpy()
+    if cf.fused_kind is not None:
+        canvas = canvas.astype(np.uint8)
+    for pl in packed.levels:
+        lv = pl.level
+        chns = canvas[:, pl.y:pl.y + lv.out_height, pl.x:pl.x + lv.out_width]
+        yield np.ascontiguousarray(chns.transpose(1, 2, 0)), lv.scale

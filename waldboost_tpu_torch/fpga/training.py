@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import logging
 
+from ..device import no_mesh
 from ..samples import SamplePool
 from ..training import DTree as BaseDTree, Learner
 
@@ -64,9 +65,7 @@ def train(model,
     """
     from .. import _train_loop
 
-    if mesh is not None:
-        raise NotImplementedError("sharded training (mesh) is not ported "
-                                  "yet (ROADMAP item A11)")
+    no_mesh(mesh, "training")
     log = logger_ or logging.getLogger("WaldBoost/FPGA")
 
     if len(model) >= length:

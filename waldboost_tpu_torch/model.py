@@ -25,8 +25,9 @@ The detection paths:
   A13); it returns the same survivors, scores and n_weak whenever it does
   not overflow, and falls back to the dense path when it does.  The port
   runs the dense path always.
-* ``scan_packed``, ``scan_packed_batch`` and ``predict_on_image``: kernel
-  B6 over the padded runtime tables of :meth:`Model._get_cascade`;
+* ``scan_packed``, ``scan_packed_batch``, ``predict_on_image`` and
+  ``scan_channels`` (per level, over ``channels``' pyramid): kernel B6
+  over the padded runtime tables of :meth:`Model._get_cascade`;
   ``scan_packed_batch`` is training's mining scan, and
   ``gather_windows_device`` crops windows of a frame's canvas on the
   device.
@@ -46,7 +47,7 @@ from . import boxes as bbx
 from . import model_io
 from .boxes import Boxes
 from .canvas import as_image, channel_canvas, serving_opts, window_grid
-from .channels import (ChannelFunction, _normalize_opts,
+from .channels import (ChannelFunction, _normalize_opts, channel_pyramid,
                        resolve_channel_function)
 from .device import resolve_device
 from .mining import gather_windows
@@ -386,6 +387,21 @@ class Model:
         hs, alive, n_weak = cascade_response_grid(chw, casc, (m, n))
         self._track_cost(int(n_weak), gu * gv)
         return _survivors(hs, alive)
+
+    def channels(self, image):
+        """``(chns, scale)`` for each level of the channel pyramid of
+        ``image``, HWC numpy (:func:`~waldboost_tpu_torch.channels.
+        channel_pyramid` on the model's device)."""
+        yield from channel_pyramid(image, self.channel_opts,
+                                   device=self.device)
+
+    def scan_channels(self, image):
+        """``(chns, scale, (rs, cs, hs))`` for each pyramid level: the
+        level's channels and the survivors of :meth:`predict_on_image`
+        (kernel B6 on the card) over its window origins.  Tracks the
+        eval-cost counters."""
+        for chns, scale in self.channels(image):
+            yield chns, scale, self.predict_on_image(chns)
 
     def scan_packed(self, image):
         """One pass over the packed pyramid with kernel B6: ``(canvas,

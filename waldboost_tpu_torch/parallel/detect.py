@@ -37,6 +37,7 @@ import torch
 from ..boxes import Boxes
 from ..canvas import (as_image, channel_canvas, serving_opts, span,
                       window_grid)
+from ..device import no_mesh
 from ..model import Model, shared_plan
 from ..ops.cascade_static import cascade_masked, cascade_response
 from ..ops.nms import extract_detections, nms
@@ -45,12 +46,6 @@ from ..packing import PackedPyramidPlan
 __all__ = ["BatchedDetector", "make_batched_detector",
            "make_batched_detector_boxes", "make_multi_detector_boxes",
            "detect_batch", "span"]
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh serving is not ported yet "
-                                  "(ROADMAP item A11)")
 
 
 def _check_images(images, image_shape, device, floats: bool = False) -> int:
@@ -145,7 +140,7 @@ def make_batched_detector(model: Model, image_shape: Tuple[int, int],
     the packed canvas (kernels B1, B2 or B5, B4; with ``fast``, B2f and B4
     over the bfloat16 canvas, and float32 frames, as in
     :func:`make_batched_detector_boxes`).  Returns ``(fn, packed)``."""
-    _no_mesh(mesh)
+    no_mesh(mesh, "serving")
     h, w = (int(s) for s in image_shape)
     dev = model._device_for(device)
     packed, smooth, cf = model._plan((h, w))
@@ -193,7 +188,7 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
     JAX's fast mode's, not the exact path's.  FPGA models have no fast
     variant: they serve uint8 frames as in exact mode.
     """
-    _no_mesh(mesh)
+    no_mesh(mesh, "serving")
     if two_phase:
         raise NotImplementedError("two-phase serving is not ported yet "
                                   "(ROADMAP item A13)")
@@ -231,7 +226,7 @@ def make_multi_detector_boxes(models: Sequence[Model],
     survivor counts (-1 past ``k``) and (B,) int32.  Runs on ``device``
     (the first model's when None).  ``fast`` and ``fast_float`` as in
     :func:`make_batched_detector_boxes` (B2f, B3f)."""
-    _no_mesh(mesh)
+    no_mesh(mesh, "serving")
     if response_scale is None:
         response_scale = [1.0] * len(models)
     if len(response_scale) != len(models):
