@@ -6,12 +6,13 @@ smooth 1, grad_hist) with the committed models and its BASELINE config-5
 path on 3840x2160 frames (FPGA integer channels grad_hist_4_u1+grad_mag_u1,
 C = 5, shrink 2, n_per_oct 4, smooth 0 and 1, the committed
 models/fpga_4k_*synth_64.pb), its fast serving mode on VGA uint8 and
-float32 frames, its host-pool training loop (BASELINE config 4), the
+float32 frames, exact float32 frames, bucketed serving at any frame size
+(BucketedDetector), its host-pool training loop (BASELINE config 4), the
 FPGA trainer, the device-pool trainer (BASELINE config 4b) and the
-per-level channel pyramid, and checks and times its eight CUDA kernels
+per-level channel pyramid, and checks and times its nine CUDA kernels
 (planes B1,
 grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
-B6, grad_hist_fast B2f, cascade_fast B3f):
+B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
 
  1. prints torch/CUDA versions and the card's name and power limit;
  2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
@@ -42,6 +43,11 @@ B6, grad_hist_fast B2f, cascade_fast B3f):
     starting one element off a word; B3f (the kernel always counts
     n_weak, which is compared too) with flagship_synth_64 and
     flagship_hard_256 on the VGA bfloat16 canvases, and B4 over one;
+ 3d. B2d against its plain version, bitwise (both native f64): at VGA
+    batch 8 on the exact float planes of float noise frames and of the
+    golden scenes as float32, smooth 0 and 1, each into an output
+    pre-filled with NaN; and at 3b's small odd shapes with planes and mask
+    also starting one element off a word;
  4. serving path (slice 1): make_batched_detector_boxes(k=1024,
     nms_iou=0.5) on the 3 golden scene frames with every launch counter
     set to 0 first: survivor counts, kept boxes and scores equal the
@@ -78,6 +84,22 @@ B6, grad_hist_fast B2f, cascade_fast B3f):
     noise frames of tests/data/torch_port_fpga_golden.npz; counters read
     (B1, B5, B3, B4 must have launched), then counts, n_weak, alive counts,
     kept boxes and scores checked against that file bitwise;
+ 5c. bucketed serving: BucketedDetector(flagship_synth_64, bucket=128,
+    k=1024, nms_iou=0.5) on the four frames of
+    tests/data/torch_port_bucket_golden.npz (640x480, 600x448 and 576x432
+    in one bucket, 1280x720 in another), the counters set to 0 first:
+    two set-ups, B1, B2 and B3 launched, counts, kept boxes and scores
+    bitwise JAX's BucketedDetector, every survivor of a k=8192 bucketed
+    detector equal to the card's Model.detect at the true size; B1 (into a
+    0xAB-filled buffer), B2 and B3 against their plain versions on a
+    bucket's per-size tables; fast mode on uint8 frames runs B2 and B3f,
+    never B2f; the config-5 smooth-1 model's golden prefix at 1920x1080
+    and 1904x1072 (one bucket) equal to its Model.detect, B1, B5 and B3
+    launched and held against their plain versions on the bucket's tables;
+ 5d. exact float serving: the golden scene frames as float32 through the
+    VGA detector (k=1024, NMS 0.5) with the counters set to 0 first: B2d
+    and B3 launched, no B1, B2 or B2f; counts, kept boxes and scores and
+    Model.detect's survivors bitwise tests/data/torch_port_float_golden.npz;
  6t. BASELINE config 4 (host-pool training: 12x12x4 grad_hist, shrink 2,
     n_per_oct 4, smooth 1, fake_data_generator(seed=11), pool 1000/1000,
     alpha 0.2, depth 2), teacher-forced against the JAX golden
@@ -137,7 +159,13 @@ B6, grad_hist_fast B2f, cascade_fast B3f):
     40-stage depth-5 model (GENERAL node records); B2f on each plane type
     and B3f at VGA; fast serving end to end (30 batches per workload:
     uint8 noise k=128 and scenes k=1024, float32 noise with f32 and bf16
-    planes, k=128); at config 5: B5
+    planes, k=128); B2d at VGA (float noise planes, smooth 1), the float64
+    plane build alone, exact float serving end to end (float noise k=128,
+    float scenes k=1024; 30 batches each); bucketed serving over a mixed
+    stream (8 frames of each of the bucket golden's four sizes per
+    detect_many, 5 calls, MP/s); the first sight of 5 novel sizes (host
+    ms of the first and second call: Model.detect, which runs the packer,
+    against BucketedDetector, which builds tables only); at config 5: B5
     (smooth 0, 1), B3 and B4 (C = 5) and B1 (halo 0) against their plain
     versions and bounds; at 1080p B1 and B2 (smooth 1 and 0) likewise; the
     serving path end to end (k=128, NMS 0.5, smooth 0 and 1, MP/s with
@@ -159,7 +187,8 @@ B6, grad_hist_fast B2f, cascade_fast B3f):
     KB to the host and 64 KB to the device, and no copy is as large as a
     pool's samples (2048 x 576 float32);
  8. prints the per-kernel JSON summary (launches from the Model-API path,
-    B5's from the config-5 path, B2f's and B3f's from the fast path,
+    B5's from the config-5 path, B2f's and B3f's from the fast path, B2d's
+    from the exact float path,
     max_abs_err, ms, plain_ms, bound_ms from this run's shapes), then the
     final ok line.
 
@@ -224,10 +253,27 @@ KERNELS = {
                      "cascade_fast_launches",
                      "waldboost_tpu_torch/csrc/cascade.cu",
                      "waldboost_tpu/ops/cascade_static.py:764 (fast=True)"),
+    "grad_hist_float": ("waldboost_tpu_torch.ops.channels",
+                        "grad_hist_float_launches",
+                        "waldboost_tpu_torch/csrc/grad_hist.cu",
+                        "waldboost_tpu/ops/channels_pallas.py:405 (float_dd, "
+                        ":373)"),
 }
 #: the fast serving mode's golden (scripts/make_torch_fast_golden.py)
 FAST_GOLDEN = os.path.join(ROOT, "tests", "data",
                            "torch_port_fast_golden.npz")
+#: bucketed serving's and exact float frames' goldens
+#: (scripts/make_torch_bucket_golden.py)
+BUCKET_GOLDEN = os.path.join(ROOT, "tests", "data",
+                             "torch_port_bucket_golden.npz")
+FLOAT_GOLDEN = os.path.join(ROOT, "tests", "data",
+                            "torch_port_float_golden.npz")
+#: (h, w) of the bucket golden's frames: three in one bucket, one apart
+BUCKET_SIZES = ((480, 640), (448, 600), (432, 576), (720, 1280))
+#: frame sizes no path has seen before the first-sight timing
+NOVEL_SIZES = ((470, 630), (462, 618), (452, 606), (444, 596), (436, 580))
+#: the FPGA bucket check: two 1080p-class sizes of one bucket
+FPGA_BUCKET_SIZES = ((1080, 1920), (1072, 1904))
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (and the
 #: integer work counted with it) and float64 operations/s outside the
@@ -1134,6 +1180,7 @@ def main():
     from waldboost_tpu_torch.ops import fpga as fpga_mod
     from waldboost_tpu_torch.ops import planes as plane_mod
     from waldboost_tpu_torch.ops.nms import extract_detections
+    from waldboost_tpu_torch.parallel.detect import BucketedDetector
     from waldboost_tpu_torch.polyphase import META_COLS
     from waldboost_tpu_torch.utils import fake_data_generator
     counters = {name: (importlib.import_module(mod), attr)
@@ -1435,6 +1482,50 @@ def main():
                         casc_mod.cascade_response_plain(fcv, grid.valid, ops,
                                                         cap))
 
+    # -- phase 3d: B2d against its plain version ----------------------------
+    # on the exact float planes (the canvas step's float64 build) of float
+    # noise frames and of the golden scenes as float32, at VGA batch 8,
+    # smooth 0 and 1, each into an output pre-filled with NaN; then at
+    # phase 2b's small odd shapes with planes and mask one element off a
+    # word.  Both sides are native f64 without FMA: bitwise.
+    scene_f = scene.float()
+    octs_f = cstep.octaves(noise_f[0])
+    xplanes = {"noise": cstep.planes(octs_f),
+               "scene": cstep.planes(cstep.octaves(scene_f))}
+
+    def float_phase(phase, p, m, sm):
+        want = chan_mod.grad_hist_float_plain(p, m, sm)
+        got = chan_mod.grad_hist_float(p, m, sm,
+                                       out=torch.full_like(want, float("nan")))
+        check_phase("grad_hist_float", phase, [got], [want])
+        return got
+
+    xcanvas = {}
+    for kind, p in xplanes.items():
+        for sm in (1, 0):
+            got = float_phase(f"grad_hist_float VGA {kind} smooth={sm} "
+                              f"batch {BATCH}", p,
+                              cstep.interior if sm else None, sm)
+            if sm == 1:
+                xcanvas[kind] = got
+    for ehw, eb in (((3, 5), 3), ((17, 45), 1), ((70, 257), 3)):
+        emask = torch.from_numpy((erng.rand(*ehw) < 0.9).astype(np.uint8)) \
+            .to(dev)
+        vals = torch.from_numpy(erng.rand(eb, 2, 2, *ehw).astype(np.float32)
+                                * 256).to(dev)
+        for sm in (0, 1):
+            for off in (0, 1):
+                buf = torch.empty(vals.numel() + off, dtype=torch.float32,
+                                  device=dev)
+                q = buf[off:].view(vals.shape)
+                q.copy_(vals)
+                mbuf = torch.empty(emask.numel() + off, dtype=torch.uint8,
+                                   device=dev)
+                mq = mbuf[off:].view(ehw)
+                mq.copy_(emask)
+                float_phase(f"grad_hist_float edge {ehw} batch {eb} smooth="
+                            f"{sm} offset {off}", q, mq if sm else None, sm)
+
     # -- phase 3: serving path (slice 1) on the golden frames --------------
     frames = torch.from_numpy(gframes).to(dev)
     zero_counters()
@@ -1564,7 +1655,8 @@ def main():
     path_launches = read_counters()
     print(f"Model-API path launches: {path_launches}")
     require(all(v > 0 for k, v in path_launches.items()
-                if k not in ("fpga", "grad_hist_fast", "cascade_fast")),
+                if k not in ("fpga", "grad_hist_fast", "cascade_fast",
+                             "grad_hist_float")),
             "a kernel of the Model-API path was not launched")
 
     for name, (per, scan, scan_n_weak) in api.items():
@@ -1720,6 +1812,160 @@ def main():
                                                "cascade_response")),
             "a kernel of the config-5 path was not launched")
     check_fpga_path(fgold, fres)
+
+    # -- phase 5c: bucketed serving on the card ------------------------------
+    bgold = np.load(BUCKET_GOLDEN)
+    bframes = [bgold[f"frame_{h}x{w}"] for h, w in BUCKET_SIZES]
+    bdet = BucketedDetector(synth, bucket=int(bgold["bucket"]),
+                            k=int(bgold["k"]), nms_iou=float(bgold["nms_iou"]),
+                            device=dev)
+    zero_counters()
+    bout = bdet.detect_many(bframes)
+    torch.cuda.synchronize()
+    bucket_launches = read_counters()
+    print(f"bucketed path launches: {bucket_launches}")
+    require(all(bucket_launches[k] > 0
+                for k in ("planes", "grad_hist", "cascade")),
+            "bucketed serving: a kernel of the path was not launched")
+    require(bdet.compiles == 2, f"bucketed serving: {bdet.compiles} set-ups "
+            f"for two buckets")
+    bexact = BucketedDetector(synth, bucket=int(bgold["bucket"]), k=8192,
+                              device=dev)
+    for (h, w), frame, bx in zip(BUCKET_SIZES, bframes, bout):
+        key = f"{h}x{w}"
+        want = bgold[f"kept_{key}"]
+        require(np.array_equal(box_rows(bx, "scores"),
+                               sorted_rows(want[:, :4], want[:, 4])),
+                f"bucketed {key}: kept boxes/scores differ from the JAX "
+                f"golden")
+        bucket_hw = bdet._snap(h, w)
+        batch = np.zeros((1,) + bucket_hw, np.uint8)
+        batch[0, :h, :w] = frame
+        cnt = bdet._program(bucket_hw)(
+            torch.from_numpy(batch).to(dev),
+            bdet._geometry(bucket_hw, (h, w)))[3]
+        require(int(cnt[0]) == int(bgold[f"count_{key}"]),
+                f"bucketed {key}: {int(cnt[0])} survivors, JAX "
+                f"{int(bgold[f'count_{key}'])}")
+        require(np.array_equal(box_rows(bexact.detect(frame), "scores"),
+                               box_rows(synth.detect(frame), "scores")),
+                f"bucketed {key}: boxes differ from Model.detect at the "
+                f"true size")
+        print(f"bucketed {key} in bucket {bucket_hw}: {int(cnt[0])} "
+              f"survivors, {len(bx)} kept: bitwise equal to JAX's bucket; "
+              f"every survivor equal to Model.detect's")
+    # B1 (into a 0xAB buffer), B2 and B3 on a bucket's per-size tables
+    h, w = BUCKET_SIZES[1]
+    bhw = bdet._snap(h, w)
+    bgeom = bdet._geometry(bhw, (h, w))
+    bimgs = torch.from_numpy(np.ascontiguousarray(
+        np.stack([bframes[1], bframes[1][::-1]]))).to(dev)
+    boct = bgeom.canvas.octaves(bimgs)
+    bwant = plane_mod.planes_plain(boct, bgeom.canvas.plane_ops)
+    check_phase("planes", f"planes bucket {bhw} size {(h, w)}",
+                [plane_mod.planes(boct, bgeom.canvas.plane_ops,
+                                  out=torch.full_like(bwant, 0xAB))], [bwant])
+    bcv = bgeom.canvas.channels(bwant)
+    check_phase("grad_hist", f"grad_hist bucket {bhw} size {(h, w)}", [bcv],
+                [chan_mod.grad_hist_plain(bwant, bgeom.canvas.interior, 1)])
+    check_phase("cascade", f"cascade bucket {bhw} size {(h, w)}",
+                casc_mod.cascade_masked(bcv, bgeom.grid.valid,
+                                        synth._operands(dev)),
+                casc_mod.cascade_masked_plain(bcv, bgeom.grid.valid,
+                                              synth._operands(dev)))
+    # fast mode on uint8 frames: B2's canvas in bfloat16 through B3f, no B2f
+    bfast = BucketedDetector(synth, bucket=int(bgold["bucket"]), k=8192,
+                             fast=True, device=dev)
+    zero_counters()
+    bfast.detect_many(bframes)
+    torch.cuda.synchronize()
+    got = read_counters()
+    print(f"bucketed fast path launches (uint8 frames): {got}")
+    require(got["grad_hist"] > 0 and got["cascade_fast"] > 0
+            and got["grad_hist_fast"] == 0 and got["cascade"] == 0,
+            "bucketed fast mode on uint8 frames must run B2 and B3f, not "
+            "B2f")
+    # an FPGA model: two 1080p-class sizes in one bucket against its
+    # Model.detect (the config-5 smooth-1 model's golden prefix, which
+    # keeps windows of noise), then B1, B5 and B3 on the bucket's tables
+    fname = FPGA_MODELS[1]
+    fm = fmodels[fname]
+    npre = int(fgold[fname + "_prefix_stages"])
+    fpre = wt.model_from_stages(fm.shape, fm.channel_opts, fm.stages[:npre],
+                                fm.theta[:npre], device=dev)
+    fbdet = BucketedDetector(fpre, bucket=128, k=8192, device=dev)
+    fb_rng = np.random.RandomState(12)
+    fbframes = [fb_rng.randint(0, 256, hw).astype(np.uint8)
+                for hw in FPGA_BUCKET_SIZES]
+    zero_counters()
+    fbout = fbdet.detect_many(fbframes)
+    torch.cuda.synchronize()
+    got = read_counters()
+    print(f"bucketed FPGA path launches: {got}")
+    require(all(got[k] > 0 for k in ("planes", "fpga", "cascade")),
+            "bucketed FPGA serving: a kernel of the path was not launched")
+    require(fbdet.compiles == 1, "the FPGA sizes must share one bucket")
+    for hw, frame, bx in zip(FPGA_BUCKET_SIZES, fbframes, fbout):
+        require(np.array_equal(box_rows(bx, "scores"),
+                               box_rows(fpre.detect(frame), "scores")),
+                f"bucketed FPGA {hw}: boxes differ from Model.detect")
+        print(f"bucketed FPGA {hw} ({npre}-stage prefix of {fname}): "
+              f"{len(bx)} survivors equal to Model.detect's")
+    fhw = fbdet._snap(*FPGA_BUCKET_SIZES[1])
+    fgeom = fbdet._geometry(fhw, FPGA_BUCKET_SIZES[1])
+    fimgs = torch.from_numpy(fbframes[1][None]).to(dev)
+    foct = fgeom.canvas.octaves(fimgs)
+    fwant = plane_mod.planes_plain(foct, fgeom.canvas.plane_ops)
+    check_phase("planes", f"planes FPGA bucket {fhw}",
+                [plane_mod.planes(foct, fgeom.canvas.plane_ops,
+                                  out=torch.full_like(fwant, 0xAB))], [fwant])
+    fb_cv = fgeom.canvas.channels(fwant)
+    check_phase("fpga", f"fpga FPGA bucket {fhw}", [fb_cv],
+                [fpga_mod.fpga_channels_plain(
+                    fwant, fgeom.canvas.ring, fgeom.canvas.interior,
+                    fgeom.canvas.cf.fused_kind, fgeom.canvas.smooth)])
+    check_phase("cascade", f"cascade FPGA bucket {fhw}",
+                casc_mod.cascade_masked(fb_cv, fgeom.grid.valid,
+                                        fpre._operands(dev)),
+                casc_mod.cascade_masked_plain(fb_cv, fgeom.grid.valid,
+                                              fpre._operands(dev)))
+    del fbdet, fgeom, fb_cv, fwant, foct
+
+    # -- phase 5d: exact float serving on the card ---------------------------
+    flgold = np.load(FLOAT_GOLDEN)
+    fl_frames = torch.from_numpy(gframes.astype(np.float32)).to(dev)
+    zero_counters()
+    rects, scores, valid, count, _ = (a.cpu().numpy() for a in det(fl_frames))
+    torch.cuda.synchronize()
+    float_launches = read_counters()
+    print(f"exact float path launches: {float_launches}")
+    require(float_launches["grad_hist_float"] > 0
+            and float_launches["cascade"] > 0,
+            "exact float serving: B2d or B3 was not launched")
+    require(float_launches["grad_hist"] == 0
+            and float_launches["grad_hist_fast"] == 0
+            and float_launches["planes"] == 0,
+            "exact float serving launched B1, B2 or B2f")
+    require(np.array_equal(count, flgold["batched_counts"]),
+            f"exact float: survivors {count.tolist()}, JAX "
+            f"{flgold['batched_counts'].tolist()}")
+    fl_kept = np.split(flgold["batched_kept"],
+                       np.cumsum(flgold["batched_kept_counts"])[:-1])
+    fl_raw = np.split(flgold["detect_rows"],
+                      np.cumsum(flgold["detect_counts"])[:-1])
+    for b in range(len(gframes)):
+        require(np.array_equal(sorted_rows(rects[b][valid[b]],
+                                           scores[b][valid[b]]),
+                               sorted_rows(fl_kept[b][:, :4],
+                                           fl_kept[b][:, 4])),
+                f"exact float frame {b}: kept boxes/scores differ from JAX")
+        bx = synth.detect(gframes[b].astype(np.float32))
+        require(np.array_equal(box_rows(bx, "scores"),
+                               sorted_rows(fl_raw[b][:, :4], fl_raw[b][:, 4])),
+                f"exact float frame {b}: Model.detect differs from JAX")
+    print(f"exact float frames: survivors {count.tolist()}, kept "
+          f"{valid.sum(1).tolist()}: bitwise equal to JAX (batched and "
+          f"Model.detect)")
 
     # -- phase 6t: config 4 training, teacher-forced against the golden ----
     tgold = np.load(TRAIN_GOLDEN)
@@ -1932,6 +2178,11 @@ def main():
             lambda: casc_mod.cascade_masked_plain(fcv, grid.valid,
                                                   ops_synth)),
     })
+    # B2d at VGA smooth 1 on the float noise frames' planes
+    calls["grad_hist_float"] = (
+        lambda: chan_mod.grad_hist_float(xplanes["noise"], cstep.interior, 1),
+        lambda: chan_mod.grad_hist_float_plain(xplanes["noise"],
+                                               cstep.interior, 1))
     # B2f at VGA smooth 1 on each plane type (uint8: the main path's)
     for kind, p in fplanes.items():
         name = "grad_hist_fast" + ("" if kind == "uint8" else f"_{kind}")
@@ -1967,6 +2218,17 @@ def main():
         return bound(nbytes(p, mask, cv), f32_ops=35 * cv.numel(),
                      f64_ops=12 * cv.numel())
 
+    def grad_hist_float_bound(p, mask, cv):
+        # per pooled pixel and image, from the kernel: 13 f64 prefilters
+        # (3 arithmetic operations and 4 conversions each) and 16
+        # projections (3 operations and 1 conversion each, plus the 8
+        # gradients widened): 163 f64 operations; in f32 the gradient
+        # differences, the pool and the smooth (64); the smooth's tile
+        # recomputes 16 pooled rows for 14
+        rows = 16 / 14 if mask is not None else 1.0
+        return bound(nbytes(p, mask, cv), f32_ops=64 * cv.numel() / 4,
+                     f64_ops=163 * rows * cv.numel() / 4)
+
     def grad_hist_fast_bound(p, mask, cv):
         # B2's operations, the projections in f32
         return bound(nbytes(p, mask, cv), f32_ops=47 * cv.numel())
@@ -1999,6 +2261,8 @@ def main():
     for kind, p in fplanes.items():
         name = "grad_hist_fast" + ("" if kind == "uint8" else f"_{kind}")
         bounds[name] = grad_hist_fast_bound(p, cstep.interior, fcanvas[kind])
+    bounds["grad_hist_float"] = grad_hist_float_bound(
+        xplanes["noise"], cstep.interior, xcanvas["noise"])
     casc_fast = casc_mod.cascade_masked(fcv, grid.valid, ops_synth)
     bounds["cascade_fast"] = bound(
         nbytes(fcv, grid.valid, *casc_fast, records(ops_synth, fcv)),
@@ -2103,6 +2367,58 @@ def main():
     }
     for workload, (fn_, batches) in fast_workloads.items():
         e2e(workload, fn_, batches, reps=30)
+    # exact float frames: f32 octaves, the float64 plane build (plain
+    # torch, timed alone too), B2d, B3
+    metric("planes_float_us_per_image",
+           cuda_ms(lambda: plane_mod.planes_float(octs_f,
+                                                  cstep.float_plane_ops),
+                   5) * 1e3 / BATCH, "us/image")
+    float_workloads = {
+        "vga_float_exact_noise_k128": (det128, noise_f),
+        "vga_float_exact_scene_k1024": (det, [scene_f,
+                                              torch.flip(scene_f, dims=[2])]),
+    }
+    for workload, (fn_, batches) in float_workloads.items():
+        e2e(workload, fn_, batches, reps=30)
+    # bucketed serving: a mixed stream of the bucket golden's four sizes,
+    # 8 frames of each (the frame and its flips), numpy frames in and
+    # boxes out through BucketedDetector.detect_many (host clock)
+    stream = [np.ascontiguousarray(v) for f in bframes
+              for v in (f, f[:, ::-1], f[::-1], f[::-1, ::-1])] * 2
+    stream_mp = sum(f.size for f in stream) / 1e6
+    bdet.detect_many(stream)
+    torch.cuda.synchronize()
+    bms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        bdet.detect_many(stream)
+        torch.cuda.synchronize()
+        bms.append((time.perf_counter() - t) * 1e3)
+    metric("bucketed_mixed_stream_mp_per_s", stream_mp * 5 / sum(bms) * 1e3,
+           "MP/s")
+    metric("bucketed_mixed_stream_ms_p50", float(np.median(bms)), "ms")
+    print(f"bucketed mixed stream ({card}): {len(stream)} frames of "
+          f"{len(BUCKET_SIZES)} sizes, {stream_mp:.3f} MP a call, 5 calls")
+    # first sight of a novel size: Model.detect (packer, tables, run)
+    # against BucketedDetector in a bucket it has set up (tables, run),
+    # each beside its second call at that size
+    firsts = {"model_detect": [], "bucketed": []}
+    warms = {"model_detect": [], "bucketed": []}
+    for h, w in NOVEL_SIZES:
+        frame = np.ascontiguousarray(gframes[1][:h, :w])
+        for name, fn_ in (("bucketed", bdet.detect),
+                          ("model_detect", synth.detect)):
+            for rec in (firsts, warms):
+                t = time.perf_counter()
+                fn_(frame)
+                torch.cuda.synchronize()
+                rec[name].append((time.perf_counter() - t) * 1e3)
+    for name in firsts:
+        metric(f"first_sight_{name}_ms", float(np.mean(firsts[name])), "ms")
+        metric(f"second_call_{name}_ms", float(np.mean(warms[name])), "ms")
+        print(f"first sight {name} ({card}): "
+              f"{[round(v, 3) for v in firsts[name]]} ms, second call "
+              f"{[round(v, 3) for v in warms[name]]} ms")
     # config 5 as bench.py runs it: k=128, NMS 0.5, uniform noise
     workloads5 = {"fpga_4k_quantized_k128": (dets4k[name0], noise4k),
                   "fpga_4k_smooth_k128": (dets4k[name1], noise4k)}
@@ -2325,7 +2641,8 @@ def main():
     # and B3f's from the fast serving path
     launches = dict(path_launches, fpga=fpga_launches["fpga"],
                     grad_hist_fast=fast_launches["grad_hist_fast"],
-                    cascade_fast=fast_launches["cascade_fast"])
+                    cascade_fast=fast_launches["cascade_fast"],
+                    grad_hist_float=float_launches["grad_hist_float"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

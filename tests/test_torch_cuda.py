@@ -493,6 +493,60 @@ def test_fast_slice_on_card_matches_cpu(cuda, frames, fast_float):
         assert torch.equal(g, w_)
 
 
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (17, 45), (33, 131),
+                                (14, 128), (70, 257), (104, 128)])
+def test_grad_hist_float_matches_plain_on_card(cuda, hw):
+    """B2d bitwise against its plain version (both native f64), both
+    smooths, batch 1 and 3, a mask set on the canvas border and a random
+    one, the planes and mask also starting one element past a word
+    boundary."""
+    rng = np.random.RandomState(hw[0] * 1000 + hw[1])
+    for batch in (1, 3):
+        planes = _fast_planes(rng, (batch, 2, 2) + hw, "float32").to(cuda)
+        masks = [torch.ones(hw, dtype=torch.uint8, device=cuda),
+                 torch.from_numpy((rng.rand(*hw) < 0.7).astype(np.uint8))
+                 .to(cuda)]
+        for smooth, mask in ((0, None), (1, masks[0]), (1, masks[1])):
+            want = tcc.grad_hist_float_plain(planes, mask, smooth)
+            got = tcc.grad_hist_float(planes, mask, smooth)
+            odd = tcc.grad_hist_float(
+                _misaligned(planes),
+                None if mask is None else _misaligned(mask), smooth)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (batch, smooth)
+            assert torch.equal(odd, want), (batch, smooth)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_float_and_bucketed_on_card_match_cpu(cuda, fast):
+    """Float frames through make_batched_detector_boxes, and
+    BucketedDetector over three sizes of one bucket (uint8 and float
+    frames), on the card equal their CPU runs."""
+    from waldboost_tpu_torch.parallel.detect import BucketedDetector
+    model = wt.load(FLAGSHIP)
+    rng = np.random.RandomState(5)
+    imgs = (_frames(4, (96, 128), seed=2).float()
+            + torch.from_numpy(rng.rand(4, 96, 128).astype(np.float32)))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        fn, _ = wt.make_batched_detector_boxes(model, (96, 128), k=512,
+                                               nms_iou=0.5, device=dev,
+                                               fast=fast)
+        outs.append([a.cpu() for a in fn(imgs.to(dev))])
+    for g, w_ in zip(*outs):
+        assert torch.equal(g, w_)
+    frames = [_frames(1, hw, seed=i)[0].numpy()
+              for i, hw in enumerate(((90, 120), (101, 127), (65, 70)))]
+    frames += [f.astype(np.float32) + 0.5 for f in frames]
+    got = [BucketedDetector(model, bucket=64, k=512, nms_iou=0.5, fast=fast,
+                            device=dev).detect_many(frames)
+           for dev in (cuda, torch.device("cpu"))]
+    for a, b in zip(*got):
+        np.testing.assert_array_equal(a.get(), b.get())
+        np.testing.assert_array_equal(a.get_field("scores"),
+                                      b.get_field("scores"))
+
+
 def test_grad_hist_second_card(cuda):
     """The dynamic shared memory above 48 KB (B2 and B2f with the smooth,
     B2f's float planes) is opted into per device: canvases on cuda:1

@@ -347,12 +347,16 @@ def test_fast_options_checked():
                                            fast=True)
     with pytest.raises(ValueError):
         fn(torch.zeros((1, 48, 64), dtype=torch.float64))
+    # an FPGA model has no fast variant: its float frames take the exact
+    # float path, as without fast
     fpga = make_model_pair(n_stages=2, shape=(8, 8, 5),
                            channels="grad_hist_4_u1+grad_mag_u1")[1]
     fn, _ = wt.make_batched_detector_boxes(fpga, (48, 64), device="cpu",
                                            fast=True)
-    with pytest.raises(NotImplementedError, match="A6"):
-        fn(torch.zeros((1, 48, 64), dtype=torch.float32))
+    exact, _ = wt.make_batched_detector_boxes(fpga, (48, 64), device="cpu")
+    frames = torch.from_numpy(float_frames(1, (48, 64), seed=3))
+    for a, b in zip(fn(frames), exact(frames)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_fast_golden_one_frame():

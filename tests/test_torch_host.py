@@ -21,6 +21,8 @@ import waldboost_tpu_torch as wt
 from waldboost_tpu_torch import channels as tch
 from waldboost_tpu_torch import model_io, packing, polyphase
 from waldboost_tpu_torch.ops.exact import axis_taps_exact
+from waldboost_tpu_torch.parallel.detect import (BucketedDetector,
+                                                 make_bucket_detector_boxes)
 
 from torch_port_util import make_model_pair
 
@@ -155,6 +157,7 @@ def test_port_import_leaves_jax_out():
     code = ("import sys; before = set(sys.modules); "
             "import waldboost_tpu_torch; "
             "import waldboost_tpu_torch.parallel.detect; "
+            "import waldboost_tpu_torch.parallel.bucket; "
             "import waldboost_tpu_torch.model, waldboost_tpu_torch.boxes, "
             "waldboost_tpu_torch.canvas, waldboost_tpu_torch.device, "
             "waldboost_tpu_torch.ops.cascade, "
@@ -193,10 +196,28 @@ def test_unported_options_raise():
         wt.make_batched_detector_boxes(tm, (48, 64), n_scales=0,
                                        device="cpu")
     fn, _ = wt.make_batched_detector_boxes(tm, (48, 64), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        fn(torch.zeros((1, 48, 64), dtype=torch.float32))
+    # exact float frames are served now (A6's exact half)
+    assert fn(torch.zeros((1, 48, 64), dtype=torch.float32))[3].shape == (1,)
     with pytest.raises(ValueError):
         fn(torch.zeros((1, 40, 64), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        fn(torch.zeros((1, 48, 64), dtype=torch.float64))
+    for kwargs, item in ((dict(mesh=object()), "A11"),
+                         (dict(verifier=object()), "A10")):
+        with pytest.raises(NotImplementedError, match=item):
+            BucketedDetector(tm, device="cpu", **kwargs)
+        with pytest.raises(NotImplementedError, match=item):
+            make_bucket_detector_boxes(tm, (64, 64), device="cpu", **kwargs)
+    gm = wt.Model((8, 8, 1), dict(shrink=2, n_per_oct=2, smooth=1,
+                                  channels="grad_hist"), device="cpu")
+    gm.channel_opts["channels"] = tch.ChannelFunction(
+        "waldboost_tpu.channels.grad_mag", 1)
+    with pytest.raises(NotImplementedError, match="A14"):
+        BucketedDetector(gm, device="cpu")
+    s1 = wt.Model((8, 8, 4), dict(shrink=1, n_per_oct=2, smooth=1,
+                                  channels="grad_hist"), device="cpu")
+    with pytest.raises(NotImplementedError, match="A2"):
+        BucketedDetector(s1, device="cpu")
     for train in (wt.train, wt.fpga.train):
         with pytest.raises(NotImplementedError, match="A11"):
             train(tm, iter(()), mesh=object(), length=3)

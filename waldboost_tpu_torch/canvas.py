@@ -10,6 +10,12 @@ channel function:
               ops/channels.py) or the FPGA integer family and its "+"
               composites (kernel B5, ops/fpga.py)
 
+A (B, H, W) float32 batch takes the f32 octave chain, the float64 plane
+build (``ops/planes.py::planes_float``, plain torch) and kernel B2d
+(``ops/channels.py::grad_hist_float``); the FPGA family runs its chain
+on the float planes in plain torch (``ops/fpga.py::fpga_channels_float``),
+as the JAX package does in XLA.
+
 In fast serving mode (``fast=True``, JAX's ``WB_SERVING_MODE=fast``)
 grad_hist takes kernel B2f and the canvas is bfloat16; float32 frames are
 served too: f32 octave chain, float planes (``ops/planes.py::
@@ -42,10 +48,10 @@ from .channels import (ChannelFunction, _normalize_opts, octave_chain,
                        octave_chain_f32)
 from .channels import grad_hist as grad_hist_cf  # the ops module's name
 from .fpga.channels import fpga_kernel_masks
-from .ops.channels import grad_hist, grad_hist_fast
-from .ops.fpga import fpga_channels
+from .ops.channels import grad_hist, grad_hist_fast, grad_hist_float
+from .ops.fpga import fpga_channels, fpga_channels_float
 from .ops.planes import (FloatPlaneOperands, PlaneOperands, octave_buffer,
-                         planes, planes_float_fast)
+                         planes, planes_float, planes_float_fast)
 from .packing import PackedPyramidPlan
 from .polyphase import float_plane_tables, plane_tables
 
@@ -81,25 +87,33 @@ def serving_opts(channel_opts: dict, n_channels: int
     return shrink, n_per_oct, smooth, cf
 
 
+#: frame types the port serves; float64 frames are rounded to float32, as
+#: the JAX package's ``jnp.asarray`` rounds them with 64-bit types off
+IMAGE_TYPES = (np.uint8, np.float32)
+
+
 def as_image(image, ndim: int = 2) -> np.ndarray:
-    """A uint8 numpy image (``ndim`` 2) or batch (``ndim`` 3), as the Model
-    API takes them."""
+    """A uint8 or float32 numpy image (``ndim`` 2) or batch (``ndim`` 3),
+    as the Model API takes them (float64 rounded to float32)."""
     image = np.asarray(image)
     if image.ndim != ndim:
         raise ValueError("Image must have 2 dimensions" if ndim == 2
                          else "images must be (B, H, W)")
-    if image.dtype != np.uint8:
-        raise NotImplementedError("only uint8 images are ported; float "
-                                  "images are ROADMAP item A6")
+    if image.dtype == np.float64:
+        image = image.astype(np.float32)
+    if image.dtype not in IMAGE_TYPES:
+        raise ValueError(f"images must be uint8 or float32 (float64 is "
+                         f"rounded to float32), got {image.dtype}")
     return image
 
 
 class ChannelCanvas:
     """octaves -> planes (B1) -> channel canvas (B2 for grad_hist, B5 for
     the FPGA family) of one packed plan and channel function ``cf`` for
-    ``image_shape`` frames on one device; with ``fast``, B2f and the float
-    frames of fast serving mode, their planes of type ``fast_float``
-    (``"f32"`` or ``"bf16"``)."""
+    ``image_shape`` frames on one device; float32 frames take the float
+    plane build and B2d.  With ``fast``, B2f, and the float frames' planes
+    of type ``fast_float`` (``"f32"`` or ``"bf16"``).  The plane tables of
+    each frame type are built at its first batch."""
 
     def __init__(self, packed: PackedPyramidPlan, image_shape: Tuple[int, int],
                  smooth: int, cf: ChannelFunction, device: torch.device,
@@ -118,9 +132,8 @@ class ChannelCanvas:
         # reflect-boundary functions; the FPGA family reads zeros instead
         halo = packed.halo if cf.boundary == "reflect" and cf.halo > 0 else 0
         self.halo = halo
-        tables = plane_tables(packed, halo, self.image_shape)
-        self.plane_ops = PlaneOperands.build(tables, device)
-        self.n_octaves = len(tables.oct_hw)
+        self.n_octaves = max((pl.level.octave for pl in packed.levels),
+                             default=-1) + 1
         if cf.fused_kind is not None:
             ring, interior = fpga_kernel_masks(packed, smooth)
         else:
@@ -132,6 +145,13 @@ class ChannelCanvas:
             for a in (ring, interior))
 
     @functools.cached_property
+    def plane_ops(self) -> PlaneOperands:
+        """B1's tables (built at the first uint8 batch)."""
+        return PlaneOperands.build(
+            plane_tables(self.packed, self.halo, self.image_shape),
+            self.device)
+
+    @functools.cached_property
     def float_plane_ops(self) -> FloatPlaneOperands:
         """The float plane tables (built at the first float batch)."""
         return FloatPlaneOperands.build(
@@ -140,30 +160,32 @@ class ChannelCanvas:
 
     def octaves(self, images: torch.Tensor) -> torch.Tensor:
         if images.is_floating_point():
-            if not self.fast:
-                raise NotImplementedError(
-                    "float frames are served in fast mode of grad_hist "
-                    "models only; exact float serving is ROADMAP item A6")
             return octave_buffer(octave_chain_f32(images, self.n_octaves))
         return octave_buffer(octave_chain(images, self.n_octaves))
 
     def planes(self, octs: torch.Tensor) -> torch.Tensor:
-        if octs.is_floating_point():
+        if not octs.is_floating_point():
+            return planes(octs, self.plane_ops)
+        if self.fast:
             return planes_float_fast(octs, self.float_plane_ops,
                                      FAST_FLOAT[self.fast_float])
-        return planes(octs, self.plane_ops)
+        return planes_float(octs, self.float_plane_ops)
 
     def channels(self, plane_canvas: torch.Tensor) -> torch.Tensor:
         if self.cf.fused_kind is not None:
-            return fpga_channels(plane_canvas, self.ring, self.interior,
-                                 self.cf.fused_kind, self.smooth)
+            fn = fpga_channels_float if plane_canvas.is_floating_point() \
+                else fpga_channels
+            return fn(plane_canvas, self.ring, self.interior,
+                      self.cf.fused_kind, self.smooth)
         if self.fast:
             return grad_hist_fast(plane_canvas, self.interior, self.smooth)
+        if plane_canvas.is_floating_point():
+            return grad_hist_float(plane_canvas, self.interior, self.smooth)
         return grad_hist(plane_canvas, self.interior, self.smooth)
 
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, C, Hc, Wc) canvas of a (B, H, W) batch: float32, bfloat16 in
-        fast mode (uint8 or float32 frames)."""
+        """(B, C, Hc, Wc) canvas of a (B, H, W) uint8 or float32 batch:
+        float32, bfloat16 in fast mode (grad_hist)."""
         with span("wb.octaves"):
             octs = self.octaves(images)
         with span("wb.planes"):

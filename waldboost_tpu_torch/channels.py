@@ -205,9 +205,11 @@ def channel_pyramid(image, channel_opts: dict, device=None
     """``(chns, scale)`` for each level of :func:`pyramid_plan`, in plan
     order: the level's (out_height, out_width, C) channels as numpy.
 
-    ``image`` is a 2-D uint8 array.  The levels are cut out of one packed
-    channel canvas of every level (a plan for a 0 x 0 window), made on
-    ``device`` (the card when None) and copied to the host once.  The
+    ``image`` is a 2-D uint8 or float32 array (float64 is rounded to
+    float32; float frames take the exact float canvas).  The levels are
+    cut out of one packed channel canvas of every level (a plan for a 0 x
+    0 window), made on ``device`` (the card when None) and copied to the
+    host once.  The
     FPGA family's integer channels come as uint8, as the JAX package
     gives them; grad_hist's as float32.
     """

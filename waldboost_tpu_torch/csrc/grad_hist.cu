@@ -1,5 +1,5 @@
 // grad_hist channel canvas from the polyphase planes: gradients, oriented
-// projections, 2x2 average pool, 3x3/16 smooth, interior mask.  Two
+// projections, 2x2 average pool, 3x3/16 smooth, interior mask.  Three
 // chains share one kernel template:
 //
 //  wb_grad_hist       (B2) the exact chain: uint8 planes, f32 canvas.
@@ -8,6 +8,13 @@
 //    On the TPU the f64-rounded projection f32(f64(gx*cos - gy*sin)) is
 //    emulated by a verified f32 term plan; the H100 computes it in native
 //    f64.
+//  wb_grad_hist_float (B2d) exact float frames: float32 planes, f32
+//    canvas.  Each [1,2,1] prefilter (a + 2b) + c is summed in f64 and
+//    rounded to f32 once (scipy's f64 accumulator), the gradient
+//    differences are f32, each bin f32(f64(gx)*cos - f64(gy)*sin).
+//    Replaces: the same pallas_call's float_dd variant (channels_pallas.py
+//    :373, prefilter :189-194, projection :234-238), which emulates f64 in
+//    double-float pairs (ops/dd.py); the H100 has native f64.
 //  wb_grad_hist_fast  (B2f) fast serving mode: uint8, bfloat16 or float32
 //    planes, every operation in f32 with the plain projection
 //    gx*f32(cos) - gy*f32(sin), one round to bfloat16 at the store.
@@ -19,7 +26,7 @@
 // batch (smooth only), and 4 channels are written (16 bytes of float32, 8
 // of bfloat16).  Close behind are the instructions: per pooled pixel 4
 // phases x 4 bins of the projection, the gradients, the pool and the
-// smooth.
+// smooth; B2d adds its f64 prefilters.
 //
 // Design (the structure of csrc/fpga.cu): a block owns a 128 x 16 tile of
 // channel pixels (14 with the smooth) and loops over the images of the
@@ -40,12 +47,13 @@
 // scalar pass, both 0 off the canvas, so the result holds for any mask;
 // the smooth reads its column neighbours through warp shuffles.  uint8
 // planes take integer gradients (exact in either chain), float planes f32
-// gradients.
+// gradients (B2d: from f64 prefilters).
 //
 // Exactness.  Every float and double operation is an explicitly rounded
 // intrinsic (and the library is built with -fmad=false), in the reference's
-// association: prefilters (a + 2b) + c, each bin f32(f64(gx*cos - gy*sin))
-// in native f64 (exact) or fl(fl(gx*c32) - fl(gy*s32)) (fast), pool =
+// association: prefilters (a + 2b) + c (B2d: in f64, one f32 rounding),
+// each bin f32(f64(gx*cos - gy*sin)) in native f64 (exact, B2d) or
+// fl(fl(gx*c32) - fl(gy*s32)) (fast), pool =
 // (((TL + BL) + TR) + BR) * 0.25, smooth = 9 terms left to right, times
 // 1/16, then mask ? v : 0 (a term 2p or 4p is exact, so it is fused into
 // its add).
@@ -69,6 +77,11 @@ constexpr int kRowElems = kTW + 8;     // staged row: local cols -4 .. kTW+3
 constexpr int kWords = kRowElems / 4;  // words of a staged uint8 row
 constexpr int kBins = 4;
 constexpr int kBlocksPerSm = 5;        // 48 registers (sweep_torch_kernels)
+
+// The chains: B2 (uint8 planes, integer gradients, f64 projection, f32
+// canvas), B2d (f32 planes, f64 prefilters, f64 projection, f32 canvas),
+// B2f (f32 arithmetic, bfloat16 canvas).
+constexpr int kExact = 0, kFloat = 1, kFast = 2;
 
 // The raw bits of a plane element of kIn bytes (uint8, bfloat16, float32).
 template <int kIn>
@@ -132,6 +145,11 @@ __device__ __forceinline__ double to_double(int v) {
                    4503601774854144.0);
 }
 
+// A float as double, exactly.
+__device__ __forceinline__ double to_double(float v) {
+  return static_cast<double>(v);
+}
+
 __device__ __forceinline__ float to_float(int v) { return __int2float_rn(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
@@ -143,12 +161,19 @@ __device__ __forceinline__ float elem(uint16_t v) {
 __device__ __forceinline__ float elem(uint32_t v) { return __uint_as_float(v); }
 
 // The [1,2,1] prefilter (a + 2b) + c and a difference, exact on integers,
-// rounded step by step on floats.
+// rounded step by step on floats (B2f), or summed in f64 and rounded to
+// f32 once (B2d).
+template <int kChain>
 __device__ __forceinline__ int tap3(int a, int b, int c) {
   return a + 2 * b + c;
 }
+template <int kChain>
 __device__ __forceinline__ float tap3(float a, float b, float c) {
-  return __fadd_rn(__fmaf_rn(2.0f, b, a), c);
+  if constexpr (kChain == kFloat)
+    return __double2float_rn(__dadd_rn(
+        __dadd_rn(to_double(a), __dmul_rn(2.0, to_double(b))), to_double(c)));
+  else
+    return __fadd_rn(__fmaf_rn(2.0f, b, a), c);
 }
 __device__ __forceinline__ int sub(int a, int b) { return a - b; }
 __device__ __forceinline__ float sub(float a, float b) {
@@ -157,10 +182,10 @@ __device__ __forceinline__ float sub(float a, float b) {
 
 // The four bins of one image pixel's gradients, added into acc (first:
 // assigned), in the pool's phase order.
-template <bool kFast, class G>
+template <int kChain, class G>
 __device__ __forceinline__ void bins(G gx, G gy, const Proj& pj, bool first,
                                      float (&acc)[kBins]) {
-  if constexpr (kFast) {
+  if constexpr (kChain == kFast) {
     const float fx = to_float(gx), fy = to_float(gy);
 #pragma unroll
     for (int k = 0; k < kBins; ++k) {
@@ -169,7 +194,8 @@ __device__ __forceinline__ void bins(G gx, G gy, const Proj& pj, bool first,
       acc[k] = first ? b : __fadd_rn(acc[k], b);
     }
   } else {
-    static_assert(std::is_same<G, int>::value, "exact chain: uint8 planes");
+    static_assert(std::is_same<G, int>::value == (kChain == kExact),
+                  "B2: integer gradients, B2d: float gradients");
     const double dx = to_double(gx), dy = to_double(gy);
 #pragma unroll
     for (int k = 0; k < kBins; ++k) {
@@ -182,13 +208,13 @@ __device__ __forceinline__ void bins(G gx, G gy, const Proj& pj, bool first,
 
 // The pooled bins of a pooled pixel from its four phases' gradients
 // (phase index a * 2 + q).
-template <bool kFast, class G>
+template <int kChain, class G>
 __device__ __forceinline__ void pool(const G (&gx)[4], const G (&gy)[4],
                                      const Proj& pj, float (&v)[kBins]) {
-  bins<kFast>(gx[0], gy[0], pj, true, v);   // TL (a 0, q 0)
-  bins<kFast>(gx[2], gy[2], pj, false, v);  // BL (a 1, q 0)
-  bins<kFast>(gx[1], gy[1], pj, false, v);  // TR (a 0, q 1)
-  bins<kFast>(gx[3], gy[3], pj, false, v);  // BR (a 1, q 1)
+  bins<kChain>(gx[0], gy[0], pj, true, v);   // TL (a 0, q 0)
+  bins<kChain>(gx[2], gy[2], pj, false, v);  // BL (a 1, q 0)
+  bins<kChain>(gx[1], gy[1], pj, false, v);  // TR (a 0, q 1)
+  bins<kChain>(gx[3], gy[3], pj, false, v);  // BR (a 1, q 1)
 #pragma unroll
   for (int k = 0; k < kBins; ++k) v[k] = __fmul_rn(v[k], 0.25f);
 }
@@ -316,8 +342,8 @@ __device__ __forceinline__ float staged_px(const uint32_t* __restrict__ sP,
 }
 
 // grad_row for float planes (kIn 2 or 4): the same pixels, f32 gradients
-// rounded step by step.
-template <class T, int kIn>
+// rounded step by step, the prefilters those of kChain.
+template <class T, int kIn, int kChain>
 __device__ __forceinline__ void grad_row(const uint32_t* __restrict__ sP,
                                          int il, int tx, float (&gx)[2][8],
                                          float (&gy)[2][8]) {
@@ -331,13 +357,14 @@ __device__ __forceinline__ void grad_row(const uint32_t* __restrict__ sP,
   for (int y = 1; y <= 2; ++y) {
     float sv[10];
 #pragma unroll
-    for (int c = 0; c < 10; ++c) sv[c] = tap3(p[y - 1][c], p[y][c], p[y + 1][c]);
+    for (int c = 0; c < 10; ++c)
+      sv[c] = tap3<kChain>(p[y - 1][c], p[y][c], p[y + 1][c]);
 #pragma unroll
     for (int x = 1; x <= 8; ++x) {
       gx[y - 1][x - 1] = sub(sv[x - 1], sv[x + 1]);
       gy[y - 1][x - 1] =
-          sub(tap3(p[y - 1][x - 1], p[y - 1][x], p[y - 1][x + 1]),
-              tap3(p[y + 1][x - 1], p[y + 1][x], p[y + 1][x + 1]));
+          sub(tap3<kChain>(p[y - 1][x - 1], p[y - 1][x], p[y - 1][x + 1]),
+              tap3<kChain>(p[y + 1][x - 1], p[y + 1][x], p[y + 1][x + 1]));
     }
   }
 }
@@ -345,7 +372,7 @@ __device__ __forceinline__ void grad_row(const uint32_t* __restrict__ sP,
 // The pooled bins of one pixel at local (il, jl), jl = -1 or kTW, from the
 // staged planes (the smooth's ring columns), 0 off the canvas, into ring
 // (k, il + 1, jl == kTW).
-template <class T, int kIn, bool kFast>
+template <class T, int kIn, int kChain>
 __device__ void ring_cell(const uint32_t* sP, float* ring, int il, int jl,
                           bool inside, const Proj& pj) {
   using G = std::conditional_t<kIn == 1, int, float>;
@@ -362,13 +389,13 @@ __device__ void ring_cell(const uint32_t* sP, float* ring, int il, int jl,
 #pragma unroll
   for (int ph = 0; ph < 4; ++ph) {
     const int y = 1 + (ph >> 1), x = 1 + (ph & 1);
-    gx[ph] = sub(tap3(p[y - 1][x - 1], p[y][x - 1], p[y + 1][x - 1]),
-                 tap3(p[y - 1][x + 1], p[y][x + 1], p[y + 1][x + 1]));
-    gy[ph] = sub(tap3(p[y - 1][x - 1], p[y - 1][x], p[y - 1][x + 1]),
-                 tap3(p[y + 1][x - 1], p[y + 1][x], p[y + 1][x + 1]));
+    gx[ph] = sub(tap3<kChain>(p[y - 1][x - 1], p[y][x - 1], p[y + 1][x - 1]),
+                 tap3<kChain>(p[y - 1][x + 1], p[y][x + 1], p[y + 1][x + 1]));
+    gy[ph] = sub(tap3<kChain>(p[y - 1][x - 1], p[y - 1][x], p[y - 1][x + 1]),
+                 tap3<kChain>(p[y + 1][x - 1], p[y + 1][x], p[y + 1][x + 1]));
   }
   float v[kBins];
-  pool<kFast>(gx, gy, pj, v);
+  pool<kChain>(gx, gy, pj, v);
 #pragma unroll
   for (int k = 0; k < kBins; ++k)
     ring[(k * T::kPoolRows + il + 1) * 2 + (jl == kTW)] = inside ? v[k] : 0.0f;
@@ -404,15 +431,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* __restrict__ out,
   }
 }
 
-// kIn: bytes of a plane element (1 uint8, 2 bfloat16, 4 float32); kFast:
-// the f32 chain and a bfloat16 canvas (the exact chain takes uint8 only).
-template <bool kSmooth, int kIn, bool kFast>
+// kIn: bytes of a plane element (1 uint8, 2 bfloat16, 4 float32); kChain:
+// kExact (uint8 planes), kFloat (float32 planes) or kFast (any; the f32
+// chain and a bfloat16 canvas).
+template <int kChain>
+using OutT = std::conditional_t<kChain == kFast, __nv_bfloat16, float>;
+
+template <bool kSmooth, int kIn, int kChain>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSmOf<kIn>)
 grad_hist_kernel(const void* __restrict__ planes,
                  const uint8_t* __restrict__ mask,
-                 std::conditional_t<kFast, __nv_bfloat16, float>* __restrict__ out,
-                 int batch, int H, int W, Proj pj) {
-  static_assert(kFast || kIn == 1, "the exact chain takes uint8 planes");
+                 OutT<kChain>* __restrict__ out, int batch, int H, int W,
+                 Proj pj) {
+  static_assert(kChain != kExact || kIn == 1, "B2 takes uint8 planes");
+  static_assert(kChain != kFloat || kIn == 4, "B2d takes float32 planes");
   using T = Tile<kSmooth, kIn>;
   extern __shared__ __align__(16) uint32_t smem[];
   float* sPo = reinterpret_cast<float*>(smem);
@@ -458,7 +490,7 @@ grad_hist_kernel(const void* __restrict__ planes,
       if constexpr (kIn == 1)
         grad_row<T>(sP, il, tx, gx, gy);
       else
-        grad_row<T, kIn>(sP, il, tx, gx, gy);
+        grad_row<T, kIn, kChain>(sP, il, tx, gx, gy);
       float v[kBins][4];
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
@@ -467,7 +499,7 @@ grad_hist_kernel(const void* __restrict__ planes,
         const G py[4] = {gy[0][2 * g], gy[0][2 * g + 1], gy[1][2 * g],
                          gy[1][2 * g + 1]};
         float pv[kBins];
-        pool<kFast>(px, py, pj, pv);
+        pool<kChain>(px, py, pj, pv);
 #pragma unroll
         for (int k = 0; k < kBins; ++k) v[k][g] = pv[k];
       }
@@ -497,7 +529,7 @@ grad_hist_kernel(const void* __restrict__ planes,
     if (tid < 2 * T::kPoolRows) {
       const int il = (tid >> 1) - 1, jl = (tid & 1) ? kTW : -1;
       const int i = I0 + il, j = J0 + jl;
-      ring_cell<T, kIn, kFast>(sP, sRing, il, jl,
+      ring_cell<T, kIn, kChain>(sP, sRing, il, jl,
                                i >= 0 && i < H && j >= 0 && j < W, pj);
     }
     __syncthreads();
@@ -575,12 +607,11 @@ int opt_in_smem(const void* kernel, int bytes) {
   return 0;
 }
 
-template <bool kSmooth, int kIn, bool kFast>
+template <bool kSmooth, int kIn, int kChain>
 int launch(const void* planes, const uint8_t* mask, void* out, int batch,
            int H, int W, const Proj& pj, cudaStream_t stream) {
   using T = Tile<kSmooth, kIn>;
-  using Out = std::conditional_t<kFast, __nv_bfloat16, float>;
-  const auto kernel = grad_hist_kernel<kSmooth, kIn, kFast>;
+  const auto kernel = grad_hist_kernel<kSmooth, kIn, kChain>;
   const int opt = opt_in_smem(reinterpret_cast<const void*>(kernel),
                               static_cast<int>(T::kBytes));
   if (opt) return opt;
@@ -591,7 +622,7 @@ int launch(const void* planes, const uint8_t* mask, void* out, int batch,
   dim3 grid(bx, by, groups < batch ? groups : batch);
   dim3 block(kBX, kBY);
   kernel<<<grid, block, T::kBytes, stream>>>(
-      planes, mask, static_cast<Out*>(out), batch, H, W, pj);
+      planes, mask, static_cast<OutT<kChain>*>(out), batch, H, W, pj);
   return 0;
 }
 
@@ -618,10 +649,28 @@ extern "C" int wb_grad_hist(const void* planes, const void* mask, void* out,
     const Proj pj = projections(cos4, sin4);
     const auto* m = static_cast<const uint8_t*>(mask);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int e = smooth ? launch<true, 1, false>(planes, m, out, batch, H, W,
-                                                  pj, st)
-                         : launch<false, 1, false>(planes, m, out, batch, H,
-                                                   W, pj, st);
+    const int e = smooth ? launch<true, 1, kExact>(planes, m, out, batch, H,
+                                                   W, pj, st)
+                         : launch<false, 1, kExact>(planes, m, out, batch, H,
+                                                    W, pj, st);
+    if (e) return e;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B2d.  planes (B, 2, 2, H, W) float32, out (B, 4, H, W) float32.
+extern "C" int wb_grad_hist_float(const void* planes, const void* mask,
+                                  void* out, int batch, int H, int W,
+                                  int smooth, const double* cos4,
+                                  const double* sin4, void* stream) {
+  if (batch > 0 && H > 0 && W > 0) {
+    const Proj pj = projections(cos4, sin4);
+    const auto* m = static_cast<const uint8_t*>(mask);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int e = smooth ? launch<true, 4, kFloat>(planes, m, out, batch, H,
+                                                   W, pj, st)
+                         : launch<false, 4, kFloat>(planes, m, out, batch, H,
+                                                    W, pj, st);
     if (e) return e;
   }
   return static_cast<int>(cudaGetLastError());
@@ -642,18 +691,18 @@ extern "C" int wb_grad_hist_fast(const void* planes, const void* mask,
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     int e;
     if (smooth)
-      e = elem_bytes == 1   ? launch<true, 1, true>(planes, m, out, batch, H,
+      e = elem_bytes == 1   ? launch<true, 1, kFast>(planes, m, out, batch, H,
                                                     W, pj, st)
-          : elem_bytes == 2 ? launch<true, 2, true>(planes, m, out, batch, H,
+          : elem_bytes == 2 ? launch<true, 2, kFast>(planes, m, out, batch, H,
                                                     W, pj, st)
-                            : launch<true, 4, true>(planes, m, out, batch, H,
+                            : launch<true, 4, kFast>(planes, m, out, batch, H,
                                                     W, pj, st);
     else
-      e = elem_bytes == 1   ? launch<false, 1, true>(planes, m, out, batch,
+      e = elem_bytes == 1   ? launch<false, 1, kFast>(planes, m, out, batch,
                                                      H, W, pj, st)
-          : elem_bytes == 2 ? launch<false, 2, true>(planes, m, out, batch,
+          : elem_bytes == 2 ? launch<false, 2, kFast>(planes, m, out, batch,
                                                      H, W, pj, st)
-                            : launch<false, 4, true>(planes, m, out, batch,
+                            : launch<false, 4, kFast>(planes, m, out, batch,
                                                      H, W, pj, st);
     if (e) return e;
   }

@@ -101,7 +101,7 @@ def _empty():
 
 
 def _canvas(images: np.ndarray, packed, smooth, cf, dev) -> torch.Tensor:
-    """(B, C, Hc, Wc) canvas of a (B, H, W) uint8 numpy batch."""
+    """(B, C, Hc, Wc) canvas of a (B, H, W) uint8 or float32 numpy batch."""
     step = channel_canvas(packed, images.shape[1:], smooth, cf, dev)
     return step(torch.from_numpy(np.ascontiguousarray(images)).to(dev))
 
@@ -321,27 +321,29 @@ class Model:
                                      shrink, n_per_oct, (m, n), halo=cf.halo)
         return packed, smooth, cf
 
-    def _scan_setup(self, images: np.ndarray):
-        """``(packed, grid, canvas)`` of a (B, H, W) uint8 numpy batch on
-        the model's device: the plan, this window's grid and the (B, C, Hc,
-        Wc) canvas; None when the frames are too small for any level."""
+    def _scan_setup(self, images: np.ndarray, device=None):
+        """``(packed, grid, canvas)`` of a (B, H, W) uint8 or float32 numpy
+        batch on ``device`` (the model's when None): the plan, this
+        window's grid and the (B, C, Hc, Wc) canvas; None when the frames
+        are too small for any level."""
         packed, smooth, cf = self._plan(images.shape[1:])
         if not packed.levels:
             return None
-        dev = self.device
+        dev = self._device_for(device)
         grid = window_grid(packed, self.shape[:2], dev)
         return packed, grid, _canvas(images, packed, smooth, cf, dev)
 
-    def _dense(self, image):
-        """Canvas and kernel B4 over every stage for one image: ``(packed,
-        grid, hs, alive)`` with the counters tracked, or None when the
-        image is too small for any level."""
-        setup = self._scan_setup(as_image(image)[None])
+    def _dense(self, image, device=None):
+        """Canvas and kernel B4 over every stage for one image on
+        ``device`` (the model's when None): ``(packed, grid, hs, alive)``
+        with the counters tracked, or None when the image is too small
+        for any level."""
+        setup = self._scan_setup(as_image(image)[None], device)
         if setup is None:
             return None
         packed, grid, canvas = setup
         hs, alive, n_weak = cascade_response(canvas, grid.valid,
-                                             self._operands())
+                                             self._operands(device))
         self._track_cost(int(n_weak[0]), grid.n_loc)
         return packed, grid, hs, alive
 
@@ -476,8 +478,13 @@ class Model:
 
     def detect(self, image) -> Boxes:
         """Every surviving window of the full pyramid as an image-space box
-        with a 'scores' field (before NMS), rows in canvas order."""
-        dense = self._dense(image)
+        with a 'scores' field (before NMS), rows in canvas order.  ``image``
+        is (H, W) uint8 or float32 (float64 is rounded to float32)."""
+        return self._detect(image)
+
+    def _detect(self, image, device=None) -> Boxes:
+        """:meth:`detect` on ``device`` (the model's when None)."""
+        dense = self._dense(image, device)
         if dense is None:
             return _empty()
         packed, grid, hs, alive = dense

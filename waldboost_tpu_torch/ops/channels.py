@@ -1,21 +1,26 @@
-"""Kernels B2 and B2f: the pooled grad_hist channel canvas from polyphase
-planes.
+"""Kernels B2, B2d and B2f: the pooled grad_hist channel canvas from
+polyphase planes.
 
 Counterpart of ``waldboost_tpu/ops/channels_pallas.py::
 grad_hist_poly_pallas``: :func:`grad_hist` (B2) its exact uint8 variant,
-:func:`grad_hist_fast` (B2f) its ``fast=True`` variant.  The CUDA kernels
-are ``csrc/grad_hist.cu``; :func:`grad_hist_plain` and
-:func:`grad_hist_fast_plain` are the same chains in torch with shifted
-adds (no ``conv2d``: cuDNN would run it in TF32).  A CPU tensor takes the
-plain version, a CUDA tensor the kernel.
+:func:`grad_hist_float` (B2d) its ``float_dd`` variant for float32
+planes, :func:`grad_hist_fast` (B2f) its ``fast=True`` variant.  The CUDA
+kernels are ``csrc/grad_hist.cu``; :func:`grad_hist_plain`,
+:func:`grad_hist_float_plain` and :func:`grad_hist_fast_plain` are the
+same chains in torch with shifted adds (no ``conv2d``: cuDNN would run it
+in TF32).  A CPU tensor takes the plain version, a CUDA tensor the kernel.
 
 B2 values: ``f32(f64(gx*cos - gy*sin))`` per bin and phase with cos/sin of
 ``np.linspace(0, pi, 5)[:-1]`` computed by numpy on the host, ``abs``, the
 2x2 pool ``(((TL + BL) + TR) + BR) * 0.25``, and with ``smooth == 1`` the
 3x3/16 smooth in the reference's 9-term order and the interior-mask select.
-B2f: every step in f32, each operation rounded on its own (prefilters
-``(a + 2b) + c`` and the gradients in f32 too), the projection
-``gx*f32(cos) - gy*f32(sin)``, and one round to bfloat16 at the end.
+B2d: B2's chain on float32 planes, each prefilter ``(a + 2b) + c`` summed
+in float64 and rounded to float32 once (scipy's float64 accumulator), the
+gradient differences in float32, each bin ``f32(f64(gx)*cos -
+f64(gy)*sin)``.  B2f: every step in f32, each operation rounded on its
+own (prefilters ``(a + 2b) + c`` and the gradients in f32 too), the
+projection ``gx*f32(cos) - gy*f32(sin)``, and one round to bfloat16 at
+the end.
 """
 
 from __future__ import annotations
@@ -28,8 +33,8 @@ import torch
 
 from .._build import check, load_library
 
-__all__ = ["N_BINS", "grad_hist", "grad_hist_plain", "grad_hist_fast",
-           "grad_hist_fast_plain"]
+__all__ = ["N_BINS", "grad_hist", "grad_hist_plain", "grad_hist_float",
+           "grad_hist_float_plain", "grad_hist_fast", "grad_hist_fast_plain"]
 
 N_BINS = 4
 _THETA = np.linspace(0, np.pi, N_BINS + 1)[:-1]
@@ -41,6 +46,8 @@ SIN32 = tuple(float(v) for v in np.sin(_THETA).astype(np.float32))
 
 #: kernel launches made by :func:`grad_hist` (B2)
 grad_hist_launches = 0
+#: kernel launches made by :func:`grad_hist_float` (B2d)
+grad_hist_float_launches = 0
 #: kernel launches made by :func:`grad_hist_fast` (B2f)
 grad_hist_fast_launches = 0
 
@@ -92,9 +99,16 @@ def _entry(name: str):
 
 
 def _launch(name: str, planes: torch.Tensor, mask: Optional[torch.Tensor],
-            smooth: int, dtype: torch.dtype, *extra) -> torch.Tensor:
+            smooth: int, dtype: torch.dtype, *extra,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, _, _, H, W = planes.shape
-    out = torch.empty((B, N_BINS, H, W), dtype=dtype, device=planes.device)
+    shape = (B, N_BINS, H, W)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=planes.device)
+    elif out.dtype != dtype or tuple(out.shape) != shape \
+            or not out.is_contiguous() or out.device != planes.device:
+        raise ValueError(f"grad_hist: out must be a contiguous {shape} "
+                         f"{dtype} tensor beside the planes")
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     with torch.cuda.device(planes.device):
         err = _entry(name)(planes.data_ptr(),
@@ -115,6 +129,23 @@ def grad_hist(planes: torch.Tensor, mask: Optional[torch.Tensor],
     global grad_hist_launches
     out = _launch("wb_grad_hist", planes, mask, smooth, torch.float32)
     grad_hist_launches += 1
+    return out
+
+
+def grad_hist_float(planes: torch.Tensor, mask: Optional[torch.Tensor],
+                    smooth: int,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, 4, H, W) float32 channel canvas of exact float frames (B2d) from
+    (B, 2, 2, H, W) float32 planes, into ``out`` when given (every element
+    of it is written)."""
+    _check(planes, mask, smooth, (torch.float32,))
+    if planes.device.type == "cpu":
+        res = grad_hist_float_plain(planes, mask, smooth)
+        return res if out is None else out.copy_(res)
+    global grad_hist_float_launches
+    out = _launch("wb_grad_hist_float", planes, mask, smooth, torch.float32,
+                  out=out)
+    grad_hist_float_launches += 1
     return out
 
 
@@ -144,14 +175,18 @@ def _shift(p: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
     return out
 
 
-def _gradients(P: torch.Tensor):
+def _gradients(P: torch.Tensor, wide: bool = False):
     """``(gx, gy)``, each ``[a][q]`` per phase, of (B, 2, 2, H, W) int32 or
     float32 planes, zero off the canvas: prefilters ``(a + 2b) + c``, gx
     left minus right of the vertical one, gy above minus below of the
-    horizontal one, each operation rounded on its own."""
+    horizontal one, each operation rounded on its own; with ``wide`` each
+    prefilter of float32 planes is summed in float64 and rounded once."""
     P = [[P[:, 0, 0], P[:, 0, 1]], [P[:, 1, 0], P[:, 1, 1]]]
 
     def tap3(a, b, c):
+        if wide:
+            a, b, c = a.double(), b.double(), c.double()
+            return (a + 2 * b + c).to(torch.float32)
         return a + 2 * b + c
 
     sx = [[tap3(_shift(P[a][1], 0, -1), P[a][0], P[a][1]),
@@ -195,6 +230,17 @@ def grad_hist_plain(planes: torch.Tensor, mask: Optional[torch.Tensor],
     return _pool_smooth(
         gx, gy, lambda x, y, k: (x * COS[k] - y * SIN[k]).to(torch.float32)
         .abs(), mask, smooth)
+
+
+def grad_hist_float_plain(planes: torch.Tensor,
+                          mask: Optional[torch.Tensor],
+                          smooth: int) -> torch.Tensor:
+    """Plain-torch version of the exact-float grad_hist kernel (B2d)."""
+    _check(planes, mask, smooth, (torch.float32,))
+    gx, gy = _gradients(planes, wide=True)
+    return _pool_smooth(
+        gx, gy, lambda x, y, k: (x.double() * COS[k] - y.double() * SIN[k])
+        .to(torch.float32).abs(), mask, smooth)
 
 
 def grad_hist_fast_plain(planes: torch.Tensor, mask: Optional[torch.Tensor],

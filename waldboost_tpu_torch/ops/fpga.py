@@ -21,6 +21,14 @@ Per image-canvas pixel, every value an exact integer:
 * with ``smooth == 1`` the 3x3/16 smooth of the pooled canvas (pooled
   values outside the canvas read 0), ``>> 4``, then 0 outside the
   interior mask.
+
+Float frames (exact mode) give float32 planes, and the JAX package runs
+the same chain on them in XLA, outside any Pallas kernel
+(``polyphase._poly_channels`` routes float planes there): the Sobel sums
+and differences in float32, each rounded on its own, the halves
+truncated toward zero, ``min(floor(|r| / 4), 255)``, then the integer
+tail above.  :func:`fpga_channels_float` is that chain in plain torch,
+on the CPU and on the card alike.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ from .._build import check, load_library
 from .channels import _shift
 
 __all__ = ["RESPONSES", "MAX_CHANNELS", "response_codes", "fpga_channels",
-           "fpga_channels_plain"]
+           "fpga_channels_plain", "fpga_channels_float"]
 
 #: response codes of each FPGA kind, in channel order (csrc/fpga.cu)
 RESPONSES = {"grad_hist_4_u1": (0, 1, 2, 3), "grad_mag_u1": (4,)}
@@ -61,10 +69,13 @@ def response_codes(kind: str) -> Tuple[int, ...]:
 
 
 def _check(planes: torch.Tensor, ring: torch.Tensor,
-           interior: Optional[torch.Tensor], smooth: int) -> None:
-    if planes.dtype != torch.uint8 or planes.dim() != 5 \
+           interior: Optional[torch.Tensor], smooth: int,
+           dtype: torch.dtype = torch.uint8) -> None:
+    if planes.dtype != dtype or planes.dim() != 5 \
             or tuple(planes.shape[1:3]) != (2, 2):
-        raise ValueError("fpga_channels: planes must be (B, 2, 2, H, W) uint8")
+        name = str(dtype).replace("torch.", "")
+        raise ValueError(f"fpga_channels: planes must be (B, 2, 2, H, W) "
+                         f"{name}")
     hw = tuple(planes.shape[3:])
     if ring.dtype != torch.uint8 or tuple(ring.shape) != (2, 2) + hw:
         raise ValueError("fpga_channels: ring must be a (2, 2, H, W) uint8 "
@@ -120,9 +131,10 @@ def fpga_channels(planes: torch.Tensor, ring: torch.Tensor,
 
 
 def _sobel(planes: torch.Tensor):
-    """(dx, dy) int32 per phase ``[a][b]`` of (B, 2, 2, H, W) planes, in
-    the term order of the JAX package's ``_sobel_poly``."""
-    P = planes.to(torch.int32)
+    """(dx, dy) per phase ``[a][b]`` of (B, 2, 2, H, W) planes, in the term
+    order of the JAX package's ``_sobel_poly``: int32 of uint8 planes,
+    float32 (each operation rounded on its own) of float32 ones."""
+    P = planes if planes.is_floating_point() else planes.to(torch.int32)
     P = [[P[:, 0, 0], P[:, 0, 1]], [P[:, 1, 0], P[:, 1, 1]]]
     sy = [[_shift(P[1][b], -1, 0) + 2 * P[0][b] + P[1][b] for b in (0, 1)],
           [P[0][b] + 2 * P[1][b] + _shift(P[0][b], +1, 0) for b in (0, 1)]]
@@ -136,6 +148,8 @@ def _sobel(planes: torch.Tensor):
 
 
 def _response(code: int, dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The response ``code`` of (dx, dy); on floats a half is
+    ``fl(dx - dy) / 2``, which equals JAX's ``0.5*dx - 0.5*dy``."""
     if code == 0:
         return dx
     if code == 1:
@@ -151,17 +165,38 @@ def fpga_channels_plain(planes: torch.Tensor, ring: torch.Tensor,
                         interior: Optional[torch.Tensor], kind: str,
                         smooth: int) -> torch.Tensor:
     """Plain-torch version of the FPGA channel kernel."""
-    codes = response_codes(kind)
     _check(planes, ring, interior, smooth)
+    return _fpga_tail(planes, ring, interior, kind, smooth)
+
+
+def fpga_channels_float(planes: torch.Tensor, ring: torch.Tensor,
+                        interior: Optional[torch.Tensor], kind: str,
+                        smooth: int) -> torch.Tensor:
+    """(B, C, H, W) float32 FPGA channel canvas of (B, 2, 2, H, W) float32
+    planes (exact float frames; plain torch on every device)."""
+    _check(planes, ring, interior, smooth, torch.float32)
+    return _fpga_tail(planes, ring, interior, kind, smooth)
+
+
+def _fpga_tail(planes: torch.Tensor, ring: torch.Tensor,
+               interior: Optional[torch.Tensor], kind: str,
+               smooth: int) -> torch.Tensor:
+    """The chain after the checks: Sobel, responses, quantization, ring,
+    wrapping pool and smooth, integers from the quantization on."""
+    codes = response_codes(kind)
     dx, dy = _sobel(planes)
     keep = ring.bool()
     zero = torch.zeros((), dtype=torch.int32, device=planes.device)
     chans = []
     for code in codes:
         def q(a, b):
-            r = _response(code, dx[a][b], dy[a][b])
-            return torch.where(keep[a, b],
-                               torch.clamp(r.abs() >> 2, max=255), zero)
+            r = _response(code, dx[a][b], dy[a][b]).abs()
+            if r.is_floating_point():  # floor(|r| / 4): exact scaling
+                r = torch.floor(torch.clamp(r * 0.25, max=255.0)).to(
+                    torch.int32)
+            else:
+                r = torch.clamp(r >> 2, max=255)
+            return torch.where(keep[a, b], r, zero)
 
         s = (q(0, 0) + q(1, 0)) + (q(0, 1) + q(1, 1))
         pooled = (s & 255) >> 2

@@ -7,11 +7,15 @@ torch indexing.  A CPU tensor takes the plain version, a CUDA tensor the
 kernel.  Both write every byte of the canvas, the gaps between levels as
 0, so the canvas needs no zero fill first.
 
-:func:`planes_float_fast` builds the planes of float32 frames in fast
-serving mode.  JAX computes it in XLA, outside any Pallas kernel
-(``waldboost_tpu/polyphase.py::_poly_level_blocks`` with ``fast=True``,
-``_combine_block_plain``), and so does the port: a handful of torch ops
-over the whole canvas.
+:func:`planes_float` builds the planes of exact float32 frames,
+:func:`planes_float_fast` those of fast serving mode.  JAX computes both
+in XLA, outside any Pallas kernel (``waldboost_tpu/polyphase.py::
+_poly_level_blocks``: ``_combine_block_dd`` emulates float64 in
+double-float pairs, ``_combine_block_plain`` with ``fast=True``), and so
+does the port: a handful of torch ops over the whole canvas, the exact
+build in native float64 tensors (each operation rounded on its own, no
+fused multiply-add), the reference's own arithmetic
+(``tests/oracle.py::resize_bilinear``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from .._build import check, load_library
 from ..polyphase import META_COLS, FloatPlaneTables, PlaneTables
 
 __all__ = ["PlaneOperands", "octave_buffer", "planes", "planes_plain",
-           "FloatPlaneOperands", "planes_float_fast"]
+           "FloatPlaneOperands", "planes_float", "planes_float_fast"]
 
 #: kernel launches made by :func:`planes`
 planes_launches = 0
@@ -170,12 +174,48 @@ class FloatPlaneOperands:
     index: torch.Tensor
     fh: torch.Tensor
     fw: torch.Tensor
+    fh64: torch.Tensor
+    fw64: torch.Tensor
 
     @staticmethod
     def build(tables: FloatPlaneTables, device) -> "FloatPlaneOperands":
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
         return FloatPlaneOperands(tables, t(tables.index), t(tables.fh),
-                                  t(tables.fw))
+                                  t(tables.fw), t(tables.fh64),
+                                  t(tables.fw64))
+
+
+def _check_float(octs: torch.Tensor, ops: FloatPlaneOperands,
+                 what: str) -> None:
+    if octs.dtype != torch.float32 or octs.dim() != 2 \
+            or octs.shape[1] != ops.host.n_src:
+        raise ValueError(f"{what}: octaves must be a (B, {ops.host.n_src}) "
+                         "float32 tensor")
+    if octs.device != ops.index.device:
+        raise ValueError(f"{what}: octaves and tables on different devices")
+
+
+def _corners(src: torch.Tensor, ops: FloatPlaneOperands):
+    """Each plane element's four corners (row i0, col i0), (i0, i1),
+    (i1, i0), (i1, i1) of a (B, n_src + 1) octave buffer."""
+    return (src.index_select(1, ops.index[k]) for k in range(4))
+
+
+def planes_float(octs: torch.Tensor, ops: FloatPlaneOperands) -> torch.Tensor:
+    """(B, 2, 2, PH, PW) float32 planes of a (B, S) float32 octave buffer
+    of exact float frames: per element the reference's float64 two-pass
+    lerp, ``top*(1 - fr) + bot*fr`` down each of the two corner columns,
+    then ``left*(1 - fc) + right*fc`` across them on the unrounded rows,
+    and one float32 rounding."""
+    _check_float(octs, ops, "planes_float")
+    B = octs.shape[0]
+    src = torch.nn.functional.pad(octs, (0, 1)).double()  # the gaps' zero
+    g00, g01, g10, g11 = _corners(src, ops)
+    fh, fw = ops.fh64, ops.fw64
+    left = g00 * (1 - fh) + g10 * fh
+    right = g01 * (1 - fh) + g11 * fh
+    out = left * (1 - fw) + right * fw
+    return out.to(torch.float32).view((B, 2, 2) + tuple(ops.host.plane_hw))
 
 
 def planes_float_fast(octs: torch.Tensor, ops: FloatPlaneOperands,
@@ -186,21 +226,15 @@ def planes_float_fast(octs: torch.Tensor, ops: FloatPlaneOperands,
     rounded on its own.  ``out_dtype`` float32, or bfloat16: the octave
     values are rounded to bfloat16 (to nearest even) before the lerp and
     the result after it."""
-    if octs.dtype != torch.float32 or octs.dim() != 2 \
-            or octs.shape[1] != ops.host.n_src:
-        raise ValueError(f"planes_float_fast: octaves must be a (B, "
-                         f"{ops.host.n_src}) float32 tensor")
+    _check_float(octs, ops, "planes_float_fast")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("planes_float_fast: out_dtype is float32 or "
                          "bfloat16")
-    if octs.device != ops.index.device:
-        raise ValueError("planes_float_fast: octaves and tables on "
-                         "different devices")
     B = octs.shape[0]
     src = torch.nn.functional.pad(octs, (0, 1))  # the gaps' zero
     if out_dtype == torch.bfloat16:
         src = src.to(torch.bfloat16).to(torch.float32)
-    g00, g01, g10, g11 = (src.index_select(1, ops.index[k]) for k in range(4))
+    g00, g01, g10, g11 = _corners(src, ops)
     r0 = g00 + ops.fh * (g10 - g00)
     r1 = g01 + ops.fh * (g11 - g01)
     out = r0 + ops.fw * (r1 - r0)

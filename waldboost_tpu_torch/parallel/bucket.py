@@ -1,0 +1,315 @@
+"""True-size detection inside shape buckets: serving at any frame size.
+
+Counterpart of ``waldboost_tpu/parallel/bucket.py``.  A frame size is
+snapped up to a coarse bucket, and the bucket's packed pyramid plan (the
+packer's layout search, run once per bucket) gives every level its place
+on the canvas.  For each real size, :func:`bucket_geometry` puts the
+levels of the real-size pyramid into those places: a
+:class:`~waldboost_tpu_torch.packing.PackedPyramidPlan` with the bucket's
+canvas, halo, bands and placements and the real levels' extents.  All the
+port derives from a packed plan then follows unchanged (the plane tables
+of kernel B1 and of the float builds, the smooth interior mask, the valid
+mask and level maps, the FPGA family's masks), so a new size costs host
+tables and no packer run.  Each real level lies inside its bucket slot, a
+slot's area beyond the level's halo is a gap (B1 writes 0 there; the JAX
+package fills it with clamped copies), and no valid window reads it, so
+the survivors and scores are ``Model.detect``'s at the real size, uint8
+and float frames alike.
+
+One bucket program runs the octave chain of the real-size crop of a
+batch padded to the bucket, the planes (B1, or the float builds), the
+channels (B2, B2d or B5), the walk (B3) with the size's valid mask, the
+extraction with its level maps, and NMS.  Fast serving mode follows the
+JAX package's bucket: uint8 frames take B2's exact canvas rounded to
+bfloat16 and walked by B3f, float frames the float-fast planes, B2f and
+B3f; the FPGA family ignores it.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..boxes import Boxes, non_max_suppression
+from ..canvas import (FAST_FLOAT, ChannelCanvas, WindowGrid, as_image,
+                      serving_opts, span)
+from ..channels import pyramid_plan, resolve_channel_function
+from ..device import no_mesh
+from ..model import Model
+from ..ops.cascade_static import cascade_masked
+from ..packing import PackedPyramidPlan, _packed_plan_cached
+from .detect import empty_results, extract_boxes
+
+__all__ = ["BucketedDetector", "BucketProgram", "BucketSize",
+           "make_bucket_detector_boxes", "bucket_geometry"]
+
+
+@functools.lru_cache(maxsize=256)
+def bucket_geometry(bucket_hw: Tuple[int, int], real_hw: Tuple[int, int],
+                    window: Tuple[int, int], shrink: int, n_per_oct: int,
+                    cf_name: str) -> PackedPyramidPlan:
+    """The packed plan of ``real_hw`` frames in the ``bucket_hw`` bucket:
+    the bucket plan's canvas, halo, bands and placements, each slot
+    holding the real-size level of its plan index; slots whose level has
+    no window origin at the real size are dropped."""
+    cf = resolve_channel_function(cf_name)
+    h, w = (int(v) for v in real_hw)
+    if not (0 < h <= bucket_hw[0] and 0 < w <= bucket_hw[1]):
+        raise ValueError(f"frame {real_hw} does not fit bucket {bucket_hw}")
+    packed = _packed_plan_cached(int(bucket_hw[0]), int(bucket_hw[1]), shrink,
+                                 n_per_oct, tuple(window), halo=cf.halo)
+    plan = pyramid_plan(h, w, shrink, n_per_oct)
+    m, n = window
+    levels = []
+    for pl in packed.levels:
+        rlv = plan[pl.plan_index] if pl.plan_index < len(plan) else None
+        if rlv is None or rlv.out_height <= m or rlv.out_width <= n:
+            continue
+        if rlv.height > pl.level.height or rlv.width > pl.level.width:
+            raise ValueError(f"level {pl.plan_index} of {real_hw} outgrows "
+                             f"its slot in bucket {bucket_hw}")
+        levels.append(dataclasses.replace(pl, level=rlv))
+    return dataclasses.replace(packed, levels=tuple(levels))
+
+
+class BucketSize:
+    """One real frame size's operands of a bucket program on its device:
+    its packed plan (:func:`bucket_geometry`), the channel-canvas steps
+    (exact, and with ``fast`` the float-fast one) and the window grid."""
+
+    def __init__(self, packed: PackedPyramidPlan, real_hw: Tuple[int, int],
+                 window: Tuple[int, int], smooth: int, cf, device,
+                 fast: bool, fast_float: str):
+        self.real_hw = tuple(real_hw)
+        self.packed = packed
+        self.canvas = ChannelCanvas(packed, real_hw, smooth, cf, device)
+        self.fast_canvas = ChannelCanvas(packed, real_hw, smooth, cf, device,
+                                         True, fast_float) \
+            if fast and cf.fused_kind is None else None
+        self.grid = WindowGrid(packed, window, device)
+
+
+class BucketProgram:
+    """``fn(images, geom) -> (rects, scores, valid, count, n_weak)`` of one
+    bucket: ``images`` a (B, Hb, Wb) uint8 or float32 batch padded to the
+    bucket, ``geom`` a :class:`BucketSize` of :meth:`geometry`; the
+    outputs as :func:`~waldboost_tpu_torch.parallel.detect.
+    make_batched_detector_boxes`'s at the real size.  Built by
+    :func:`make_bucket_detector_boxes`."""
+
+    def __init__(self, model: Model, bucket_hw: Tuple[int, int], k: int,
+                 nms_iou: Optional[float], with_n_weak: bool, device,
+                 fast: bool, fast_float: str):
+        shrink, n_per_oct, smooth, cf = serving_opts(model.channel_opts,
+                                                     model.shape[2])
+        if fast_float not in FAST_FLOAT:
+            raise ValueError(f"fast_float must be one of {sorted(FAST_FLOAT)}"
+                             f", got {fast_float!r}")
+        self.bucket_hw = tuple(int(v) for v in bucket_hw)
+        self.window = model.shape[:2]
+        self.k = int(k)
+        self.nms_iou = nms_iou
+        self.with_n_weak = with_n_weak
+        self.device = device
+        self.fast = bool(fast) and cf.fused_kind is None
+        self.fast_float = fast_float
+        self._opts = (shrink, n_per_oct, smooth, cf)
+        # the bucket's packer run: every real size reuses its placements
+        self.packed = _packed_plan_cached(self.bucket_hw[0],
+                                          self.bucket_hw[1], shrink,
+                                          n_per_oct, self.window,
+                                          halo=cf.halo)
+        self.cascade_ops = model._operands(device)
+
+    def geometry(self, real_hw: Tuple[int, int]) -> BucketSize:
+        """The operands of ``real_hw`` frames (host tables, then copied to
+        the device; the plane tables of each frame type at its first
+        batch)."""
+        shrink, n_per_oct, smooth, cf = self._opts
+        packed = bucket_geometry(self.bucket_hw, tuple(real_hw), self.window,
+                                 shrink, n_per_oct, cf.name)
+        return BucketSize(packed, real_hw, self.window, smooth, cf,
+                          self.device, self.fast, self.fast_float)
+
+    def __call__(self, images: torch.Tensor, geom: BucketSize):
+        Hb, Wb = self.bucket_hw
+        if not isinstance(images, torch.Tensor) or images.dim() != 3 \
+                or tuple(images.shape[1:]) != (Hb, Wb) \
+                or images.dtype not in (torch.uint8, torch.float32):
+            raise ValueError(f"images must be a (B, {Hb}, {Wb}) uint8 or "
+                             f"float32 tensor")
+        if images.device != self.device:
+            raise ValueError(f"images on {images.device}, detector built for "
+                             f"{self.device}")
+        B = images.shape[0]
+        if not geom.packed.levels:
+            return empty_results(B, self.device)
+        h, w = geom.real_hw
+        crop = images[:, :h, :w]
+        if self.fast and crop.is_floating_point():
+            canvas = geom.fast_canvas(crop)
+        else:
+            canvas = geom.canvas(crop)
+            if self.fast:  # B2's exact values, walked in bfloat16
+                canvas = canvas.to(torch.bfloat16)
+        with span("wb.cascade"):
+            masked, n_weak, count = cascade_masked(canvas, geom.grid.valid,
+                                                   self.cascade_ops)
+        rects, scores, keep, count = extract_boxes(masked, count, geom.grid,
+                                                   self.k, self.nms_iou)
+        if not self.with_n_weak:
+            n_weak = torch.zeros_like(n_weak)
+        return rects, scores, keep, count, n_weak
+
+
+def make_bucket_detector_boxes(model: Model, bucket_hw: Tuple[int, int],
+                               k: int = 1024,
+                               nms_iou: Optional[float] = None, mesh=None,
+                               with_n_weak: bool = False, verifier=None,
+                               device=None, fast: bool = False,
+                               fast_float: str = "f32"):
+    """One program for true-size detection at every frame size inside
+    ``bucket_hw``: ``(fn, packed)`` with ``fn`` a :class:`BucketProgram`
+    (``fn(images, fn.geometry(real_hw))``) and ``packed`` the bucket's
+    packed plan.  ``count == -1`` flags more than ``k`` survivors (callers
+    fall back to the per-size path).  ``fast`` and ``fast_float`` are the
+    serving mode, fixed at build time; runs on ``device`` (the model's
+    when None)."""
+    no_mesh(mesh, "bucketed serving")
+    if verifier is not None:
+        raise NotImplementedError("the CNN verifier is not ported yet "
+                                  "(ROADMAP item A10)")
+    if int(k) < 1:
+        raise ValueError(f"k must be positive, got {k}")
+    fn = BucketProgram(model, bucket_hw, k, nms_iou, with_n_weak,
+                       model._device_for(device), fast, fast_float)
+    return fn, fn.packed
+
+
+class BucketedDetector:
+    """Serving at any frame size: true-size detection with one set-up per
+    coarse bucket.
+
+    Each (H, W) snaps up to the bucket grid (:meth:`_snap`); a bucket's
+    set-up runs the packer once (``compiles`` counts them), and each real
+    size inside it costs its host tables, kept in a per-bucket LRU of
+    ``MAX_SIZES``.  ``detect(image)`` equals ``Model.detect(image)`` (then
+    NMS with ``nms_iou``) at every size, boxes and scores bitwise; an
+    image with more than ``k`` survivors falls back to ``Model.detect`` on
+    the same device.  ``detect_many`` groups images by (bucket, size,
+    frame type) and runs each group in batches of ``max_batch``.  With
+    ``track_cost`` each image's weak evaluations and scanned windows are
+    folded into the model's cost counters, as ``Model.detect`` folds them.
+    ``fast`` / ``fast_float``: fast serving mode (see
+    :mod:`waldboost_tpu_torch.parallel.bucket`).  Runs on ``device`` (the
+    model's when None)."""
+
+    #: real sizes whose device tables each bucket keeps
+    MAX_SIZES = 16
+
+    def __init__(self, model: Model, bucket: int = 128, k: int = 1024,
+                 nms_iou: Optional[float] = None, mesh=None,
+                 max_batch: int = 16, track_cost: bool = False,
+                 verifier=None, fast: bool = False, fast_float: str = "f32",
+                 device=None):
+        no_mesh(mesh, "bucketed serving")
+        if verifier is not None:
+            raise NotImplementedError("the CNN verifier is not ported yet "
+                                      "(ROADMAP item A10)")
+        serving_opts(model.channel_opts, model.shape[2])
+        if fast_float not in FAST_FLOAT:
+            raise ValueError(f"fast_float must be one of {sorted(FAST_FLOAT)}"
+                             f", got {fast_float!r}")
+        self.model = model
+        self.bucket = int(bucket)
+        self.k = int(k)
+        self.nms_iou = nms_iou
+        self.max_batch = int(max_batch)
+        self.track_cost = bool(track_cost)
+        self.fast = bool(fast)
+        self.fast_float = fast_float
+        self.device = model._device_for(device)
+        self._programs: Dict[Tuple[int, int], BucketProgram] = {}
+        self._sizes: Dict[Tuple[int, int], collections.OrderedDict] = {}
+        self.compiles = 0  # bucket set-ups (packer runs) so far
+
+    def _snap(self, h: int, w: int) -> Tuple[int, int]:
+        b = self.bucket
+        m, n, _ = self.model.shape
+        return max(-(-h // b) * b, m * 2), max(-(-w // b) * b, n * 2)
+
+    def _program(self, bucket_hw) -> BucketProgram:
+        if bucket_hw not in self._programs:
+            self._programs[bucket_hw] = make_bucket_detector_boxes(
+                self.model, bucket_hw, k=self.k, nms_iou=self.nms_iou,
+                with_n_weak=self.track_cost, device=self.device,
+                fast=self.fast, fast_float=self.fast_float)[0]
+            self._sizes[bucket_hw] = collections.OrderedDict()
+            self.compiles += 1
+        return self._programs[bucket_hw]
+
+    def _geometry(self, bucket_hw, real_hw) -> BucketSize:
+        sizes = self._sizes[bucket_hw]
+        if real_hw in sizes:
+            sizes.move_to_end(real_hw)
+        else:
+            sizes[real_hw] = self._programs[bucket_hw].geometry(real_hw)
+            if len(sizes) > self.MAX_SIZES:
+                sizes.popitem(last=False)
+        return sizes[real_hw]
+
+    def _fallback_detect(self, image) -> Boxes:
+        """The per-size path (more than ``k`` survivors), then NMS."""
+        bx = self.model._detect(image, self.device)
+        if self.nms_iou is not None and len(bx):
+            bx = non_max_suppression(bx, iou_threshold=float(self.nms_iou))
+        return bx
+
+    def _run_group(self, bucket_hw, real_hw, images):
+        fn = self._program(bucket_hw)
+        geom = self._geometry(bucket_hw, real_hw)
+        H, W = bucket_hw
+        out = []
+        # no padding of the batch to a power of two: nothing is compiled
+        # per batch size
+        for i0 in range(0, len(images), self.max_batch):
+            chunk = images[i0:i0 + self.max_batch]
+            batch = np.zeros((len(chunk), H, W), chunk[0].dtype)
+            for j, im in enumerate(chunk):
+                batch[j, :im.shape[0], :im.shape[1]] = im
+            rects, scores, valid, count, n_weak = (
+                a.cpu().numpy()
+                for a in fn(torch.from_numpy(batch).to(self.device), geom))
+            for j, im in enumerate(chunk):
+                if count[j] < 0:
+                    out.append(self._fallback_detect(im))
+                    continue
+                if self.track_cost:
+                    self.model._track_cost(int(n_weak[j]), geom.grid.n_loc)
+                bx = Boxes(rects[j][valid[j]])
+                bx.set_field("scores", scores[j][valid[j]].astype(np.float32))
+                out.append(bx)
+        return out
+
+    def detect(self, image) -> Boxes:
+        return self.detect_many([image])[0]
+
+    def detect_many(self, images):
+        """One :class:`Boxes` per (H, W) image, in order."""
+        images = [as_image(im) for im in images]
+        groups: Dict = {}
+        for idx, im in enumerate(images):
+            key = (self._snap(*im.shape), im.shape, im.dtype.str)
+            groups.setdefault(key, []).append(idx)
+        out = [None] * len(images)
+        for (bucket_hw, real_hw, _), idxs in groups.items():
+            boxes = self._run_group(bucket_hw, real_hw,
+                                    [images[i] for i in idxs])
+            for i, b in zip(idxs, boxes):
+                out[i] = b
+        return out

@@ -4,17 +4,22 @@ Counterpart of ``waldboost_tpu/parallel/detect.py``:
 ``make_batched_detector`` (unmasked maps through kernel B4, with the
 two-phase ``n_stages_cap``), ``make_batched_detector_boxes`` (its
 one-program masked path), ``make_multi_detector_boxes`` and
-``detect_batch``.  The main path for a (B, H, W) uint8 batch:
+``detect_batch``; ``BucketedDetector`` and ``make_bucket_detector_boxes``
+(any frame size) come from :mod:`.bucket`.  The main path for a (B, H, W)
+uint8 batch:
 
     canvas    octaves, planes (B1), channel canvas (B2 grad_hist, B5 FPGA)
               (canvas.py)
     cascade   frozen cascade, masked score map (kernel B3, ops/cascade_static.py)
     extract   exact top-k boxes and greedy NMS     (ops/nms.py, plain torch)
 
-Fast serving mode (``fast=True``, JAX's ``WB_SERVING_MODE=fast``) makes a
-bfloat16 grad_hist canvas with kernel B2f and walks it with B3f (B4 for
-``make_batched_detector``), and serves float32 frames too, their planes
-float32 or bfloat16 by ``fast_float`` (JAX's ``WB_FAST_FLOAT``).  Both
+Float32 frames take the f32 octave chain, the float64 plane build and
+kernel B2d in place of B1 and B2 (JAX's ``canvas_float_b``, exact float
+serving).  Fast serving mode (``fast=True``, JAX's
+``WB_SERVING_MODE=fast``) makes a bfloat16 grad_hist canvas with kernel
+B2f and walks it with B3f (B4 for ``make_batched_detector``), float32
+frames' planes float32 or bfloat16 by ``fast_float`` (JAX's
+``WB_FAST_FLOAT``).  Both
 are arguments, fixed when the detector is built: the port reads no
 environment variable for them.
 
@@ -45,29 +50,47 @@ from ..packing import PackedPyramidPlan
 
 __all__ = ["BatchedDetector", "make_batched_detector",
            "make_batched_detector_boxes", "make_multi_detector_boxes",
-           "detect_batch", "span"]
+           "detect_batch", "span", "BucketedDetector",
+           "make_bucket_detector_boxes"]
 
 
-def _check_images(images, image_shape, device, floats: bool = False) -> int:
-    """The batch size of a (B, H, W) batch: uint8, or float32 where
-    ``floats`` (fast serving mode of a grad_hist model)."""
+def _check_images(images, image_shape, device) -> int:
+    """The batch size of a (B, H, W) uint8 or float32 batch."""
     h, w = image_shape
     if not isinstance(images, torch.Tensor):
         raise ValueError("images must be a torch tensor")
-    if images.is_floating_point() and not floats:
-        raise NotImplementedError("float images are served in fast mode of "
-                                  "grad_hist models only; exact float "
-                                  "serving is ROADMAP item A6")
-    types = (torch.uint8, torch.float32) if floats else (torch.uint8,)
-    if images.dtype not in types or images.dim() != 3 \
+    if images.dtype not in (torch.uint8, torch.float32) or images.dim() != 3 \
             or tuple(images.shape[1:]) != (h, w):
-        kinds = " or ".join(str(t).replace("torch.", "") for t in types)
-        raise ValueError(f"images must be (B, {h}, {w}) {kinds}, got "
-                         f"{tuple(images.shape)} {images.dtype}")
+        raise ValueError(f"images must be (B, {h}, {w}) uint8 or float32, "
+                         f"got {tuple(images.shape)} {images.dtype}")
     if images.device != device:
         raise ValueError(f"images on {images.device}, detector built for "
                          f"{device}")
     return images.shape[0]
+
+
+def extract_boxes(masked: torch.Tensor, count: torch.Tensor, grid, k: int,
+                  nms_iou: Optional[float]):
+    """``(rects, scores, keep, count)``: the ``k`` best survivors of a
+    masked score map as boxes through ``grid``'s level maps, then greedy
+    NMS with ``nms_iou`` (none when None)."""
+    with span("wb.extract"):
+        rects, scores, keep, count = extract_detections(
+            masked, count, grid.level_id, grid.offsets, grid.inv_scales,
+            grid.window, k)
+    if nms_iou is not None:
+        with span("wb.nms"):
+            keep = keep & nms(rects, scores, keep, float(nms_iou))
+    return rects, scores, keep, count
+
+
+def empty_results(B: int, device):
+    """The outputs of a detector over frames too small for any level:
+    (B, 0, 4) boxes, (B, 0) scores and keep mask, (B,) counts and n_weak."""
+    z = lambda *s, dt: torch.zeros(s, dtype=dt, device=device)
+    return (z(B, 0, 4, dt=torch.float32), z(B, 0, dt=torch.float32),
+            z(B, 0, dt=torch.bool), z(B, dt=torch.int32),
+            z(B, dt=torch.int32))
 
 
 class BatchedDetector:
@@ -101,26 +124,14 @@ class BatchedDetector:
         return cascade_masked(canvas, self.grid.valid, self.cascade_ops)
 
     def extract(self, masked: torch.Tensor, count: torch.Tensor):
-        g = self.grid
-        with span("wb.extract"):
-            rects, scores, keep, count = extract_detections(
-                masked, count, g.level_id, g.offsets, g.inv_scales,
-                self.window, self.k)
-        if self.nms_iou is not None:
-            with span("wb.nms"):
-                keep = keep & nms(rects, scores, keep, float(self.nms_iou))
-        return rects, scores, keep, count
+        return extract_boxes(masked, count, self.grid, self.k, self.nms_iou)
 
     def __call__(self, images: torch.Tensor):
         """``(rects, scores, valid, count, n_weak)`` of a (B, H, W) batch;
         see :func:`make_batched_detector_boxes`."""
-        B = _check_images(images, self.image_shape, self.device,
-                          self.canvas.fast)
+        B = _check_images(images, self.image_shape, self.device)
         if not self.packed.levels:
-            z = lambda *s, dt: torch.zeros(s, dtype=dt, device=self.device)
-            return (z(B, 0, 4, dt=torch.float32), z(B, 0, dt=torch.float32),
-                    z(B, 0, dt=torch.bool), z(B, dt=torch.int32),
-                    z(B, dt=torch.int32))
+            return empty_results(B, self.device)
         canvas = self.canvas(images)
         with span("wb.cascade"):
             masked, n_weak, count = self.cascade(canvas)
@@ -149,7 +160,7 @@ def make_batched_detector(model: Model, image_shape: Tuple[int, int],
     ops = model._operands(dev)
 
     def fn(images: torch.Tensor):
-        B = _check_images(images, (h, w), dev, canvas.fast)
+        B = _check_images(images, (h, w), dev)
         if not packed.levels:
             gu, gv = grid.valid.shape
             return (torch.zeros((B, gu, gv), dtype=torch.float32, device=dev),
@@ -172,9 +183,9 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
                                 fast: bool = False, fast_float: str = "f32"):
     """Build a batched detector for ``model`` on ``image_shape`` frames.
 
-    Returns ``(fn, packed)``; ``fn(images)`` takes a (B, H, W) uint8 tensor
-    on the detector's device and returns ``(rects, scores, valid, count,
-    n_weak)``: per image the ``k`` best survivors as image-space XYXY boxes
+    Returns ``(fn, packed)``; ``fn(images)`` takes a (B, H, W) uint8 or
+    float32 tensor on the detector's device and returns ``(rects, scores,
+    valid, count, n_weak)``: per image the ``k`` best survivors as image-space XYXY boxes
     (B, k, 4) float32 with their scores (B, k), the mask of real (and, with
     ``nms_iou``, NMS-kept) entries (B, k), the exact survivor count (B,)
     int32 (-1 when it exceeds ``k``), and the number of weak-classifier
@@ -182,9 +193,9 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
     the packed pyramid plan; ``fn`` is a :class:`BatchedDetector`.
 
     ``fast`` is fast serving mode (JAX's ``WB_SERVING_MODE=fast``): a
-    bfloat16 canvas from kernel B2f, walked by B3f; ``fn`` then takes
-    float32 frames too, their planes float32 (``fast_float="f32"``) or
-    bfloat16 (``"bf16"``, JAX's ``WB_FAST_FLOAT=bf16``).  The results are
+    bfloat16 canvas from kernel B2f, walked by B3f; float32 frames' planes
+    are then float32 (``fast_float="f32"``) or bfloat16 (``"bf16"``, JAX's
+    ``WB_FAST_FLOAT=bf16``).  The results are
     JAX's fast mode's, not the exact path's.  FPGA models have no fast
     variant: they serve uint8 frames as in exact mode.
     """
@@ -239,7 +250,7 @@ def make_multi_detector_boxes(models: Sequence[Model],
               float(np.float32(s))) for mm, s in zip(models, response_scale)]
 
     def fn(images: torch.Tensor):
-        B = _check_images(images, (h, w), dev, canvas.fast)
+        B = _check_images(images, (h, w), dev)
         if not packed.levels:
             z = lambda *s, dt: torch.zeros(s, dtype=dt, device=dev)
             return (z(B, 0, 4, dt=torch.float32), z(B, 0, dt=torch.float32),
@@ -293,3 +304,7 @@ def detect_batch(model: Model, images, k: int = 4096, mesh=None
         bx.set_field("scores", scores[b][sel].astype(np.float32))
         out.append(bx)
     return out
+
+
+from .bucket import (BucketedDetector,  # noqa: E402  (imports this module)
+                     make_bucket_detector_boxes)

@@ -265,19 +265,22 @@ def plane_tables(packed: PackedPyramidPlan, halo: int,
 
 @dataclasses.dataclass(frozen=True)
 class FloatPlaneTables:
-    """Host tables of the float-frame plane build of fast serving mode
-    (``ops/planes.py::planes_float_fast``), one entry per element of the
-    flattened ``(2, 2, PH, PW)`` plane canvas.
+    """Host tables of the float-frame plane builds (``ops/planes.py::
+    planes_float`` for exact float frames, ``planes_float_fast`` for fast
+    serving mode), one entry per element of the flattened ``(2, 2, PH,
+    PW)`` plane canvas.
 
     ``index`` (4, N) int32: the element's four corners as offsets into the
     flattened octave buffer, in the order (row i0, col i0), (row i0, col
     i1), (row i1, col i0), (row i1, col i1) with ``i1 = min(i0 + 1, n -
     1)``; gap elements point at ``n_src``, one zero appended to the buffer.
-    ``fh``/``fw`` (N,) float32: the f32 roundings of the row and column
-    fractions (0 in gaps).  ``oct_hw`` are the octave shapes, ``plane_hw``
-    = (PH, PW)."""
+    ``fh64``/``fw64`` (N,) float64: the row and column fractions
+    (``resize_taps64``; 0 in gaps), ``fh``/``fw`` their f32 roundings.
+    ``oct_hw`` are the octave shapes, ``plane_hw`` = (PH, PW)."""
 
     index: np.ndarray
+    fh64: np.ndarray
+    fw64: np.ndarray
     fh: np.ndarray
     fw: np.ndarray
     n_src: int
@@ -302,8 +305,8 @@ def float_plane_tables(packed: PackedPyramidPlan, halo: int,
     row0 = _level_rows(packed, he2, PH)
     N = 4 * PH * PW
     index = np.full((4, N), n_src, np.int32)
-    fh = np.zeros(N, np.float32)
-    fw = np.zeros(N, np.float32)
+    fh = np.zeros(N, np.float64)
+    fw = np.zeros(N, np.float64)
     for li, pl in enumerate(packed.levels):
         lv = pl.level
         oh, ow = oct_hw[lv.octave]
@@ -323,7 +326,9 @@ def float_plane_tables(packed: PackedPyramidPlan, halo: int,
         for k in range(4):
             index[k, pos] = oct_off[lv.octave] + rows[k >> 1][hr] * ow \
                 + cols[k & 1][wc]
-        fh[pos] = frh.astype(np.float32)[hr]
-        fw[pos] = frw.astype(np.float32)[wc]
-    return FloatPlaneTables(index=index, fh=fh, fw=fw, n_src=n_src,
-                            oct_hw=tuple(oct_hw), plane_hw=(PH, PW))
+        fh[pos] = frh[hr]
+        fw[pos] = frw[wc]
+    return FloatPlaneTables(index=index, fh64=fh, fw64=fw,
+                            fh=fh.astype(np.float32), fw=fw.astype(np.float32),
+                            n_src=n_src, oct_hw=tuple(oct_hw),
+                            plane_hw=(PH, PW))
