@@ -8,8 +8,10 @@ C = 5, shrink 2, n_per_oct 4, smooth 0 and 1, the committed
 models/fpga_4k_*synth_64.pb), its fast serving mode on VGA uint8 and
 float32 frames, exact float32 frames, bucketed serving at any frame size
 (BucketedDetector), its host-pool training loop (BASELINE config 4), the
-FPGA trainer, the device-pool trainer (BASELINE config 4b) and the
-per-level channel pyramid, and checks and times its nine CUDA kernels
+FPGA trainer, the device-pool trainer (BASELINE config 4b), the
+per-level channel pyramid, the image-space channel canvas (shrink 1 and
+grad_mag, plain torch) and CNN-verified detection, and checks and times
+its nine CUDA kernels
 (planes B1,
 grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
 B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
@@ -151,6 +153,26 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
     (grad_hist, smooth 1), Model.scan_channels' survivors equal
     Model.scan_packed's level by level, and wt.detect over models with
     different channel options equals its per-level loop on the CPU;
+ 6c. the image-space canvas: the three cascades of
+    tests/data/torch_port_canvas_golden.npz (scripts/
+    make_torch_canvas_golden.py: grad_hist at shrink 1 with a 24x24x4
+    window, grad_mag and grad_hist+grad_mag at shrink 2, 64 stages each,
+    n_per_oct 8, smooth 1) on its three VGA scenes and two VGA noise
+    frames, the counters set to 0 first: the shrink-1 cascade's
+    survivors, n_weak and the kept boxes of host NMS 0.5, of
+    make_batched_detector_boxes(k=1024, nms_iou=0.5) and of
+    BucketedDetector(bucket=128) bitwise the golden, its float noise
+    frame within the flip bound, its mining scan's survivors equal the
+    golden's; the grad_mag cascades within PARITY.md's flip bound (0.5%
+    of the boxes); B3, B4 and B6 launched, B1 and B2 not; each canvas on
+    the card equal to its CPU run bitwise on a uint8 and a float frame;
+ 6d. CNN-verified detection: the golden's flax verifier converted
+    (convert.verifier_state_dict), TF32 switched on globally and a probe
+    inside every verifier call requiring full float32 there; on the three
+    scenes with flagship_synth_64, detect_and_verify's boxes and cascade
+    scores bitwise the golden's, its verified scores and verify_scores
+    within 1e-5 of the scores' scale, the fused bucket (k=1024, NMS 0.5)
+    equal to detect_and_verify then host NMS and to the golden's;
  6. times each kernel against its plain version (CUDA events, in turns),
     each layer of the serving path, the serving path end to end (60
     batches of 8 per workload, MP/s, p50/p80), Model.detect and the
@@ -165,7 +187,13 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
     stream (8 frames of each of the bucket golden's four sizes per
     detect_many, 5 calls, MP/s); the first sight of 5 novel sizes (host
     ms of the first and second call: Model.detect, which runs the packer,
-    against BucketedDetector, which builds tables only); at config 5: B5
+    against BucketedDetector, which builds tables only); the image-space
+    cascades' batched detectors (k=1024, NMS 0.5, 30 batches of 8: the
+    shrink-1 one on noise and scenes, grad_mag and grad_hist+grad_mag on
+    noise) and each canvas step (whole, resize, channels; us/image);
+    verified detection (the flagship's VGA bucket program with the
+    verifier fused, k=1024, NMS 0.5, scene batches) and the verifier's ms
+    per 1024 windows; at config 5: B5
     (smooth 0, 1), B3 and B4 (C = 5) and B1 (halo 0) against their plain
     versions and bounds; at 1080p B1 and B2 (smooth 1 and 0) likewise; the
     serving path end to end (k=128, NMS 0.5, smooth 0 and 1, MP/s with
@@ -1155,6 +1183,211 @@ def stage_memcpy(trace, window):
     return out, n_unmatched
 
 
+#: the image-space canvas's and verified serving's golden, and the three
+#: image-space cascades it was made with (scripts/make_torch_canvas_golden.py)
+CANVAS_GOLDEN = os.path.join(ROOT, "tests", "data",
+                             "torch_port_canvas_golden.npz")
+CANVAS_MODELS = {"s1": "torch_port_s1_synth_64",
+                 "grad_mag": "torch_port_grad_mag_synth_64",
+                 "hist_mag": "torch_port_hist_mag_synth_64"}
+#: PARITY.md's float bound: the share of boxes (rectangle and score) in
+#: one set and not the other
+FLIP_BOUND = 0.005
+#: the verifier's tolerance: |port - JAX| <= VERIFIER_TOL * max(1, max|JAX|)
+VERIFIER_TOL = 1e-5
+
+
+def canvas_model_path(key):
+    return os.path.join(ROOT, "tests", "data", CANVAS_MODELS[key] + ".pb")
+
+
+def canvas_golden_frames(g):
+    """The golden's frames: the VGA golden's scenes, then its noise."""
+    scenes = np.load(GOLDEN)["frames"][:int(g["n_scenes"])]
+    noise = np.random.RandomState(int(g["noise_seed"])).randint(
+        0, 256, (2,) + VGA).astype(np.uint8)
+    return np.concatenate([scenes, noise])
+
+
+def golden_rows(g, key, i, *cols):
+    """Frame i's rows of the golden's ``key`` columns."""
+    start = int(g[f"{key}_counts"][:i].sum())
+    stop = start + int(g[f"{key}_counts"][i])
+    return [g[f"{key}_{c}"][start:stop] for c in cols]
+
+
+def flip_share(a, b):
+    """(flipped, total): rows of (N, 5) box-and-score arrays in one set
+    and not the other, over the rows in either."""
+    sa, sb = set(map(tuple, a.tolist())), set(map(tuple, b.tolist()))
+    return len(sa ^ sb), len(sa | sb)
+
+
+def canvas_golden_run(wt, dev, g, frames, idx):
+    """The image-space cascades on frames ``idx`` on ``dev`` against the
+    golden: Model.detect's survivors and n_weak, then host NMS 0.5, and
+    the batched (k=1024, NMS 0.5) and bucketed detectors' kept boxes;
+    the shrink-1 cascade bitwise (its float frame too within the flip
+    bound), the grad_mag ones within the flip bound.  Returns per model
+    the survivors, kept boxes and flip counts."""
+    import torch
+    out = {}
+    for key in CANVAS_MODELS:
+        model = wt.load(canvas_model_path(key), device=dev)
+        exact = key == "s1"
+        flips = [0, 0]
+        n_raw = n_kept = 0
+
+        def hold(what, got, want):
+            if exact:
+                require(np.array_equal(got, want),
+                        f"{key}: {what} differ from the golden")
+            f, t = flip_share(got, want)
+            flips[0] += f
+            flips[1] += t
+
+        sub = frames[idx]
+        det, _ = wt.make_batched_detector_boxes(model, VGA, k=1024,
+                                                nms_iou=0.5, device=dev)
+        rects, scores, valid, count, _ = (
+            a.cpu().numpy() for a in det(torch.from_numpy(sub).to(dev)))
+        bucket = wt.parallel.detect.BucketedDetector(
+            model, bucket=128, k=1024, nms_iou=0.5, device=dev)
+        for j, (i, kept_b) in enumerate(zip(idx, bucket.detect_many(
+                list(sub)))):
+            model.reset()
+            raw = model.detect(frames[i])
+            want = sorted_rows(*golden_rows(g, key + "_raw", i, "rects",
+                                            "scores"))
+            hold(f"frame {i} survivors", box_rows(raw, "scores"), want)
+            if exact:
+                require(model.cost_stats()["n_weak"] == int(
+                    g[key + "_n_weak"][i]), f"{key}: frame {i} n_weak "
+                    f"differs from the golden")
+                require(count[j] == len(want), f"{key}: frame {i} batched "
+                        f"survivor count differs from the golden")
+            kept = sorted_rows(*golden_rows(g, key + "_kept", i, "rects",
+                                            "scores"))
+            hold(f"frame {i} kept boxes (host NMS)", box_rows(
+                wt.bbx.non_max_suppression(raw, iou_threshold=0.5),
+                "scores"), kept)
+            hold(f"frame {i} batched kept boxes",
+                 sorted_rows(rects[j][valid[j]], scores[j][valid[j]]), kept)
+            hold(f"frame {i} bucketed kept boxes", box_rows(kept_b,
+                                                            "scores"), kept)
+            n_raw += len(raw)
+            n_kept += len(kept)
+        if exact and 3 in idx:
+            raw = model.detect(frames[3].astype(np.float32)
+                               + np.float32(0.25))
+            f, t = flip_share(box_rows(raw, "scores"), sorted_rows(
+                *golden_rows(g, "s1f_raw", 0, "rects", "scores")))
+            require(f <= FLIP_BOUND * t, f"s1: float frame flips {f} of {t}")
+            out["s1_float_flips"] = (f, t)
+        require(flips[0] <= FLIP_BOUND * flips[1],
+                f"{key}: {flips[0]} of {flips[1]} boxes flip against the "
+                f"golden")
+        out[key] = (n_raw, n_kept, tuple(flips))
+    return out
+
+
+def golden_verifier(wt, g):
+    """The golden's verifier as the port's (module, state dict)."""
+    from waldboost_tpu_torch.convert import verifier_state_dict
+    tree = {}
+    for k in g.files:
+        if k.startswith("verifier/"):
+            node = tree
+            *path, leaf = k.split("/")[1:]
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = g[k]
+    return (wt.verification.VerifierCNN(TRAIN_SHAPE),
+            verifier_state_dict(tree))
+
+
+def verifier_close(got, want):
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max(initial=0.0)))
+    return float(np.abs(np.asarray(got) - want).max(initial=0.0)), \
+        VERIFIER_TOL * scale
+
+
+def tf32_probe(wt, verifier, dev):
+    """``(seen, handle)``: a list that each call of ``verifier``'s program
+    on ``dev`` appends the float32 matmul precision and cuDNN's
+    convolution precision to, as they stand during the call, and the
+    hook's handle (``handle.remove()`` ends the probe)."""
+    import torch
+    seen = []
+
+    def probe(*_):
+        conv = getattr(torch.backends.cudnn, "conv", None)
+        seen.append((torch.get_float32_matmul_precision(),
+                     getattr(conv, "fp32_precision", None)
+                     if conv is not None
+                     else not torch.backends.cudnn.allow_tf32))
+    prog = wt.verification.get_verifier_program(*verifier, dev)
+    return seen, prog.net.register_forward_pre_hook(probe)
+
+
+def verifier_golden_run(wt, dev, g, scenes, idx, verifier):
+    """On scenes ``idx`` (the flagship and ``verifier``, the golden's as
+    :func:`golden_verifier` gives it, on ``dev``): ``detect_and_verify``'s boxes and cascade scores bitwise
+    the golden's, its verified scores and ``verify_scores`` on its
+    windows within the tolerance; the fused bucket (k=1024, NMS 0.5)
+    equal to detect_and_verify then host NMS on the verified scores,
+    and to the golden's fused bucket within the tolerance.  Returns the
+    windows and kept boxes per frame and the largest score error."""
+    module, state = verifier
+    synth = wt.load(os.path.join(ROOT, "models", "flagship_synth_64.pb"),
+                    device=dev)
+    bdet = wt.parallel.detect.BucketedDetector(
+        synth, bucket=128, k=1024, nms_iou=0.5, verifier=(module, state),
+        device=dev)
+    fused = bdet.detect_many([scenes[i] for i in idx])
+    out, worst = [], 0.0
+    for i, fb in zip(idx, fused):
+        dv = wt.verification.detect_and_verify(scenes[i], synth, module,
+                                               state)
+        rects, scores, casc = golden_rows(g, "ver", i, "rects", "scores",
+                                          "cascade_scores")
+        require(np.array_equal(dv.get(), rects) and np.array_equal(
+            dv.get_field("cascade_scores"), casc),
+            f"verifier frame {i}: boxes or cascade scores differ from the "
+            f"golden")
+        err, tol = verifier_close(dv.get_field("scores"), scores)
+        require(err <= tol, f"verifier frame {i}: verified scores {err} "
+                f"from the golden (tolerance {tol})")
+        worst = max(worst, err)
+        _, _, rs, cs, hs = synth.scan_packed(scenes[i])
+        wins = synth.gather_windows_device(scenes[i], rs, cs)
+        err, tol = verifier_close(wt.verification.verify_scores(
+            module, state, wins, hs, device=dev), scores)
+        require(err <= tol, f"verifier frame {i}: verify_scores {err} from "
+                f"the golden (tolerance {tol})")
+        worst = max(worst, err)
+        ref = wt.bbx.non_max_suppression(dv, iou_threshold=0.5)
+        got_rows = box_rows(fb, "cascade_scores")
+        require(np.array_equal(got_rows, box_rows(ref, "cascade_scores")),
+                f"verifier frame {i}: the fused bucket keeps other boxes "
+                f"than detect_and_verify then NMS")
+        want_rows = sorted_rows(*golden_rows(g, "vbk", i, "rects",
+                                             "cascade_scores"))
+        require(np.array_equal(got_rows, want_rows),
+                f"verifier frame {i}: the fused bucket keeps other boxes "
+                f"than the golden's")
+        a = box_rows(fb, "cascade_scores", "scores")
+        b = sorted_rows(*golden_rows(g, "vbk", i, "rects", "cascade_scores",
+                                     "scores"))
+        err, tol = verifier_close(a[:, -1], b[:, -1])
+        require(err <= tol, f"verifier frame {i}: fused verified scores "
+                f"{err} from the golden (tolerance {tol})")
+        worst = max(worst, err)
+        out.append((len(dv), len(fb)))
+    return out, worst
+
+
 def main():
     import importlib
 
@@ -2109,6 +2342,75 @@ def main():
           f"equals CPU, scan_channels equals scan_packed "
           f"({time.perf_counter() - t:.1f} s)")
 
+    # -- phase 6c: the image-space canvas (shrink 1, grad_mag) ------------
+    # the canvas golden's three cascades on its five VGA frames with the
+    # counters set to 0 first: the shrink-1 cascade bitwise JAX's through
+    # Model.detect (B4), the batched (B3) and the bucketed (B3) detector,
+    # and its mining scan (B6) of the noise frames; the grad_mag and
+    # grad_hist+grad_mag cascades within the flip bound; no B1 or B2 (the
+    # image-space canvas is plain torch); then each cascade's canvas on
+    # the card against its CPU run, bitwise, on a noise frame
+    t = time.perf_counter()
+    cgold = np.load(CANVAS_GOLDEN)
+    cframes = canvas_golden_frames(cgold)
+    require(np.array_equal(cframes[:len(gframes)], gframes),
+            "the canvas golden's scenes are not the VGA golden's")
+    cmodels = {key: wt.load(canvas_model_path(key), device=dev)
+               for key in CANVAS_MODELS}
+    zero_counters()
+    cres = canvas_golden_run(wt, dev, cgold, cframes,
+                             list(range(len(cframes))))
+    mined = cmodels["s1"].scan_packed_batch(cframes[3:])
+    torch.cuda.synchronize()
+    canvas_launches = read_counters()
+    print(f"phase 6c: image-space path launches: {canvas_launches}")
+    require(all(canvas_launches[k] > 0 for k in
+                ("cascade", "cascade_response", "cascade_generic")),
+            "phase 6c: B3, B4 or B6 was not launched on the shrink-1 path")
+    require(canvas_launches["planes"] == canvas_launches["grad_hist"] == 0,
+            "phase 6c: the image-space path launched B1 or B2")
+    require([len(rs) for rs, _ in mined[3]] == cgold["s1_raw_counts"][
+        3:].tolist(), "phase 6c: the mining scan's survivors differ from "
+        "the golden")
+    for key, model in cmodels.items():
+        packed_c, smooth_c, cf_c = model._plan(VGA)
+        for floats in (False, True):
+            img = torch.from_numpy(cframes[3:4])
+            if floats:
+                img = img.float() + 0.25
+            got = channel_canvas(packed_c, VGA, smooth_c, cf_c, dev)(
+                img.to(dev))
+            want = channel_canvas(packed_c, VGA, smooth_c, cf_c,
+                                  torch.device("cpu"))(img)
+            require(torch.equal(got.cpu(), want),
+                    f"phase 6c: {key} canvas on the card differs from the "
+                    f"CPU's ({'float' if floats else 'uint8'} frame)")
+    print(f"phase 6c: (survivors, kept, (flips, boxes)) {cres}: shrink 1 "
+          f"bitwise JAX's, grad_mag within {FLIP_BOUND}; canvases equal "
+          f"the CPU's ({time.perf_counter() - t:.1f} s)")
+
+    # -- phase 6d: CNN-verified detection -----------------------------------
+    # the golden's flax verifier converted; TF32 switched on globally for
+    # the phase, and off inside every verifier call (a probe reads the
+    # precisions there); detect_and_verify, verify_scores and the fused
+    # bucket on the three scenes against the golden
+    t = time.perf_counter()
+    verifier = golden_verifier(wt, cgold)
+    seen, probe = tf32_probe(wt, verifier, dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    vres, verr = verifier_golden_run(wt, dev, cgold, gframes,
+                                     list(range(len(gframes))), verifier)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    probe.remove()
+    require(seen and all(p == "highest" and c in ("ieee", True)
+                         for p, c in seen),
+            f"phase 6d: TF32 was on inside a verifier call ({seen})")
+    print(f"phase 6d: (windows, kept) {vres}: boxes and cascade scores "
+          f"bitwise, verified scores within {verr:.3g} of JAX's, TF32 off "
+          f"in {len(seen)} calls ({time.perf_counter() - t:.1f} s)")
+
     # -- phase 5: timing and the host --------------------------------------
     def metric(name, value, unit):
         print(json.dumps({"metric": name, "value": value, "unit": unit,
@@ -2419,6 +2721,46 @@ def main():
         print(f"first sight {name} ({card}): "
               f"{[round(v, 3) for v in firsts[name]]} ms, second call "
               f"{[round(v, 3) for v in warms[name]]} ms")
+    # the image-space canvas: the shrink-1 cascade's batched detector
+    # (k=1024, NMS 0.5) on noise (its survivors) and scenes, the grad_mag
+    # and composite ones on noise, 30 batches of 8 each; the canvas step
+    # of each alone (octaves, the resize, the channels; CUDA events)
+    for key, model in cmodels.items():
+        cdet, _ = wt.make_batched_detector_boxes(model, VGA, k=1024,
+                                                 nms_iou=0.5, device=dev)
+        e2e(f"vga_{key}_noise_k1024", cdet, noise, reps=30)
+        if key == "s1":
+            e2e("vga_s1_scene_k1024", cdet, [scene, torch.flip(scene,
+                                                               dims=[2])],
+                reps=30)
+        cstep_c = cdet.canvas
+        octs_c = cstep_c.octaves(noise[0])
+        img_c = cstep_c.planes(octs_c)
+        for name, fn_ in (("canvas", lambda: cstep_c(noise[0])),
+                          ("resize", lambda: cstep_c.planes(octs_c)),
+                          ("channels", lambda: cstep_c.channels(img_c))):
+            metric(f"image_canvas_{key}_{name}_us_per_image",
+                   cuda_ms(fn_, 10) * 1e3 / BATCH, "us/image")
+        del cdet, cstep_c, octs_c, img_c
+    # verified detection: the flagship's bucket program at VGA with the
+    # verifier fused (k=1024, NMS 0.5) on the scene batches, and the
+    # verifier alone on 1024 windows of a scene's canvas
+    vfn, _ = wt.parallel.detect.make_bucket_detector_boxes(
+        synth, VGA, k=1024, nms_iou=0.5, verifier=verifier, device=dev)
+    vgeom = vfn.geometry(VGA)
+    e2e("vga_verified_scene_k1024", lambda b: vfn(b, vgeom),
+        [scene, torch.flip(scene, dims=[2])], reps=30)
+    vcanvas = synth.scan_packed(gframes[1])[0]
+    vrng = np.random.RandomState(3)
+    gu_v, gv_v = (s_ - 12 for s_ in vcanvas.shape[1:])
+    vwins = synth.gather_windows_device(
+        vcanvas, vrng.randint(0, gu_v, 1024), vrng.randint(0, gv_v, 1024),
+        is_canvas=True, as_device=True)[0]
+    vprog = wt.verification.get_verifier_program(*verifier, dev)
+    vzero = torch.zeros(1024, device=dev)
+    metric("verifier_ms_per_1024_windows",
+           cuda_ms(lambda: vprog(vwins, vzero), 20), "ms")
+    del vfn, vgeom, vcanvas, vwins
     # config 5 as bench.py runs it: k=128, NMS 0.5, uniform noise
     workloads5 = {"fpga_4k_quantized_k128": (dets4k[name0], noise4k),
                   "fpga_4k_smooth_k128": (dets4k[name1], noise4k)}

@@ -33,11 +33,14 @@ FLAGSHIP = os.path.join(ROOT, "models", "flagship_synth_64.pb")
 HARD256 = os.path.join(ROOT, "models", "flagship_hard_256.pb")
 
 sys.path.insert(0, ROOT)
-from chip_smoke import (DEVICE_FPGA_TRAIN_GOLDEN,  # noqa: E402
-                        DEVICE_TRAIN_GOLDEN, FPGA_TRAIN_GOLDEN, TRAIN_DEPTH,
-                        TRAIN_GOLDEN,
-                        device_train_golden_run, fpga_train_golden_run,
-                        random_deep_stage, train_golden_run, tree_diff)
+from chip_smoke import (CANVAS_GOLDEN,  # noqa: E402
+                        DEVICE_FPGA_TRAIN_GOLDEN, DEVICE_TRAIN_GOLDEN,
+                        FPGA_TRAIN_GOLDEN, TRAIN_DEPTH, TRAIN_GOLDEN,
+                        canvas_golden_frames, canvas_golden_run,
+                        canvas_model_path, device_train_golden_run,
+                        fpga_train_golden_run, golden_verifier,
+                        random_deep_stage, tf32_probe, train_golden_run,
+                        tree_diff, verifier_golden_run)
 
 pytestmark = pytest.mark.cuda
 
@@ -662,3 +665,58 @@ def test_channel_pyramid_on_card_matches_cpu(cuda, channels, smooth):
     assert len(got) == len(want) > 30
     for (a, sa), (b, sb) in zip(got, want):
         assert sa == sb and np.array_equal(a, b)
+
+
+def test_canvas_golden_on_card(cuda):
+    """The image-space cascades on the card against the JAX golden
+    (chip_smoke.py's shrink-1 and grad_mag phases) on all five VGA
+    frames: the shrink-1 cascade bitwise through Model.detect, the
+    batched and the bucketed detector, the grad_mag ones within the flip
+    bound."""
+    g = np.load(CANVAS_GOLDEN)
+    frames = canvas_golden_frames(g)
+    res = canvas_golden_run(wt, cuda, g, frames, list(range(len(frames))))
+    assert res["s1"][0] > 0 and res["grad_mag"][0] > 0
+
+
+@pytest.mark.parametrize("floats", [False, True], ids=["uint8", "float"])
+@pytest.mark.parametrize("key", ["s1", "grad_mag", "hist_mag"])
+def test_image_canvas_on_card_matches_cpu(cuda, key, floats):
+    """The image-space canvas (plain torch, unfused) on the card equals
+    its CPU run bitwise on a VGA frame."""
+    model = wt.load(canvas_model_path(key), device=cuda)
+    packed, smooth, cf = model._plan((480, 640))
+    img = _frames(1, (480, 640), seed=8)
+    if floats:
+        img = img.float() + 0.25
+    got = channel_canvas(packed, (480, 640), smooth, cf, cuda)(img.to(cuda))
+    want = channel_canvas(packed, (480, 640), smooth, cf,
+                          torch.device("cpu"))(img)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_verifier_ignores_global_tf32(cuda):
+    """With TF32 switched on globally (matmul and cuDNN) the verifier's
+    products and convolutions still run in full float32 (the precision
+    seen inside each call), its scores hold the JAX golden's tolerance,
+    and the caller's settings come back."""
+    g = np.load(CANVAS_GOLDEN)
+    scenes = canvas_golden_frames(g)[:int(g["n_scenes"])]
+    verifier = golden_verifier(wt, g)
+    seen, probe = tf32_probe(wt, verifier, cuda)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        res, _ = verifier_golden_run(wt, cuda, g, scenes, [0, 1, 2],
+                                     verifier)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.backends.cudnn.allow_tf32 = prev[1]
+        probe.remove()
+    assert seen and all(p == "highest" and c in ("ieee", True)
+                        for p, c in seen)
+    assert sum(n for n, _ in res) > 300

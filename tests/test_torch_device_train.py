@@ -145,8 +145,11 @@ def test_device_pool_insert_matches_jax(capacity, n_seed):
     keep = np.asarray(ja.v).copy()
     keep[np.flatnonzero(keep)[::2]] = False
     Hs = np.asarray(ja.H) + 1
-    ja.apply_stage(jnp.asarray(Hs), jnp.asarray(keep))
-    tb.apply_stage(torch.from_numpy(Hs), torch.from_numpy(keep),
+    # each side gets its own buffers: on the CPU ``jnp.asarray`` keeps an
+    # aligned numpy array without copying it, JAX's inserts run
+    # asynchronously, and the torch pool writes ``H`` and ``v`` in place
+    ja.apply_stage(jnp.array(Hs, copy=True), jnp.array(keep, copy=True))
+    tb.apply_stage(torch.from_numpy(Hs.copy()), torch.from_numpy(keep.copy()),
                    int(keep.sum()))
     assert ja.count == tb.count == int(keep.sum())
     jb.insert_from_device(jnp.asarray(src), jnp.asarray(sH), idx[::-1])

@@ -30,7 +30,7 @@ import logging
 import numpy as np
 
 from . import boxes as bbx  # noqa: F401  (host box lists)
-from . import fpga, groundtruth, testing, utils  # noqa: F401
+from . import fpga, groundtruth, testing, utils, verification  # noqa: F401
 from .boxes import Boxes
 from .channels import _normalize_opts, channel_pyramid
 from .convert import model_from_stages

@@ -16,6 +16,12 @@ build (``ops/planes.py::planes_float``, plain torch) and kernel B2d
 on the float planes in plain torch (``ops/fpga.py::fpga_channels_float``),
 as the JAX package does in XLA.
 
+At shrink 1, and for channel functions with no polyphase form (grad_mag
+and its composites), the canvas is the JAX package's image-space one
+(``ops/image_canvas.py``, plain torch as JAX's XLA chain): every level
+resized into one image-space canvas with reflected halos, the channel
+function over it, then the pool (shrink 2), the smooth and the mask.
+
 In fast serving mode (``fast=True``, JAX's ``WB_SERVING_MODE=fast``)
 grad_hist takes kernel B2f and the canvas is bfloat16; float32 frames are
 served too: f32 octave chain, float planes (``ops/planes.py::
@@ -46,10 +52,11 @@ from torch.profiler import record_function
 
 from .channels import (ChannelFunction, _normalize_opts, octave_chain,
                        octave_chain_f32)
-from .channels import grad_hist as grad_hist_cf  # the ops module's name
 from .fpga.channels import fpga_kernel_masks
 from .ops.channels import grad_hist, grad_hist_fast, grad_hist_float
 from .ops.fpga import fpga_channels, fpga_channels_float
+from .ops.image_canvas import (ImageCanvasOperands, image_canvas_tables,
+                               image_channels, pool_smooth, resize_image)
 from .ops.planes import (FloatPlaneOperands, PlaneOperands, octave_buffer,
                          planes, planes_float, planes_float_fast)
 from .packing import PackedPyramidPlan
@@ -72,15 +79,9 @@ def span(name: str):
 
 def serving_opts(channel_opts: dict, n_channels: int
                  ) -> Tuple[int, int, int, ChannelFunction]:
-    """``(shrink, n_per_oct, smooth, cf)`` of channel options the port
-    serves; raises on the options it does not serve yet."""
+    """``(shrink, n_per_oct, smooth, cf)`` of channel options; raises when
+    the window's channel count is not the function's."""
     shrink, n_per_oct, smooth, cf = _normalize_opts(channel_opts)
-    if shrink != 2:
-        raise NotImplementedError("only the shrink=2 polyphase pipeline is "
-                                  "ported (ROADMAP item A2)")
-    if cf.fused_kind is None and cf != grad_hist_cf:
-        raise NotImplementedError(f"the canvas of {cf.name} is not ported "
-                                  "yet (ROADMAP item A14)")
     if n_channels != cf.n_channels:
         raise ValueError(f"model window has {n_channels} channels, {cf.name} "
                          f"makes {cf.n_channels}")
@@ -113,7 +114,12 @@ class ChannelCanvas:
     ``image_shape`` frames on one device; float32 frames take the float
     plane build and B2d.  With ``fast``, B2f, and the float frames' planes
     of type ``fast_float`` (``"f32"`` or ``"bf16"``).  The plane tables of
-    each frame type are built at its first batch."""
+    each frame type are built at its first batch.
+
+    ``image_space`` (shrink 1, or a function with no polyphase form):
+    octaves -> the image-space canvas (:meth:`planes`) -> channels, pool,
+    smooth (:meth:`channels`), plain torch; with ``fast`` the exact canvas
+    rounded to bfloat16, as the JAX package's batched detector walks it."""
 
     def __init__(self, packed: PackedPyramidPlan, image_shape: Tuple[int, int],
                  smooth: int, cf: ChannelFunction, device: torch.device,
@@ -134,7 +140,14 @@ class ChannelCanvas:
         self.halo = halo
         self.n_octaves = max((pl.level.octave for pl in packed.levels),
                              default=-1) + 1
-        if cf.fused_kind is not None:
+        self.image_space = packed.shrink == 1 or not cf.poly
+        if self.image_space:
+            # image-space masks: the stencil border (FPGA kinds) and the
+            # smooth interior, bool
+            ring = packed.stencil_border_mask() \
+                if cf.boundary == "stencil_zero" else None
+            interior = packed.smooth_interior_mask() if smooth == 1 else None
+        elif cf.fused_kind is not None:
             ring, interior = fpga_kernel_masks(packed, smooth)
         else:
             ring = None
@@ -158,12 +171,42 @@ class ChannelCanvas:
             float_plane_tables(self.packed, self.halo, self.image_shape),
             self.device)
 
+    @functools.cached_property
+    def image_tables(self):
+        """The image-space canvas's host tables (at the first batch)."""
+        return image_canvas_tables(self.packed, self.halo, self.image_shape)
+
+    @functools.cached_property
+    def image_ops(self) -> ImageCanvasOperands:
+        """The image-space resize of uint8 frames on the device."""
+        return ImageCanvasOperands.build(self.image_tables, self.device, True)
+
+    @functools.cached_property
+    def image_float_ops(self) -> ImageCanvasOperands:
+        """The image-space resize of float frames on the device."""
+        return ImageCanvasOperands.build(self.image_tables, self.device,
+                                         False)
+
+    @functools.cached_property
+    def rmap(self):
+        """The halo reflection of intermediate channels (grad_mag) as a
+        device index, built once per canvas step."""
+        rmap = self.image_tables.rmap
+        return None if rmap is None else torch.as_tensor(
+            rmap.astype(np.int32), device=self.device)
+
     def octaves(self, images: torch.Tensor) -> torch.Tensor:
         if images.is_floating_point():
             return octave_buffer(octave_chain_f32(images, self.n_octaves))
         return octave_buffer(octave_chain(images, self.n_octaves))
 
     def planes(self, octs: torch.Tensor) -> torch.Tensor:
+        """The polyphase planes, or on the image-space path the (B, H, W)
+        float32 image canvas."""
+        if self.image_space:
+            return resize_image(octs, self.image_float_ops
+                                if octs.is_floating_point()
+                                else self.image_ops)
         if not octs.is_floating_point():
             return planes(octs, self.plane_ops)
         if self.fast:
@@ -172,6 +215,12 @@ class ChannelCanvas:
         return planes_float(octs, self.float_plane_ops)
 
     def channels(self, plane_canvas: torch.Tensor) -> torch.Tensor:
+        if self.image_space:
+            chns = image_channels(plane_canvas, self.cf, self.rmap,
+                                  self.ring)
+            chns = pool_smooth(chns, self.packed.shrink, self.smooth,
+                               self.interior, self.cf.fused_kind is not None)
+            return chns.to(torch.bfloat16) if self.fast else chns
         if self.cf.fused_kind is not None:
             fn = fpga_channels_float if plane_canvas.is_floating_point() \
                 else fpga_channels

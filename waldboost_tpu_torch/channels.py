@@ -3,10 +3,10 @@
 Counterpart of ``waldboost_tpu/channels.py``.  The pyramid plan is the same
 host arithmetic (level sizes snapped with ``int((w*s)/shrink)*shrink``), and
 the registry knows the channel functions the port serves: ``grad_hist``
-here, the FPGA integer family in ``fpga/channels.py`` (imported at the
-first lookup that misses), and ``"a+b"`` composites of either family.  The
-octave chains (uint8 frames: integer, float32 frames: f32) are plain torch
-on the caller's device.
+and ``grad_mag`` here, the FPGA integer family in ``fpga/channels.py``
+(imported at the first lookup that misses), and ``"a+b"`` composites of
+either family.  The octave chains (uint8 frames: integer, float32 frames:
+f32) are plain torch on the caller's device.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ChannelFunction", "Level", "grad_hist", "pyramid_plan",
+__all__ = ["ChannelFunction", "Level", "grad_hist", "grad_mag",
+           "pyramid_plan",
            "register_channel_function", "resolve_channel_function",
            "compose_channel_functions", "octave_chain", "octave_chain_f32",
            "channel_pyramid"]
@@ -31,8 +32,12 @@ class ChannelFunction:
     name (written into saved models), channel count, the image-space halo
     its stencils read around each level, how a level's edge is read
     (``boundary``: ``"reflect"`` halos or the FPGA family's
-    ``"stencil_zero"`` ring), and the FPGA response kind (``fused_kind``,
-    kernel B5's ``kind``; None for the float family)."""
+    ``"stencil_zero"`` ring), the FPGA response kind (``fused_kind``,
+    kernel B5's ``kind``; None for the float family), whether it has a
+    polyphase form (``poly``: the shrink-2 pipeline of kernels B1 and B2
+    or B5; without one every shrink takes the image-space canvas), and a
+    composite's canonical part names (``parts``, empty for a single
+    function)."""
 
     name: str
     n_channels: int
@@ -40,13 +45,15 @@ class ChannelFunction:
     halo: int = 1
     boundary: str = "reflect"
     fused_kind: Optional[str] = None
+    poly: bool = True
+    parts: Tuple[str, ...] = ()
+
+    def leaves(self) -> Tuple[str, ...]:
+        """The canonical names of the single functions, in channel order."""
+        return self.parts or (self.name,)
 
 
 _REGISTRY: Dict[str, ChannelFunction] = {}
-
-#: names of the JAX package's float ``grad_mag``, whose canvas is not ported
-_UNPORTED = ("waldboost_tpu.channels.grad_mag", "grad_mag",
-             "waldboost.channels.grad_mag", "waldboost.nb_channels.grad_mag")
 
 
 def register_channel_function(cf: ChannelFunction) -> ChannelFunction:
@@ -61,6 +68,19 @@ grad_hist = register_channel_function(ChannelFunction(
     aliases=("grad_hist", "waldboost.channels.grad_hist",
              "waldboost.nb_channels.grad_hist"),
     halo=1,
+))
+
+#: the locally normalised gradient magnitude: gradients, ``sqrt(gx*gx +
+#: gy*gy)``, divided by its triangle-filtered self plus 1e-3; the halo is
+#: the gradient's radius 1 plus the triangle's 5.  No polyphase form: it
+#: takes the image-space canvas at every shrink.
+grad_mag = register_channel_function(ChannelFunction(
+    name="waldboost_tpu.channels.grad_mag",
+    n_channels=1,
+    aliases=("grad_mag", "waldboost.channels.grad_mag",
+             "waldboost.nb_channels.grad_mag"),
+    halo=6,
+    poly=False,
 ))
 
 
@@ -78,10 +98,6 @@ def resolve_channel_function(name_or_cf) -> ChannelFunction:
         importlib.import_module(__package__ + ".fpga.channels")
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"channel function {name!r} is not ported yet: the float "
-            f"grad_mag canvas is ROADMAP item A14")
     if isinstance(name, str) and "+" in name:
         return compose_channel_functions(*name.split("+"))
     raise KeyError(f"Unknown channel function {name!r}. Registered: "
@@ -112,6 +128,8 @@ def compose_channel_functions(*parts) -> ChannelFunction:
         halo=max(cf.halo for cf in cfs),
         boundary=cfs[0].boundary,
         fused_kind=fused,
+        poly=all(cf.poly for cf in cfs),
+        parts=sum((cf.leaves() for cf in cfs), ()),
     ))
 
 

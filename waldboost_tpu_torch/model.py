@@ -30,7 +30,7 @@ The detection paths:
   over the padded runtime tables of :meth:`Model._get_cascade`;
   ``scan_packed_batch`` is training's mining scan, and
   ``gather_windows_device`` crops windows of a frame's canvas on the
-  device.
+  device (for the CNN verifier, of a given canvas, kept there).
 * ``predict`` and ``survivor_histogram``: plain torch (the JAX package has
   no kernel for either).
 """
@@ -442,19 +442,29 @@ class Model:
                      for i in range(n_real)]
         return canvas, hs, packed, per_image
 
-    def gather_windows_device(self, image, rs, cs) -> np.ndarray:
-        """(K, m, n, C) crops of ``image``'s canvas at canvas origins
-        ``(rs, cs)``, gathered on the device; only the crops come to the
-        host.  (The JAX package's ``is_canvas`` and ``as_device`` options
-        serve its CNN verifier, which is not ported.)"""
+    def gather_windows_device(self, image_or_canvas, rs, cs,
+                              is_canvas: bool = False,
+                              as_device: bool = False):
+        """(K, m, n, C) crops at canvas origins ``(rs, cs)``, gathered on
+        the device: of ``image``'s canvas, or with ``is_canvas`` of a
+        given (C, H, W) device canvas (``scan_packed``'s).  Only the crops
+        come to the host; with ``as_device`` they stay on the device and
+        ``(crops, K)`` is returned (the CNN verifier's input; the JAX
+        package pads K to a power of two to bound its compiles, which a
+        torch program does not need)."""
         m, n, _ = self.shape
-        setup = self._scan_setup(as_image(image)[None])
-        if setup is None:
-            raise ValueError("image too small for any pyramid level")
+        if is_canvas:
+            canvas = image_or_canvas[None]
+        else:
+            setup = self._scan_setup(as_image(image_or_canvas)[None])
+            if setup is None:
+                raise ValueError("image too small for any pyramid level")
+            canvas = setup[2]
         rs = torch.as_tensor(np.asarray(rs, np.int64))
         cs = torch.as_tensor(np.asarray(cs, np.int64))
-        crops = gather_windows(setup[2], torch.zeros_like(rs), rs, cs,
-                               (m, n))
+        crops = gather_windows(canvas, torch.zeros_like(rs), rs, cs, (m, n))
+        if as_device:
+            return crops, int(rs.numel())
         return crops.cpu().numpy()
 
     def survivor_histogram(self, image) -> np.ndarray:

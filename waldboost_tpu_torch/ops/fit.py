@@ -48,35 +48,53 @@ class TreeFitResult(NamedTuple):
     pred: torch.Tensor       # (n_nodes,) float32 log-odds
 
 
-def _matmul_backends() -> list:
-    """The per-backend matmul precision settings (``fp32_precision`` of
-    ``torch.backends.cuda.matmul`` and ``torch.backends.mkldnn.matmul``)
-    that ``torch.set_float32_matmul_precision`` writes besides its own."""
+def _fp32_backends(op: str) -> list:
+    """The per-backend float32 precision settings of ``op`` (``"matmul"``
+    or ``"conv"``): ``fp32_precision`` of ``torch.backends.cuda``'s,
+    ``cudnn``'s and ``mkldnn``'s ``op`` where torch has them."""
     found = []
-    for parent in (torch.backends.cuda, torch.backends.mkldnn):
-        b = getattr(parent, "matmul", None)
+    for parent in (torch.backends.cuda, torch.backends.cudnn,
+                   torch.backends.mkldnn):
+        b = getattr(parent, op, None)
         if b is not None and hasattr(b, "fp32_precision"):
             found.append(b)
     return found
 
 
+def _matmul_backends() -> list:
+    """The per-backend matmul settings ``torch.set_float32_matmul_precision``
+    writes besides its own."""
+    return _fp32_backends("matmul")
+
+
 @contextlib.contextmanager
 def full_f32_matmul():
-    """Float32 matrix products at full precision (no TF32) inside the
-    block.  On exit the caller's settings come back exactly: the value of
-    ``torch.get_float32_matmul_precision`` and the per-backend ones, which
-    setting the former also overwrites (a per-backend value left changed
-    would clash with a later ``allow_tf32`` and make torch refuse to read
-    the precision)."""
+    """Float32 matrix products and convolutions at full precision (no
+    TF32) inside the block.  On exit the caller's settings come back
+    exactly: the value of ``torch.get_float32_matmul_precision`` and the
+    per-backend ones, which setting the former also overwrites (a
+    per-backend value left changed would clash with a later
+    ``allow_tf32`` and make torch refuse to read the precision).  A torch
+    without the per-backend convolution setting has its legacy cuDNN flag
+    saved and restored instead."""
     prev = torch.get_float32_matmul_precision()
     saved = [(b, b.fp32_precision) for b in _matmul_backends()]
+    convs = _fp32_backends("conv")
+    saved += [(b, b.fp32_precision) for b in convs]
+    legacy = None if convs else torch.backends.cudnn.allow_tf32
     torch.set_float32_matmul_precision("highest")
+    for b in convs:
+        b.fp32_precision = "ieee"
+    if legacy is not None:
+        torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
         for b, value in saved:
             b.fp32_precision = value
+        if legacy is not None:
+            torch.backends.cudnn.allow_tf32 = legacy
 
 
 def _entropy2(p0: torch.Tensor, p1: torch.Tensor) -> torch.Tensor:

@@ -23,14 +23,17 @@ __all__ = ["extract_detections", "topk_detections", "nms", "nms_device"]
 def extract_detections(masked: torch.Tensor, count: torch.Tensor,
                        level_id: torch.Tensor, offsets: torch.Tensor,
                        inv_scales: torch.Tensor, window: Tuple[int, int],
-                       k: int) -> Tuple[torch.Tensor, ...]:
+                       k: int, with_coords: bool = False
+                       ) -> Tuple[torch.Tensor, ...]:
     """Boxes of the k best survivors of a (B, GU, GV) masked map.
 
     ``level_id`` (GU, GV) int64 level of each origin (-1 outside levels),
     ``offsets`` (L, 2) int64 canvas (y, x) of each level, ``inv_scales``
     (L,) float32.  Returns ``rects (B, k, 4)`` image-space XYXY float32,
     ``scores (B, k)``, ``valid (B, k)`` and ``count (B,)`` int32 (the exact
-    survivor count, or -1 when it exceeds k).
+    survivor count, or -1 when it exceeds k); ``with_coords`` adds each
+    entry's canvas origin ``rs``, ``cs`` (B, k) int64 (in bounds where not
+    valid too, so crops at them are safe).
     """
     B, gu, gv = masked.shape
     flat = masked.reshape(B, gu * gv)
@@ -48,6 +51,8 @@ def extract_detections(masked: torch.Tensor, count: torch.Tensor,
     rects = torch.stack([x1, y1, x1 + n, y1 + m], dim=2)
     rects = rects * inv_scales[lid].unsqueeze(2)
     rects = torch.where(valid.unsqueeze(2), rects, torch.zeros_like(rects))
+    if with_coords:
+        return rects, scores, valid, count, rs, cs
     return rects, scores, valid, count
 
 

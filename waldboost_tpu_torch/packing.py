@@ -198,6 +198,13 @@ class PackedPyramidPlan:
     def image_canvas_shape(self) -> Tuple[int, int]:
         return self.canvas_h * self.shrink, self.canvas_w * self.shrink
 
+    def reflect_regions(self) -> Tuple[Tuple[int, int, int, int, int], ...]:
+        """Image-space ``(y, x, h, w, halo)`` of each level, the regions
+        whose halo bands the image-space canvas fills by reflection."""
+        s = self.shrink
+        return tuple((pl.y * s, pl.x * s, pl.level.height, pl.level.width,
+                      self.halo) for pl in self.levels)
+
     def stencil_border_mask(self) -> np.ndarray:
         """Image-space bool mask: True strictly inside each level (1px ring
         excluded) — the FPGA stencils' zero-border convention."""

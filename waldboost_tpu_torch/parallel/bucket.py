@@ -23,6 +23,17 @@ extraction with its level maps, and NMS.  Fast serving mode follows the
 JAX package's bucket: uint8 frames take B2's exact canvas rounded to
 bfloat16 and walked by B3f, float frames the float-fast planes, B2f and
 B3f; the FPGA family ignores it.
+
+Shrink 1 and channel functions without a polyphase form (grad_mag) take
+the image-space canvas (``ops/image_canvas.py``) of the same packed plan;
+its reflect halos, masks and the magnitude's second reflection follow
+from the real levels in their slots, as everything else does.
+
+``verifier=(module, params)`` fuses the CNN verifier
+(:mod:`waldboost_tpu_torch.verification`) into the program: after the
+extraction each valid survivor's window is cropped from the canvas on
+the device and re-scored ``cnn(X) + H``; NMS ranks by the verified
+scores, and the cascade's scores come back beside them.
 """
 
 from __future__ import annotations
@@ -41,8 +52,11 @@ from ..canvas import (FAST_FLOAT, ChannelCanvas, WindowGrid, as_image,
 from ..channels import pyramid_plan, resolve_channel_function
 from ..device import no_mesh
 from ..model import Model
+from ..mining import gather_windows
 from ..ops.cascade_static import cascade_masked
+from ..ops.nms import extract_detections, nms
 from ..packing import PackedPyramidPlan, _packed_plan_cached
+from ..verification import detect_and_verify, get_verifier_program
 from .detect import empty_results, extract_boxes
 
 __all__ = ["BucketedDetector", "BucketProgram", "BucketSize",
@@ -99,12 +113,13 @@ class BucketProgram:
     bucket: ``images`` a (B, Hb, Wb) uint8 or float32 batch padded to the
     bucket, ``geom`` a :class:`BucketSize` of :meth:`geometry`; the
     outputs as :func:`~waldboost_tpu_torch.parallel.detect.
-    make_batched_detector_boxes`'s at the real size.  Built by
-    :func:`make_bucket_detector_boxes`."""
+    make_batched_detector_boxes`'s at the real size.  With a ``verifier``
+    the scores are the verified ones and a sixth output holds the
+    cascade's.  Built by :func:`make_bucket_detector_boxes`."""
 
     def __init__(self, model: Model, bucket_hw: Tuple[int, int], k: int,
                  nms_iou: Optional[float], with_n_weak: bool, device,
-                 fast: bool, fast_float: str):
+                 fast: bool, fast_float: str, verifier=None):
         shrink, n_per_oct, smooth, cf = serving_opts(model.channel_opts,
                                                      model.shape[2])
         if fast_float not in FAST_FLOAT:
@@ -125,6 +140,8 @@ class BucketProgram:
                                           n_per_oct, self.window,
                                           halo=cf.halo)
         self.cascade_ops = model._operands(device)
+        self.verify = None if verifier is None else \
+            get_verifier_program(*verifier, device)
 
     def geometry(self, real_hw: Tuple[int, int]) -> BucketSize:
         """The operands of ``real_hw`` frames (host tables, then copied to
@@ -153,18 +170,34 @@ class BucketProgram:
         crop = images[:, :h, :w]
         if self.fast and crop.is_floating_point():
             canvas = geom.fast_canvas(crop)
+            exact = canvas
         else:
-            canvas = geom.canvas(crop)
+            canvas = exact = geom.canvas(crop)
             if self.fast:  # B2's exact values, walked in bfloat16
                 canvas = canvas.to(torch.bfloat16)
         with span("wb.cascade"):
             masked, n_weak, count = cascade_masked(canvas, geom.grid.valid,
                                                    self.cascade_ops)
-        rects, scores, keep, count = extract_boxes(masked, count, geom.grid,
-                                                   self.k, self.nms_iou)
         if not self.with_n_weak:
             n_weak = torch.zeros_like(n_weak)
-        return rects, scores, keep, count, n_weak
+        if self.verify is None:
+            rects, scores, keep, count = extract_boxes(
+                masked, count, geom.grid, self.k, self.nms_iou)
+            return rects, scores, keep, count, n_weak
+        grid = geom.grid
+        with span("wb.extract"):
+            rects, casc, keep, count, rs, cs = extract_detections(
+                masked, count, grid.level_id, grid.offsets, grid.inv_scales,
+                grid.window, self.k, with_coords=True)
+        with span("wb.verify"):
+            b, j = keep.nonzero(as_tuple=True)
+            crops = gather_windows(exact, b, rs[b, j], cs[b, j], grid.window)
+            scores = casc.clone()
+            scores[b, j] = self.verify(crops, casc[b, j])
+        if self.nms_iou is not None:
+            with span("wb.nms"):
+                keep = keep & nms(rects, scores, keep, float(self.nms_iou))
+        return rects, scores, keep, count, n_weak, casc
 
 
 def make_bucket_detector_boxes(model: Model, bucket_hw: Tuple[int, int],
@@ -178,16 +211,13 @@ def make_bucket_detector_boxes(model: Model, bucket_hw: Tuple[int, int],
     (``fn(images, fn.geometry(real_hw))``) and ``packed`` the bucket's
     packed plan.  ``count == -1`` flags more than ``k`` survivors (callers
     fall back to the per-size path).  ``fast`` and ``fast_float`` are the
-    serving mode, fixed at build time; runs on ``device`` (the model's
-    when None)."""
+    serving mode, fixed at build time; ``verifier=(module, params)`` fuses
+    the CNN rescoring in; runs on ``device`` (the model's when None)."""
     no_mesh(mesh, "bucketed serving")
-    if verifier is not None:
-        raise NotImplementedError("the CNN verifier is not ported yet "
-                                  "(ROADMAP item A10)")
     if int(k) < 1:
         raise ValueError(f"k must be positive, got {k}")
     fn = BucketProgram(model, bucket_hw, k, nms_iou, with_n_weak,
-                       model._device_for(device), fast, fast_float)
+                       model._device_for(device), fast, fast_float, verifier)
     return fn, fn.packed
 
 
@@ -206,8 +236,11 @@ class BucketedDetector:
     ``track_cost`` each image's weak evaluations and scanned windows are
     folded into the model's cost counters, as ``Model.detect`` folds them.
     ``fast`` / ``fast_float``: fast serving mode (see
-    :mod:`waldboost_tpu_torch.parallel.bucket`).  Runs on ``device`` (the
-    model's when None)."""
+    :mod:`waldboost_tpu_torch.parallel.bucket`).  ``verifier=(module,
+    params)``: every bucket program re-scores its survivors with the CNN
+    verifier; 'scores' are the verified scores (NMS ranks by them) and
+    'cascade_scores' the cascade's, as ``detect_and_verify`` gives them.
+    Runs on ``device`` (the model's when None)."""
 
     #: real sizes whose device tables each bucket keeps
     MAX_SIZES = 16
@@ -218,9 +251,6 @@ class BucketedDetector:
                  verifier=None, fast: bool = False, fast_float: str = "f32",
                  device=None):
         no_mesh(mesh, "bucketed serving")
-        if verifier is not None:
-            raise NotImplementedError("the CNN verifier is not ported yet "
-                                      "(ROADMAP item A10)")
         serving_opts(model.channel_opts, model.shape[2])
         if fast_float not in FAST_FLOAT:
             raise ValueError(f"fast_float must be one of {sorted(FAST_FLOAT)}"
@@ -233,6 +263,7 @@ class BucketedDetector:
         self.track_cost = bool(track_cost)
         self.fast = bool(fast)
         self.fast_float = fast_float
+        self.verifier = verifier
         self.device = model._device_for(device)
         self._programs: Dict[Tuple[int, int], BucketProgram] = {}
         self._sizes: Dict[Tuple[int, int], collections.OrderedDict] = {}
@@ -247,8 +278,9 @@ class BucketedDetector:
         if bucket_hw not in self._programs:
             self._programs[bucket_hw] = make_bucket_detector_boxes(
                 self.model, bucket_hw, k=self.k, nms_iou=self.nms_iou,
-                with_n_weak=self.track_cost, device=self.device,
-                fast=self.fast, fast_float=self.fast_float)[0]
+                with_n_weak=self.track_cost, verifier=self.verifier,
+                device=self.device, fast=self.fast,
+                fast_float=self.fast_float)[0]
             self._sizes[bucket_hw] = collections.OrderedDict()
             self.compiles += 1
         return self._programs[bucket_hw]
@@ -265,7 +297,10 @@ class BucketedDetector:
 
     def _fallback_detect(self, image) -> Boxes:
         """The per-size path (more than ``k`` survivors), then NMS."""
-        bx = self.model._detect(image, self.device)
+        if self.verifier is not None:
+            bx = detect_and_verify(image, self.model, *self.verifier)
+        else:
+            bx = self.model._detect(image, self.device)
         if self.nms_iou is not None and len(bx):
             bx = non_max_suppression(bx, iou_threshold=float(self.nms_iou))
         return bx
@@ -282,7 +317,7 @@ class BucketedDetector:
             batch = np.zeros((len(chunk), H, W), chunk[0].dtype)
             for j, im in enumerate(chunk):
                 batch[j, :im.shape[0], :im.shape[1]] = im
-            rects, scores, valid, count, n_weak = (
+            rects, scores, valid, count, n_weak, *casc = (
                 a.cpu().numpy()
                 for a in fn(torch.from_numpy(batch).to(self.device), geom))
             for j, im in enumerate(chunk):
@@ -293,6 +328,8 @@ class BucketedDetector:
                     self.model._track_cost(int(n_weak[j]), geom.grid.n_loc)
                 bx = Boxes(rects[j][valid[j]])
                 bx.set_field("scores", scores[j][valid[j]].astype(np.float32))
+                if casc:
+                    bx.set_field("cascade_scores", casc[0][j][valid[j]])
                 out.append(bx)
         return out
 
