@@ -18,8 +18,8 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
 
  1. prints torch/CUDA versions and the card's name and power limit;
  2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
-    all at once) and prints ptxas's register / shared-memory / spill
-    report;
+    all at once, the previous B2d/B2f design among them) and prints
+    ptxas's register / shared-memory / spill report;
  3. runs each kernel at the VGA batch-8 shapes against its plain-torch
     version on the card, bitwise (tolerance 0), mismatches printed per
     phase: B1, B2, B3 on a noise batch; B4 with flagship_synth_64 and
@@ -41,15 +41,17 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
  3c. B2f against its plain version on the bfloat16 bits, for uint8,
     float32 and bfloat16 planes, smooth 0 and 1: at VGA batch 8 (the fast
     canvas step's planes of noise frames), at 1080p batch 8 (seeded
-    planes), and at 3b's small odd shapes with planes and mask also
-    starting one element off a word; B3f (the kernel always counts
+    planes), and at the tiling edges 3x5, 17x45, 70x257, 33x132 and 70x256
+    (widths no multiple of 4, 8 or 16, and multiples) with planes and mask
+    also starting one element off their aligned start (float32: 4 bytes
+    off 16); B3f (the kernel always counts
     n_weak, which is compared too) with flagship_synth_64 and
     flagship_hard_256 on the VGA bfloat16 canvases, and B4 over one;
  3d. B2d against its plain version, bitwise (both native f64): at VGA
     batch 8 on the exact float planes of float noise frames and of the
     golden scenes as float32, smooth 0 and 1, each into an output
-    pre-filled with NaN; and at 3b's small odd shapes with planes and mask
-    also starting one element off a word;
+    pre-filled with NaN; and at 3c's tiling edges with planes and mask
+    also starting one element off their aligned start;
  4. serving path (slice 1): make_batched_detector_boxes(k=1024,
     nms_iou=0.5) on the 3 golden scene frames with every launch counter
     set to 0 first: survivor counts, kept boxes and scores equal the
@@ -173,35 +175,37 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
     scores bitwise the golden's, its verified scores and verify_scores
     within 1e-5 of the scores' scale, the fused bucket (k=1024, NMS 0.5)
     equal to detect_and_verify then host NMS and to the golden's;
- 6. times each kernel against its plain version (CUDA events, in turns),
-    each layer of the serving path, the serving path end to end (60
-    batches of 8 per workload, MP/s, p50/p80), Model.detect and the
-    three-model wt.detect (ms/frame, p50 of 30 frames) and
-    make_batched_detector (MP/s at batch 8, 30 batches), B3 on the
-    40-stage depth-5 model (GENERAL node records); B2f on each plane type
-    and B3f at VGA; fast serving end to end (30 batches per workload:
-    uint8 noise k=128 and scenes k=1024, float32 noise with f32 and bf16
-    planes, k=128); B2d at VGA (float noise planes, smooth 1), the float64
-    plane build alone, exact float serving end to end (float noise k=128,
-    float scenes k=1024; 30 batches each); bucketed serving over a mixed
-    stream (8 frames of each of the bucket golden's four sizes per
-    detect_many, 5 calls, MP/s); the first sight of 5 novel sizes (host
-    ms of the first and second call: Model.detect, which runs the packer,
-    against BucketedDetector, which builds tables only); the image-space
-    cascades' batched detectors (k=1024, NMS 0.5, 30 batches of 8: the
-    shrink-1 one on noise and scenes, grad_mag and grad_hist+grad_mag on
-    noise) and each canvas step (whole, resize, channels; us/image);
-    verified detection (the flagship's VGA bucket program with the
-    verifier fused, k=1024, NMS 0.5, scene batches) and the verifier's ms
-    per 1024 windows; at config 5: B5
-    (smooth 0, 1), B3 and B4 (C = 5) and B1 (halo 0) against their plain
-    versions and bounds; at 1080p B1 and B2 (smooth 1 and 0) likewise; the
-    serving path end to end (k=128, NMS 0.5, smooth 0 and 1, MP/s with
-    p50/p80 over 20 batches of 8) and the peak device memory; config 4 as
-    bench.py times it (2 warm stages, then 6 timed: stages/min, each
+ 6. times each kernel against its plain version (CUDA events, in turns), each
+    layer of the serving path, the serving path end to end (60 batches of 8
+    per workload, MP/s, p50/p80), Model.detect and the three-model wt.detect
+    (ms/frame, p50 of 30 frames) and make_batched_detector (MP/s at batch 8,
+    30 batches), B3 on the 40-stage depth-5 model (GENERAL node records); B2f
+    on each plane type and B3f at VGA; B2, B2d and B2f on each plane type
+    again beside the previous design of B2d and B2f
+    (csrc/baseline/grad_hist_pr10.cu, built with the package's sources) in
+    turns, and B2d's instruction floor (its f64 operations and conversions at
+    16.9e12 and 4.18e12 a second, one after the other); fast serving end to
+    end (30 batches per workload: uint8 noise k=128 and scenes k=1024, float32
+    noise with f32 and bf16 planes, k=128); B2d at VGA (float noise planes,
+    smooth 1), the float64 plane build alone, exact float serving end to end
+    (float noise k=128, float scenes k=1024; 30 batches each); bucketed
+    serving over a mixed stream (8 frames of each of the bucket golden's four
+    sizes per detect_many, 5 calls, MP/s); the first sight of 5 novel sizes
+    (host ms of the first and second call: Model.detect, which runs the
+    packer, against BucketedDetector, which builds tables only); the
+    image-space cascades' batched detectors (k=1024, NMS 0.5, 30 batches of 8:
+    the shrink-1 one on noise and scenes, grad_mag and grad_hist+grad_mag on
+    noise) and each canvas step (whole, resize, channels; us/image); verified
+    detection (the flagship's VGA bucket program with the verifier fused,
+    k=1024, NMS 0.5, scene batches) and the verifier's ms per 1024 windows; at
+    config 5: B5 (smooth 0, 1), B3 and B4 (C = 5) and B1 (halo 0) against
+    their plain versions and bounds; at 1080p B1 and B2 (smooth 1 and 0)
+    likewise; the serving path end to end (k=128, NMS 0.5, smooth 0 and 1,
+    MP/s with p50/p80 over 20 batches of 8) and the peak device memory; config
+    4 as bench.py times it (2 warm stages, then 6 timed: stages/min, each
     stage's ms, the launches per stage of B1, B2 and B6) and config 4b
-    likewise (a warm call to 2 stages, then 12 timed), both rates on one
-    line; probes the host;
+    likewise (a warm call to 2 stages, then 12 timed), both rates on one line;
+    probes the host;
  7. traces 10 batches of each serving workload (and of the fast scene and
     bf16 float-fast workloads) with torch.profiler and prints the device
     idle share and, per layer span (wb.*), host and device time, and 3
@@ -275,7 +279,7 @@ KERNELS = {
                         "waldboost_tpu/ops/cascade_pallas.py:182"),
     "grad_hist_fast": ("waldboost_tpu_torch.ops.channels",
                        "grad_hist_fast_launches",
-                       "waldboost_tpu_torch/csrc/grad_hist.cu",
+                       "waldboost_tpu_torch/csrc/grad_hist_float.cu",
                        "waldboost_tpu/ops/channels_pallas.py:405 (fast=True)"),
     "cascade_fast": ("waldboost_tpu_torch.ops.cascade_static",
                      "cascade_fast_launches",
@@ -283,7 +287,7 @@ KERNELS = {
                      "waldboost_tpu/ops/cascade_static.py:764 (fast=True)"),
     "grad_hist_float": ("waldboost_tpu_torch.ops.channels",
                         "grad_hist_float_launches",
-                        "waldboost_tpu_torch/csrc/grad_hist.cu",
+                        "waldboost_tpu_torch/csrc/grad_hist_float.cu",
                         "waldboost_tpu/ops/channels_pallas.py:405 (float_dd, "
                         ":373)"),
 }
@@ -305,10 +309,25 @@ FPGA_BUCKET_SIZES = ((1080, 1920), (1072, 1904))
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 (and the
 #: integer work counted with it) and float64 operations/s outside the
-#: tensor cores
+#: tensor cores (the f64 peak counts a fused multiply-add as two)
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 F64_OPS_S = 34e12
+#: f64 instructions/s (an unfused add or multiply takes a fused one's
+#: slot: half the FLOP peak) and conversions to or from f64/s (16 a clock
+#: and SM: CUDA's throughput table for compute capability 9.0; 132 SMs at
+#: the 1.98 GHz the peaks assume)
+F64_INSTR_S = F64_OPS_S / 2
+CONV_S = 132 * 16 * 1.98e9
+#: the previous design of B2d and B2f, built beside the package's sources
+#: and timed against them (its B2 is the committed one's)
+PREVIOUS_GRAD_HIST = "baseline/grad_hist_pr10"
+#: tiling edges of B2d and B2f (h, w, batch): widths off the 128-column
+#: tile, float32 widths no multiple of 4 (5, 45, 257), a multiple of 4
+#: but not of 8 (132) and of 16 (256); each also one element off its
+#: aligned start
+GH_EDGES = (((3, 5), 3), ((17, 45), 1), ((70, 257), 3), ((33, 132), 2),
+            ((70, 256), 2))
 
 
 class SmokeFailure(RuntimeError):
@@ -388,11 +407,13 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def bound(n_bytes, f32_ops=0.0, f64_ops=0.0):
+def bound(n_bytes, f32_ops=0.0, f64_ops=0.0, conversions=0.0):
     """(ms, what bounds it): the least time of a call that moves
-    ``n_bytes`` and does the given operations."""
+    ``n_bytes`` and does the given operations (``f64_ops`` unfused f64
+    adds and multiplies, ``conversions`` to or from f64)."""
     t_bytes = n_bytes / HBM_BYTES_S
-    t_ops = max(f32_ops / F32_OPS_S, f64_ops / F64_OPS_S)
+    t_ops = max(f32_ops / F32_OPS_S, f64_ops / F64_INSTR_S,
+                conversions / CONV_S)
     return max(t_bytes, t_ops) * 1e3, \
         "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1441,7 +1462,7 @@ def main():
     t0 = time.time()
     sources = sorted({os.path.basename(src)[:-3]
                       for _, _, src, _ in KERNELS.values()})
-    _build.build(sources)
+    _build.build(sources + [PREVIOUS_GRAD_HIST])
     for name in sources:
         for line in _build.build_log(name).splitlines():
             if "spill" in line or "ptxas" in line and (
@@ -1679,7 +1700,7 @@ def main():
                 if label == "VGA" and sm == 1:
                     fcanvas[kind] = got
     del fplanes1080
-    for ehw, eb in (((3, 5), 3), ((17, 45), 1), ((70, 257), 3)):
+    for ehw, eb in GH_EDGES:
         emask = torch.from_numpy((erng.rand(*ehw) < 0.9).astype(np.uint8)) \
             .to(dev)
         vals = torch.from_numpy(erng.rand(eb, 2, 2, *ehw).astype(np.float32)
@@ -1741,7 +1762,7 @@ def main():
                               cstep.interior if sm else None, sm)
             if sm == 1:
                 xcanvas[kind] = got
-    for ehw, eb in (((3, 5), 3), ((17, 45), 1), ((70, 257), 3)):
+    for ehw, eb in GH_EDGES:
         emask = torch.from_numpy((erng.rand(*ehw) < 0.9).astype(np.uint8)) \
             .to(dev)
         vals = torch.from_numpy(erng.rand(eb, 2, 2, *ehw).astype(np.float32)
@@ -2508,6 +2529,34 @@ def main():
         metric(f"{name}_plain_us_per_image", timing[name][1] * 1e3 / BATCH,
                "us/image")
 
+    # B2, B2d and B2f beside the previous design of csrc/grad_hist_float.cu
+    # (csrc/baseline/grad_hist_pr10.cu, whose B2 is the committed one's),
+    # in turns in this call: committed, previous, previous, committed
+    prev_lib = _build.load_library(PREVIOUS_GRAD_HIST)
+
+    def previous_ms(src, fn):
+        keep = _build.load_library(src)
+        _build._LIBS[src] = prev_lib
+        try:
+            return cuda_ms(fn, 20)
+        finally:
+            _build._LIBS[src] = keep
+
+    previous = {}
+    for name in ("grad_hist", "grad_hist_float", "grad_hist_fast",
+                 "grad_hist_fast_bf16", "grad_hist_fast_f32"):
+        src = "grad_hist" if name == "grad_hist" else "grad_hist_float"
+        kern = calls[name][0]
+        k1 = cuda_ms(kern, 20)
+        p1 = previous_ms(src, kern)
+        p2 = previous_ms(src, kern)
+        k2 = cuda_ms(kern, 20)
+        previous[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        metric(f"{name}_previous_kernel_us_per_image",
+               previous[name][1] * 1e3 / BATCH, "us/image")
+        print(f"{name}: committed {previous[name][0]:.4f} ms, previous "
+              f"design {previous[name][1]:.4f} ms (same call, in turns)")
+
     # the least time of each kernel's call at these shapes: bytes (each
     # input read once, each output written once) over the HBM rate, or its
     # arithmetic over the peak rate of its type
@@ -2522,14 +2571,15 @@ def main():
 
     def grad_hist_float_bound(p, mask, cv):
         # per pooled pixel and image, from the kernel: 13 f64 prefilters
-        # (3 arithmetic operations and 4 conversions each) and 16
-        # projections (3 operations and 1 conversion each, plus the 8
-        # gradients widened): 163 f64 operations; in f32 the gradient
-        # differences, the pool and the smooth (64); the smooth's tile
-        # recomputes 16 pooled rows for 14
+        # (3 operations and a rounding to f32 each), 12 projections (3
+        # operations and a rounding each; bin 0 is |gx|), 10 plane elements
+        # widened (an f64 multiply each): 85 f64 operations and 25
+        # conversions; in f32 the gradient differences, the pool and the
+        # smooth (64); the smooth's tile recomputes 16 pooled rows for 14
         rows = 16 / 14 if mask is not None else 1.0
+        n = rows * cv.numel() / 4
         return bound(nbytes(p, mask, cv), f32_ops=64 * cv.numel() / 4,
-                     f64_ops=163 * rows * cv.numel() / 4)
+                     f64_ops=85 * n, conversions=25 * n)
 
     def grad_hist_fast_bound(p, mask, cv):
         # B2's operations, the projections in f32
@@ -2593,6 +2643,13 @@ def main():
         nbytes(canvas5, det5.grid.valid, records(det5.cascade_ops, canvas5))
         + BATCH * det5.grid.valid.numel() * 5 + 4 * BATCH,
         f32_ops=4 * nw5)
+    # B2d's instruction floor: its f64 operations and conversions on one
+    # pipe, one after the other (the bound takes the larger alone)
+    xcv = xcanvas["noise"]
+    n_px = 16 / 14 * xcv.numel() / 4
+    metric("grad_hist_float_instruction_floor_us_per_image",
+           (85 * n_px / F64_INSTR_S + 25 * n_px / CONV_S) * 1e6 / BATCH,
+           "us/image")
     for name, (ms, what) in bounds.items():
         metric(f"{name}_bound_us_per_image", ms * 1e3 / BATCH, "us/image")
         print(f"{name}: bound by {what}; kernel at "

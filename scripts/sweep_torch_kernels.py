@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Variants of the port's kernels B1 (csrc/planes.cu), B2
-(csrc/grad_hist.cu), B5 (csrc/fpga.cu) and the cascade walk
-(csrc/cascade.cu: B3, B4, B6) on one NVIDIA GPU, each held bitwise against
-the kernel's plain version and timed.
+(csrc/grad_hist.cu), B2d and B2f (csrc/grad_hist_float.cu), B5
+(csrc/fpga.cu) and the cascade walk (csrc/cascade.cu: B3, B4, B6) on one
+NVIDIA GPU, each held bitwise against the kernel's plain version and
+timed.
 
 A variant is the committed source with textual edits, built by nvcc as
 waldboost_tpu_torch/_build.py builds the source (all variants at once), or
-a kernel's first design kept under csrc/baseline/ (the "first design"
-rows, launched as its wrapper launched it: B1 over a zeroed canvas):
+an earlier design kept under csrc/baseline/ (the "first design" rows,
+launched as its wrapper launched it: B1 over a zeroed canvas; B2d's and
+B2f's "previous design" row, csrc/baseline/grad_hist_pr10.cu):
 
 * a launch bound or a tuning constant (the choices of the source), B1's
   tile shape, tile order (the package's row-major one, or grouped by the
@@ -18,7 +20,10 @@ rows, launched as its wrapper launched it: B1 over a zeroed canvas):
 * ``skew``: alternate warps (B1: also alternate lanes) delayed at every
   phase, so a missing barrier changes the output;
 * ``ablation``: work removed (the values differ by design): timed only,
-  its mismatch count printed, never a failure.
+  its mismatch count printed, never a failure;
+* ``cause``: one of the previous design's suspected costs put back into
+  the new one (scalar shared reads, 4-byte copies, f64 conversions), the
+  values unchanged, so held bitwise like any variant.
 
 The walk also runs on GENERAL records of the depth-2 models (the tables
 packed as for deeper trees) with the committed build.
@@ -28,7 +33,11 @@ it misses is a mismatch) at VGA, BASELINE config 3's 1080p and config 5's
 4K halo 0 (batch 8 of noise), and at 18x18, 97x131 (halo 0) and 61x95 (one
 byte off a word); B2 on the VGA and 1080p planes (batch 8), smooth 0 and
 1, and at 3x5, 17x45 and 70x257 planes (batch 3, 1, 3, random masks, one
-byte off a word); B5 on the config-5 planes (4K noise, batch 8, both
+byte off a word); B2d and B2f (uint8, bfloat16 and float32 planes) on
+random VGA and 1080p planes (batch 8, smooth 0 and 1) and at 3x5, 17x45,
+70x257, 33x132 and 70x256 (batch 3, 1, 3, 2, 2, random masks, planes and
+mask also one element off their aligned start), B2f on the bfloat16
+bits; B5 on the config-5 planes (4K noise, batch 8, both
 committed models' composite, smooth 0 and 1) and at chip_smoke.py's tiling
 edges (3x5, 17x45 and 70x257 planes, batch 3, 1, 3, one byte off a word,
 C = 1, 4, 5, both smooths); the walk: B3 and B4 at C = 5 (4K), B3 and B6
@@ -43,12 +52,16 @@ committed walk and the one that queries the device at every launch, on
 the host clock.
 
 Prints the card line, one line per variant (ms, mismatches, ptxas
-registers and spill stores per kernel instance), a JSON summary as the
+registers and spill stores per kernel instance), the static SASS counts
+of conversions, f64 operations, shared loads, copies and shuffles of the
+committed and previous B2d/B2f builds (cuobjdump), a JSON summary as the
 last line (also written to --out), and exits 1 if a variant other than an
 ablation differs from the plain version.
 
 Usage: python scripts/sweep_torch_kernels.py
-           [--only planes,grad_hist,fpga,walk] [--out FILE]
+           [--only planes,grad_hist,grad_hist_float,fpga,walk]
+           [--out FILE]   (grad_hist: B2, B2d and B2f; grad_hist_float:
+                          B2d and B2f alone)
 """
 
 import argparse
@@ -225,7 +238,7 @@ PLANES_VARIANTS.update({
     FIRST_DESIGN: ("baseline/planes_per_byte.cu", False, None),
 })
 
-GH_BOUND = "__launch_bounds__(kThreads, kBlocksPerSmOf<kIn>)"
+GH_BOUND = "__launch_bounds__(kThreads, kBlocksPerSm)"
 GH_IMAGE_TOP = ("    __syncthreads();  // the previous image is done with "
                 "sPo, other buffer\n")
 GH_FIRST = ("  // the planes of the next image are staged while this one is "
@@ -271,10 +284,11 @@ GH_VARIANTS.update({
         "  const double dx = to_double(gx), dy = to_double(gy);",
         "  const double dx = gx, dy = gy;")], False),
     "ablation: bins in f32": ([(
-        "      const float b = fabsf(__double2float_rn(\n"
-        "          __dsub_rn(__dmul_rn(dx, pj.c[k]), __dmul_rn(dy, pj.s[k]))));",
-        "      const float b = fabsf(__fsub_rn(\n"
-        "          __fmul_rn(gx, pj.cf[k]), __fmul_rn(gy, pj.sf[k])));")],
+        "    const float b = fabsf(__double2float_rn(\n"
+        "        __dsub_rn(__dmul_rn(dx, pj.c[k]), __dmul_rn(dy, pj.s[k]))));",
+        "    const float b = fabsf(__fsub_rn(\n"
+        "        __fmul_rn(gx, static_cast<float>(pj.c[k])),\n"
+        "        __fmul_rn(gy, static_cast<float>(pj.s[k]))));")],
         True),
     "ablation: planes staged once for the batch": ([(
         "    if (b + gridDim.z < batch)\n      stage<4",
@@ -282,9 +296,8 @@ GH_VARIANTS.update({
         "    const uint32_t* sP = sPbuf + buf * T::kPlanes;",
         "    const uint32_t* sP = sPbuf;")], True),
     "planes staged synchronously (no cp.async)": ([(
-        "  const bool async = (static_cast<size_t>(W) * kIn) % 4 == 0 &&",
-        "  const bool async = false && (static_cast<size_t>(W) * kIn) % 4 == 0 "
-        "&&")], False),
+        "  const bool async = W % 4 == 0 &&",
+        "  const bool async = false && W % 4 == 0 &&")], False),
     "smooth: bins loop not unrolled": ([(
         "#pragma unroll\n      for (int k = 0; k < kBins; ++k) {\n"
         "        // pooled rows il-1",
@@ -300,6 +313,158 @@ GH_VARIANTS.update({
     "poison+skew minblocks 1": (GH_POISON + GH_SKEW + [(
         GH_BOUND, "__launch_bounds__(kThreads, 1)")], False),
 })
+
+
+# B2d and B2f (csrc/grad_hist_float.cu)
+GHF_START = "  if (tma && lead) {\n"
+GHF_TOP = ("    __syncthreads();  // the previous item is done with sPo, other "
+           "buffer\n")
+GHF_ONE = ("      __syncthreads();  // the planes are read: copy the next "
+           "item's in\n")
+GHF_ITEM = "    const int j0 = J0 + 4 * tx;\n"
+GHF_RING = "    if (kSmooth && tx < 4) {\n"
+GHF_SMOOTH = "    // the smooth, two adjacent rows a warp\n"
+GHF_POISON = [
+    (GHF_START,
+     "  for (int i = threadIdx.y * kBX + threadIdx.x;\n"
+     "       i < static_cast<int>(T::kBytes / 4); i += kThreads)\n"
+     "    reinterpret_cast<uint32_t*>(smem)[i] = 0x3C3C3C3Cu ^ blockIdx.x ^ i;\n"
+     "  __syncthreads();\n" + GHF_START),
+    (GHF_TOP, GHF_TOP +
+     "    for (int i = ty * kBX + tx; i < (T::kPooled + T::kRing) / 4;\n"
+     "         i += kThreads)\n"
+     "      reinterpret_cast<uint32_t*>(smem)[i] = 0x7fc00000u | i;\n"
+     "    if (kBufs == 2) {\n"
+     "      for (int i = ty * kBX + tx; i < T::kPlanes / 4; i += kThreads)\n"
+     "        reinterpret_cast<uint32_t*>(sPbuf + (pb ^ 1) * T::kPlanes)[i] =\n"
+     "            0x5A5A5A5Au ^ (static_cast<uint32_t>(it) * 0x01000193u);\n"
+     "      for (int i = ty * kBX + tx; i < T::kMask / 4; i += kThreads)\n"
+     "        reinterpret_cast<uint32_t*>(sM + (mb ^ 1) * T::kMask)[i] =\n"
+     "            0xA5A5A5A5u ^ i;\n"
+     "    }\n"
+     "    __syncthreads();  // poisoned before any copy into them\n"),
+    (GHF_ONE, GHF_ONE +
+     "      for (int i = ty * kBX + tx; i < T::kPlanes / 4; i += kThreads)\n"
+     "        reinterpret_cast<uint32_t*>(sPbuf)[i] =\n"
+     "            0x5A5A5A5Au ^ (static_cast<uint32_t>(it) * 0x01000193u);\n"
+     "      for (int i = ty * kBX + tx; i < T::kMask / 4; i += kThreads)\n"
+     "        reinterpret_cast<uint32_t*>(sM + (mb ^ 1) * T::kMask)[i] =\n"
+     "            0xA5A5A5A5u ^ i;\n"
+     "      __syncthreads();  // poisoned before any copy into them\n"),
+]
+GHF_SKEW = [
+    (GHF_ITEM, GHF_ITEM +
+     "    if ((ty ^ static_cast<int>(it)) & 1) __nanosleep(4000);\n"),
+    (GHF_RING,
+     "    if (!((ty ^ static_cast<int>(it)) & 1)) __nanosleep(4000);\n"
+     + GHF_RING),
+    (GHF_SMOOTH, GHF_SMOOTH +
+     "    if ((ty ^ static_cast<int>(it)) & 1) __nanosleep(4000);\n"),
+]
+def ghf_blocks(delta):
+    """Each instance's launch bound (blocks an SM must hold) + delta."""
+    def sub(m):
+        return ", ".join(f"kBlocks{n} = {max(1, int(v) + delta)}" for n, v in
+                         re.findall(r"kBlocks(\w+) = (\d+)", m.group(0)))
+    return [(re.compile(r"kBlocksB2d = \d+, kBlocksF32 = \d+, "
+                        r"kBlocksBf16 = \d+, kBlocksU8 = \d+"), sub)]
+
+
+def ghf_const(name, value):
+    return [(re.compile(rf"{name} = \d+"), f"{name} = {value}")]
+
+
+GHF_VECTOR = "constexpr bool kVectorOf = kIn != 1;"
+
+#: B2d's prefilters converting each operand in every tap (asm, so the
+#: compiler cannot merge the conversions of one element)
+GHF_PER_TAP = [(
+    "  using W = double;\n"
+    "  static constexpr bool kCheck = kBits;  // gradients must be finite\n"
+    "  static __device__ __forceinline__ W widen(float v) {\n"
+    "    if constexpr (kBits)\n"
+    "      return __dmul_rn(scaled_f64(v), 0x1p896);\n"
+    "    else\n"
+    "      return static_cast<double>(v);\n"
+    "  }\n"
+    "  static __device__ __forceinline__ float tap(W a, W b, W c) {\n"
+    "    return __double2float_rn(__dadd_rn(__dadd_rn(a, __dmul_rn(2.0, b)), "
+    "c));\n"
+    "  }\n",
+    "  using W = float;\n"
+    "  static constexpr bool kCheck = kBits;  // gradients must be finite\n"
+    "  static __device__ __forceinline__ W widen(float v) { return v; }\n"
+    "  static __device__ __forceinline__ double cvt(float v) {\n"
+    "    double d;\n"
+    "    asm volatile(\"cvt.f64.f32 %0, %1;\" : \"=d\"(d) : \"f\"(v));\n"
+    "    return d;\n"
+    "  }\n"
+    "  static __device__ __forceinline__ float tap(W a, W b, W c) {\n"
+    "    return __double2float_rn(__dadd_rn(\n"
+    "        __dadd_rn(cvt(a), __dmul_rn(2.0, cvt(b))), cvt(c)));\n"
+    "  }\n")]
+
+PREVIOUS = "previous design"
+GHF_VARIANTS = {
+    "committed": ([], False),
+    # the float-plane instances of B2's template, before their redesign
+    PREVIOUS: ("baseline/grad_hist_pr10.cu", False),
+    "poison": (GHF_POISON, False),
+    "poison+skew": (GHF_POISON + GHF_SKEW, False),
+    "minblocks -1 (each instance)": (ghf_blocks(-1), False),
+    "minblocks +1 (each instance)": (ghf_blocks(+1), False),
+    "minblocks without the smooth as with it": (
+        ghf_const("kFewerBlocksSmooth0", 0), False),
+    "two plane buffers with the smooth": (ghf_const("kBufsSmooth1", 2),
+                                          False),
+    "one plane buffer without the smooth": (ghf_const("kBufsSmooth0", 1),
+                                            False),
+    "uint8 rows as one 4-byte load and shuffles": ([(
+        GHF_VECTOR, "constexpr bool kVectorOf = true;")], False),
+    "cause: 4-byte copies (no TMA)": ([(
+        "  const bool vec = (static_cast<size_t>(W) * kIn) % 16 == 0 &&",
+        "  const bool vec = false && (static_cast<size_t>(W) * kIn) % 16 == 0 "
+        "&&")], False),
+    "cause: float rows by scalar shared reads (bank conflicts)": ([(
+        GHF_VECTOR, "constexpr bool kVectorOf = false;")], False),
+    "cause: B2d elements to f64 by conversion": ([(
+        "    if constexpr (kBits)\n      return __dmul_rn(scaled_f64(v), "
+        "0x1p896);", "    if constexpr (false)\n      return __dmul_rn("
+        "scaled_f64(v), 0x1p896);")], False),
+    "cause: B2d gradients to f64 by conversion": ([(
+        "      const double dx = scaled_f64(gx), dy = scaled_f64(gy);\n"
+        "      const double* c = pj.cu;\n      const double* s = pj.su;",
+        "      const double dx = gx, dy = gy;\n"
+        "      const double* c = pj.c;\n      const double* s = pj.s;")],
+        False),
+    "cause: B2d per-tap conversions (not merged)": (GHF_PER_TAP, False),
+    "B2f bins each from their own products": ([(
+        "    const float p = __fmul_rn(fx, pj.cf[1]), q = __fmul_rn(fy, "
+        "pj.cf[1]);\n"
+        "    b[1] = fabsf(__fsub_rn(p, q));\n"
+        "    b[2] = fabsf(__fsub_rn(__fmul_rn(fx, pj.cf[2]), fy));\n"
+        "    b[3] = fabsf(__fadd_rn(p, q));",
+        "    for (int k = 1; k < kBins; ++k)\n"
+        "      b[k] = fabsf(\n"
+        "          __fsub_rn(__fmul_rn(fx, pj.cf[k]), __fmul_rn(fy, "
+        "pj.sf[k])));")], False),
+    "B2d ring cells by conversion": ([(
+        "cell_bins<FloatChain<true>>(e, pj, v)",
+        "cell_bins<FloatChain<false>>(e, pj, v)")], False),
+    "ablation: no ring cells": ([(GHF_RING, "    if (kSmooth && tx < 0) {\n")],
+                                True),
+    "ablation: smooth stubbed (centre only)": ([(
+        "          sm[g] = ((in >> (8 * g)) & 255u) ? __fmul_rn(s, 0.0625f) : "
+        "0.0f;", "          sm[g] = p[o + 1][g + 1];")], True),
+    "B2f uint8 gradients to f32 from their bits": ([(
+        "      fx = __int2float_rn(gx);\n      fy = __int2float_rn(gy);",
+        "      fx = __fsub_rn(__int_as_float(0x4b400000 + gx), 12582912.0f);\n"
+        "      fy = __fsub_rn(__int_as_float(0x4b400000 + gy), 12582912.0f);")],
+        False),
+    "two passes of a thread unrolled together": ([(
+        "#pragma unroll 1\n    for (int rr = 0; rr < 2; ++rr) {",
+        "#pragma unroll\n    for (int rr = 0; rr < 2; ++rr) {")], False),
+}
 
 
 # -- building ----------------------------------------------------------------
@@ -615,6 +780,107 @@ def grad_hist_cases(dev):
     return checks, times
 
 
+
+#: B2d and B2f: (label, chain, plane type); B2f's plane types as torch's
+GHF_KINDS = (("B2d", "float", "float32"), ("B2f uint8", "fast", "uint8"),
+             ("B2f bf16", "fast", "bfloat16"), ("B2f f32", "fast", "float32"))
+#: tiling edges (h, w, batch): widths off the 128-column tile, a float32
+#: width no multiple of 4 (5, 45, 257), one a multiple of 4 but not of 8
+#: (132), one of 16 (256)
+GHF_EDGES = (((3, 5), 3), ((17, 45), 1), ((70, 257), 3), ((33, 132), 2),
+             ((70, 256), 2))
+
+
+def grad_hist_float_cases(dev):
+    """``(checks, times)`` of B2d's and B2f's variants: random planes of
+    the VGA and 1080p plans (batch 8; uint8, bfloat16 and float32 from one
+    draw in [0, 256)) with each plan's interior mask, both smooths, timed;
+    and the tiling edges of GHF_EDGES with random masks, the planes and
+    mask also one element off their aligned start (float32: 4 bytes off
+    16), both smooths.  B2f is compared on the bfloat16 bits."""
+    import torch
+    from waldboost_tpu_torch import packing
+    from waldboost_tpu_torch.ops import channels as tcc
+    gen = torch.Generator(device=dev).manual_seed(14)
+    checks, times = [], {}
+
+    def case(chain, p, m, sm):
+        if chain == "float":
+            return ((lambda: [tcc.grad_hist_float(p, m, sm)]),
+                    [tcc.grad_hist_float_plain(p, m, sm)])
+        return ((lambda: [tcc.grad_hist_fast(p, m, sm).view(torch.int16)]),
+                [tcc.grad_hist_fast_plain(p, m, sm).view(torch.int16)])
+
+    for name, hw in (("VGA", (480, 640)), ("1080p", (1080, 1920))):
+        packed = packing._packed_plan_cached(hw[0], hw[1], 2, 8, (12, 12),
+                                             halo=1)
+        H, W = packed.canvas_h, packed.canvas_w
+        vals = torch.rand((BATCH, 2, 2, H, W), generator=gen,
+                          device=dev) * 256
+        mask = torch.as_tensor(packed.smooth_interior_mask().astype(np.uint8),
+                               device=dev)
+        for label, chain, dtype in GHF_KINDS:
+            p = vals.to(getattr(torch, dtype))
+            for sm in (1, 0):
+                fn, want = case(chain, p, mask if sm else None, sm)
+                checks.append((fn, want))
+                times[f"{name} {label} smooth {sm}"] = fn
+    erng = np.random.RandomState(5)
+    for ehw, eb in GHF_EDGES:
+        vals = torch.from_numpy((erng.rand(eb, 2, 2, *ehw) * 256)
+                                .astype(np.float32)).to(dev)
+        emask = torch.from_numpy((erng.rand(*ehw) < 0.8).astype(np.uint8)) \
+            .to(dev)
+        for label, chain, dtype in GHF_KINDS:
+            p = vals.to(getattr(torch, dtype))
+            for off in (0, 1):
+                buf = torch.empty(p.numel() + off, dtype=p.dtype, device=dev)
+                q = buf[off:].view(p.shape)
+                q.copy_(p)
+                mbuf = torch.empty(emask.numel() + off, dtype=torch.uint8,
+                                   device=dev)
+                mq = mbuf[off:].view(ehw)
+                mq.copy_(emask)
+                for sm in (0, 1):
+                    checks.append(case(chain, q, mq if sm else None, sm))
+    return checks, times
+
+
+#: SASS opcodes counted per kernel instance (static counts of the
+#: compiled code: conversions to and from f64, f64 arithmetic, shared
+#: loads, copies, TMA, shuffles)
+SASS_OPS = ("F2F.F64.F32", "F2F.F32.F64", "DADD", "DMUL", "DFMA", "I2F",
+            "LDS", "LDGSTS", "UTMALDG", "SHFL", "BAR")
+
+
+def sass_counts(_build, lib_path):
+    """{kernel instance: {opcode: static count}} of a built library, read
+    with the toolkit's cuobjdump; {} where it is missing."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            # the template arguments of an instance: smooth, bytes, chain
+            t = re.search(r"kernelILb(\d)ELi(\d)ELi(\d)E", name)
+            name = (f"smooth {t.group(1)} in {t.group(2)} chain "
+                    f"{t.group(3)}" if t else name[-40:])
+            counts[name] = {op: 0 for op in SASS_OPS}
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if name and m:
+            op = m.group(1)
+            for key in SASS_OPS:
+                if op == key or op.startswith(key + "."):
+                    counts[name][key] += 1
+    return counts
+
 def sweep_fpga_walk(_build, libs, dev, todo, failures, rows):
     """B5's and the walk's variants at config 5's shapes (and the walk's at
     VGA); returns the walk's host pairs (None without the walk)."""
@@ -786,7 +1052,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default="fpga,walk,planes,grad_hist",
                     help="comma-separated kernels: fpga, walk, planes, "
-                    "grad_hist")
+                    "grad_hist (B2, B2d, B2f), grad_hist_float (B2d, B2f)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -812,6 +1078,9 @@ def main():
     if "grad_hist" in todo:
         libs["grad_hist"] = build_variants(_build, "grad_hist", GH_VARIANTS,
                                            workdir)
+    if "grad_hist" in todo or "grad_hist_float" in todo:
+        libs["grad_hist_float"] = build_variants(
+            _build, "grad_hist_float", GHF_VARIANTS, workdir)
     if "fpga" in todo:
         libs["fpga"] = build_variants(_build, "fpga", FPGA_VARIANTS, workdir)
     if "walk" in todo:
@@ -828,11 +1097,26 @@ def main():
         host = {"8x8 host": lambda: tcc.grad_hist(tiny, None, 0)}
         sweep(_build, "grad_hist", GH_VARIANTS, libs["grad_hist"], checks,
               times, failures, rows, host)
+    sass = {}
+    if "grad_hist_float" in libs:
+        for label in ("committed", PREVIOUS):
+            sass[label] = sass_counts(
+                _build, libs["grad_hist_float"][label][0]._name)
+            for inst, ops in sass[label].items():
+                print(f"sass {label}, {inst}: " + ", ".join(
+                    f"{k} {v}" for k, v in ops.items()), flush=True)
+        checks, times = grad_hist_float_cases(dev)
+        tiny = torch.zeros((1, 2, 2, 8, 8), dtype=torch.float32, device=dev)
+        host = {"8x8 host": lambda: tcc.grad_hist_float(tiny, None, 0)}
+        sweep(_build, "grad_hist_float", GHF_VARIANTS,
+              libs["grad_hist_float"], checks, times, failures, rows, host)
     pairs = None
     if "fpga" in todo or "walk" in todo:
         pairs = sweep_fpga_walk(_build, libs, dev, todo, failures, rows)
     shutil.rmtree(workdir, ignore_errors=True)
     summary = {"card": card, "rows": rows, "failures": failures}
+    if sass:
+        summary["sass"] = sass
     if pairs is not None:
         summary["host_pairs"] = pairs
     if args.out:

@@ -264,6 +264,86 @@ def test_bucketed_matches_detect_and_jax(chans, shrink, shape):
     assert tdet.compiles == 1
 
 
+#: fast mode on the image-space canvas (shrink 1, grad_mag): the port's
+#: canvas is the exact one rounded to bfloat16 and walked by B3f, as JAX's
+#: batched detector's ``_channel_canvas_fast``
+FAST_MODELS = [("grad_hist", 1, (8, 8, 4)), ("grad_mag", 2, (8, 8, 1))]
+
+
+@pytest.mark.parametrize("with_n_weak", [False, True])
+@pytest.mark.parametrize("floats", [False, True], ids=["uint8", "float"])
+@pytest.mark.parametrize("chans,shrink,shape", FAST_MODELS)
+def test_fast_batched_detector_matches_jax(chans, shrink, shape, floats,
+                                           with_n_weak):
+    """make_batched_detector_boxes(fast=True) against JAX's under
+    WB_SERVING_MODE=fast with its Pallas channel backend (as the fast
+    goldens): counts, n_weak, kept boxes and scores bitwise for grad_hist
+    at shrink 1 (with n_weak counted JAX walks the exact canvas, without
+    it the canvas rounded to bfloat16); grad_mag within its exact-mode
+    bound (0.5% box flips: JAX's float32 triangle sums, PARITY.md)."""
+    from test_torch_fast import jax_fast
+    jm, tm = model_pair(chans, shrink, shape)
+    imgs = frames(3, seed=41, floats=floats)
+    with jax_fast():
+        jfn, _ = jdetect.make_batched_detector_boxes(
+            jm, HW, k=256, nms_iou=0.5, with_n_weak=with_n_weak)
+        jr = [np.asarray(a) for a in jfn(jnp.asarray(imgs))]
+    tfn, _ = wt.make_batched_detector_boxes(tm, HW, k=256, nms_iou=0.5,
+                                            with_n_weak=with_n_weak,
+                                            device="cpu", fast=True)
+    tr = [a.numpy() for a in tfn(torch.from_numpy(imgs))]
+    exact = "grad_mag" not in chans
+    assert tr[2].any()                            # kept boxes
+    if exact:
+        np.testing.assert_array_equal(tr[3], jr[3])   # survivor counts
+        np.testing.assert_array_equal(tr[4], jr[4])   # n_weak
+    for b in range(len(imgs)):
+        t = sorted_rows(tr[0][b][tr[2][b]], tr[1][b][tr[2][b]])
+        j = sorted_rows(jr[0][b][jr[2][b]], jr[1][b][jr[2][b]])
+        if exact:
+            np.testing.assert_array_equal(t, j)
+        else:
+            ts, js = set(map(tuple, t[:, :4])), set(map(tuple, j[:, :4]))
+            assert len(ts ^ js) <= max(1, 0.005 * len(ts | js))
+
+
+#: BASELINE.md's fast-mode box flips against the exact path: uint8 noise
+#: frames 3 of 68 (4.4%), float frames with f32 planes 71 of 916 (7.8%)
+FAST_FLIPS = {False: 0.044, True: 0.078}
+
+
+@pytest.mark.parametrize("chans,shrink,shape", FAST_MODELS)
+def test_fast_bucketed_matches_jax(chans, shrink, shape):
+    """BucketedDetector(fast=True) on uint8 and float frames at two sizes
+    of one bucket: every survivor equals the port's fast batched detector
+    (the bfloat16 walk) at the true size, and JAX's fast bucket (its
+    grad_hist a plain f32 chain on float frames) within BASELINE.md's
+    fast-mode flips."""
+    from test_torch_fast import jax_fast
+    jm, tm = model_pair(chans, shrink, shape)
+    rng = np.random.RandomState(11)
+    u8 = [rng.randint(0, 256, hw).astype(np.uint8)
+          for hw in ((87, 113), (96, 128))]
+    f32 = [(im + rng.rand(*im.shape)).astype(np.float32) for im in u8]
+    tdet = BucketedDetector(tm, bucket=64, k=4096, device="cpu", fast=True)
+    jdet = jbucket.BucketedDetector(jm, bucket=64, k=4096)
+    # one frame type a call: JAX's bucket groups frames by size alone
+    got = tdet.detect_many(u8) + tdet.detect_many(f32)
+    with jax_fast():
+        want = jdet.detect_many(u8) + jdet.detect_many(f32)
+    for img, tb, jb in zip(u8 + f32, got, want):
+        # the bucket walks the bfloat16 canvas (its B3f counts n_weak too)
+        fn, _ = wt.make_batched_detector_boxes(tm, img.shape, k=4096,
+                                               with_n_weak=False,
+                                               device="cpu", fast=True)
+        r, sc, v = (a.numpy()[0] for a in fn(torch.from_numpy(img[None]))[:3])
+        np.testing.assert_array_equal(rows(tb), sorted_rows(r[v], sc[v]))
+        assert len(tb) > 0
+        assert flips(jb, tb) <= FAST_FLIPS[img.dtype == np.float32], \
+            flips(jb, tb)
+    assert tdet.compiles == 1
+
+
 def test_bucketed_grad_mag_midpipeline_reflect():
     """tests/test_bucketed.py's case: grad_mag (halo 6, the magnitude
     reflected again) in bucket 64 at 87 x 113 equals Model.detect."""

@@ -195,11 +195,11 @@ def test_fpga_any_mask_on_card(cuda, hw):
             assert torch.equal(got, want), (kind, smooth)
 
 
-def _misaligned(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``t`` whose data starts one byte past an
-    aligned address."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    out = buf[1:].view(t.shape)
+def _misaligned(t: torch.Tensor, elems: int = 1) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts ``elems`` elements
+    past an aligned address (one byte for uint8)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = buf[elems:].view(t.shape)
     out.copy_(t)
     return out
 
@@ -419,14 +419,21 @@ def _fast_planes(rng, shape, kind):
     return vals if kind == "float32" else vals.to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (17, 45), (33, 131),
-                                (14, 128), (70, 257), (104, 128)])
+#: B2d's and B2f's tiling edges: widths off the 128-column tile, float32
+#: widths no multiple of 4 (5, 45, 131, 257), multiples of 4, 8 and 16
+#: (132, 128, 256), heights off the 16- and 14-row tiles
+GH_FLOAT_EDGES = [(1, 1), (3, 5), (17, 45), (33, 131), (14, 128), (70, 257),
+                  (104, 128), (33, 132), (70, 256)]
+
+
+@pytest.mark.parametrize("hw", GH_FLOAT_EDGES)
 @pytest.mark.parametrize("kind", ["uint8", "float32", "bfloat16"])
 def test_grad_hist_fast_matches_plain_on_card(cuda, hw, kind):
     """B2f bitwise (the bfloat16 bits) against its plain version, for each
     plane type, both smooths, batch 1 and 3, a mask that is set on the
     canvas border and a random one, the planes and mask also starting one
-    element past a word boundary."""
+    element past an aligned start (the word copies; bfloat16 and float32
+    also 2 and 4 bytes off 16: the word copies instead of TMA)."""
     rng = np.random.RandomState(hw[0] * 1000 + hw[1])
     for batch in (1, 3):
         planes = _fast_planes(rng, (batch, 2, 2) + hw, kind).to(cuda)
@@ -436,15 +443,17 @@ def test_grad_hist_fast_matches_plain_on_card(cuda, hw, kind):
         for smooth, mask in ((0, None), (1, masks[0]), (1, masks[1])):
             want = tcc.grad_hist_fast_plain(planes, mask, smooth)
             got = tcc.grad_hist_fast(planes, mask, smooth)
-            odd = tcc.grad_hist_fast(
-                _misaligned(planes),
-                None if mask is None else _misaligned(mask), smooth)
-            torch.cuda.synchronize()
             assert got.dtype == torch.bfloat16
             assert torch.equal(got.view(torch.int16),
                                want.view(torch.int16)), (batch, smooth)
-            assert torch.equal(odd.view(torch.int16),
-                               want.view(torch.int16)), (batch, smooth)
+            for elems in (1, 3):
+                odd = tcc.grad_hist_fast(
+                    _misaligned(planes, elems),
+                    None if mask is None else _misaligned(mask, elems),
+                    smooth)
+                assert torch.equal(odd.view(torch.int16),
+                                   want.view(torch.int16)), (batch, smooth,
+                                                             elems)
 
 
 def test_cascade_fast_matches_plain_on_card(cuda):
@@ -496,13 +505,12 @@ def test_fast_slice_on_card_matches_cpu(cuda, frames, fast_float):
         assert torch.equal(g, w_)
 
 
-@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (17, 45), (33, 131),
-                                (14, 128), (70, 257), (104, 128)])
+@pytest.mark.parametrize("hw", GH_FLOAT_EDGES)
 def test_grad_hist_float_matches_plain_on_card(cuda, hw):
     """B2d bitwise against its plain version (both native f64), both
     smooths, batch 1 and 3, a mask set on the canvas border and a random
-    one, the planes and mask also starting one element past a word
-    boundary."""
+    one, the planes and mask also starting one and three elements past an
+    aligned start (4 and 12 bytes off 16)."""
     rng = np.random.RandomState(hw[0] * 1000 + hw[1])
     for batch in (1, 3):
         planes = _fast_planes(rng, (batch, 2, 2) + hw, "float32").to(cuda)
@@ -512,12 +520,13 @@ def test_grad_hist_float_matches_plain_on_card(cuda, hw):
         for smooth, mask in ((0, None), (1, masks[0]), (1, masks[1])):
             want = tcc.grad_hist_float_plain(planes, mask, smooth)
             got = tcc.grad_hist_float(planes, mask, smooth)
-            odd = tcc.grad_hist_float(
-                _misaligned(planes),
-                None if mask is None else _misaligned(mask), smooth)
-            torch.cuda.synchronize()
             assert torch.equal(got, want), (batch, smooth)
-            assert torch.equal(odd, want), (batch, smooth)
+            for elems in (1, 3):
+                odd = tcc.grad_hist_float(
+                    _misaligned(planes, elems),
+                    None if mask is None else _misaligned(mask, elems),
+                    smooth)
+                assert torch.equal(odd, want), (batch, smooth, elems)
 
 
 @pytest.mark.parametrize("fast", [False, True])

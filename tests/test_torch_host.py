@@ -210,3 +210,30 @@ def test_unported_options_raise():
     for train in (wt.train, wt.fpga.train):
         with pytest.raises(NotImplementedError, match="A11"):
             train(tm, iter(()), mesh=object(), length=3)
+
+
+def test_boxes_add_field_matches_jax():
+    """``Boxes.add_field`` is ``set_field`` as in JAX's ``boxes.py``: the
+    field reads back as set, its first dimension is checked, and a second
+    add replaces it."""
+    from waldboost_tpu.boxes import Boxes as JBoxes
+    from waldboost_tpu_torch.boxes import Boxes as TBoxes
+    rects = np.array([[0, 0, 4, 4], [1, 2, 5, 9], [3, 3, 6, 6]], np.float32)
+    scores = np.array([0.5, -1.0, 2.0], np.float32)
+    labels = np.array([[1, 0], [0, 1], [1, 1]], np.int32)
+    jb, tb = JBoxes(rects), TBoxes(rects)
+    for b in (jb, tb):
+        b.add_field("scores", scores)
+        b.add_field("labels", labels)
+    assert tb.field_names() == jb.field_names() == ["scores", "labels"]
+    for name in ("scores", "labels"):
+        np.testing.assert_array_equal(tb.get_field(name), jb.get_field(name))
+        assert tb.get_field(name).dtype == jb.get_field(name).dtype
+    for b in (jb, tb):
+        with pytest.raises(ValueError):
+            b.add_field("scores", scores[:2])
+        b.add_field("scores", scores[::-1])
+    np.testing.assert_array_equal(tb.get_field("scores"),
+                                  jb.get_field("scores"))
+    np.testing.assert_array_equal(tb[[2, 0]].get_field("labels"),
+                                  jb[[2, 0]].get_field("labels"))

@@ -48,7 +48,9 @@ def _paths(name: str):
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     tag = digest.hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    # a source under csrc/baseline/ builds beside the others
+    flat = name.replace("/", "_")
+    lib = os.path.join(BUILD_DIR, f"lib{flat}_{tag}.so")
     return src, lib, lib[:-3] + ".log"
 
 

@@ -108,6 +108,12 @@ def as_image(image, ndim: int = 2) -> np.ndarray:
     return image
 
 
+def is_image_space(packed: PackedPyramidPlan, cf: ChannelFunction) -> bool:
+    """Whether the canvas is built in image space: shrink 1, or a channel
+    function with no polyphase form."""
+    return packed.shrink == 1 or not cf.poly
+
+
 class ChannelCanvas:
     """octaves -> planes (B1) -> channel canvas (B2 for grad_hist, B5 for
     the FPGA family) of one packed plan and channel function ``cf`` for
@@ -119,7 +125,9 @@ class ChannelCanvas:
     ``image_space`` (shrink 1, or a function with no polyphase form):
     octaves -> the image-space canvas (:meth:`planes`) -> channels, pool,
     smooth (:meth:`channels`), plain torch; with ``fast`` the exact canvas
-    rounded to bfloat16, as the JAX package's batched detector walks it."""
+    rounded to bfloat16, as the JAX package's batched detector walks it
+    when it does not count n_weak (``parallel/detect.py::
+    serving_canvas``)."""
 
     def __init__(self, packed: PackedPyramidPlan, image_shape: Tuple[int, int],
                  smooth: int, cf: ChannelFunction, device: torch.device,
@@ -140,7 +148,7 @@ class ChannelCanvas:
         self.halo = halo
         self.n_octaves = max((pl.level.octave for pl in packed.levels),
                              default=-1) + 1
-        self.image_space = packed.shrink == 1 or not cf.poly
+        self.image_space = is_image_space(packed, cf)
         if self.image_space:
             # image-space masks: the stencil border (FPGA kinds) and the
             # smooth interior, bool

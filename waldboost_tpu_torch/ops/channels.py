@@ -5,7 +5,8 @@ Counterpart of ``waldboost_tpu/ops/channels_pallas.py::
 grad_hist_poly_pallas``: :func:`grad_hist` (B2) its exact uint8 variant,
 :func:`grad_hist_float` (B2d) its ``float_dd`` variant for float32
 planes, :func:`grad_hist_fast` (B2f) its ``fast=True`` variant.  The CUDA
-kernels are ``csrc/grad_hist.cu``; :func:`grad_hist_plain`,
+kernels are ``csrc/grad_hist.cu`` (B2) and ``csrc/grad_hist_float.cu``
+(B2d, B2f); :func:`grad_hist_plain`,
 :func:`grad_hist_float_plain` and :func:`grad_hist_fast_plain` are the
 same chains in torch with shifted adds (no ``conv2d``: cuDNN would run it
 in TF32).  A CPU tensor takes the plain version, a CUDA tensor the kernel.
@@ -85,8 +86,14 @@ _DBL4 = ctypes.c_double * N_BINS
 _COS4, _SIN4 = _DBL4(*COS), _DBL4(*SIN)
 
 
+#: the source of each C entry point
+_SOURCE = {"wb_grad_hist": "grad_hist",
+           "wb_grad_hist_float": "grad_hist_float",
+           "wb_grad_hist_fast": "grad_hist_float"}
+
+
 def _entry(name: str):
-    fn = getattr(load_library("grad_hist"), name)
+    fn = getattr(load_library(_SOURCE[name]), name)
     if fn.argtypes is None:
         # planes, mask, out, B, H, W, smooth, [element bytes,] cos, sin,
         # stream

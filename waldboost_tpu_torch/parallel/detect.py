@@ -40,8 +40,8 @@ import numpy as np
 import torch
 
 from ..boxes import Boxes
-from ..canvas import (as_image, channel_canvas, serving_opts, span,
-                      window_grid)
+from ..canvas import (as_image, channel_canvas, is_image_space, serving_opts,
+                      span, window_grid)
 from ..device import no_mesh
 from ..model import Model, shared_plan
 from ..ops.cascade_static import cascade_masked, cascade_response
@@ -115,8 +115,8 @@ class BatchedDetector:
         self.nms_iou = nms_iou
         self.with_n_weak = with_n_weak
         self.device = device
-        self.canvas = channel_canvas(packed, image_shape, smooth, cf, device,
-                                     fast, fast_float)
+        self.canvas = serving_canvas(packed, image_shape, smooth, cf, device,
+                                     fast, fast_float, with_n_weak)
         self.grid = window_grid(packed, self.window, device)
         self.cascade_ops = model._operands(device)
 
@@ -141,6 +141,18 @@ class BatchedDetector:
         return rects, scores, keep, count, n_weak
 
 
+def serving_canvas(packed, image_shape, smooth, cf, device, fast: bool,
+                   fast_float: str, counts: bool):
+    """The canvas step of a serving walk.  In fast mode an image-space
+    canvas (shrink 1, grad_mag) is the exact one, rounded to bfloat16 only
+    for a masked walk that does not count n_weak (``counts``): the JAX
+    package's walk drops ``fast`` when it counts
+    (``cascade_masked_grid_static``), and its response walk has none."""
+    return channel_canvas(packed, image_shape, smooth, cf, device,
+                          fast and not (is_image_space(packed, cf) and counts),
+                          fast_float)
+
+
 def make_batched_detector(model: Model, image_shape: Tuple[int, int],
                           n_stages_cap: Optional[int] = None, device=None,
                           mesh=None, fast: bool = False,
@@ -156,7 +168,8 @@ def make_batched_detector(model: Model, image_shape: Tuple[int, int],
     dev = model._device_for(device)
     packed, smooth, cf = model._plan((h, w))
     grid = window_grid(packed, model.shape[:2], dev)
-    canvas = channel_canvas(packed, (h, w), smooth, cf, dev, fast, fast_float)
+    canvas = serving_canvas(packed, (h, w), smooth, cf, dev, fast, fast_float,
+                            counts=True)
     ops = model._operands(dev)
 
     def fn(images: torch.Tensor):
@@ -245,7 +258,8 @@ def make_multi_detector_boxes(models: Sequence[Model],
     h, w = (int(s) for s in image_shape)
     packed, smooth, cf = shared_plan(models, (h, w))
     dev = models[0]._device_for(device)
-    canvas = channel_canvas(packed, (h, w), smooth, cf, dev, fast, fast_float)
+    canvas = serving_canvas(packed, (h, w), smooth, cf, dev, fast, fast_float,
+                            with_n_weak)
     scans = [(window_grid(packed, mm.shape[:2], dev), mm._operands(dev),
               float(np.float32(s))) for mm, s in zip(models, response_scale)]
 
