@@ -18,8 +18,9 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
 
  1. prints torch/CUDA versions and the card's name and power limit;
  2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
-    all at once, the previous B2d/B2f design among them) and prints
-    ptxas's register / shared-memory / spill report;
+    all at once, the previous B2d/B2f design among them; B3f's previous
+    design is csrc/cascade.cu's walk, built for B3) and prints ptxas's
+    register / shared-memory / spill report;
  3. runs each kernel at the VGA batch-8 shapes against its plain-torch
     version on the card, bitwise (tolerance 0), mismatches printed per
     phase: B1, B2, B3 on a noise batch; B4 with flagship_synth_64 and
@@ -44,9 +45,19 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
     planes), and at the tiling edges 3x5, 17x45, 70x257, 33x132 and 70x256
     (widths no multiple of 4, 8 or 16, and multiples) with planes and mask
     also starting one element off their aligned start (float32: 4 bytes
-    off 16); B3f (the kernel always counts
-    n_weak, which is compared too) with flagship_synth_64 and
-    flagship_hard_256 on the VGA bfloat16 canvases, and B4 over one;
+    off 16); B3f (csrc/cascade_fast.cu; the kernel always counts n_weak,
+    which is compared too) against its plain version and against B3 over
+    the canvas's float32 copy, printing how its front read the canvas (TMA
+    box copies, global memory or no front): the three committed
+    models on the VGA bfloat16 canvases of noise frames (from uint8, f32
+    and bf16 planes) and of 8 scene_generator(seed=100) frames, the
+    previous design (csrc/cascade.cu's walk over bfloat16) against the
+    plain version, and B3f_EDGES (grids under one tile, bfloat16 rows off
+    16 bytes, canvases one element off a word, windows 8, 12 and 24, C =
+    1, 4 and 5, batch 1 and 3) with the seeded cascades of
+    b3f_edge_models (HEAP2 fronts of 3 and 4 stages, 40 depth-5 stages,
+    256 whose records exceed the walk's shared memory, one stage, 16 that
+    never reject); and B4 over one canvas;
  3d. B2d against its plain version, bitwise (both native f64): at VGA
     batch 8 on the exact float planes of float noise frames and of the
     golden scenes as float32, smooth 0 and 1, each into an output
@@ -180,7 +191,10 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
     per workload, MP/s, p50/p80), Model.detect and the three-model wt.detect
     (ms/frame, p50 of 30 frames) and make_batched_detector (MP/s at batch 8,
     30 batches), B3 on the 40-stage depth-5 model (GENERAL node records); B2f
-    on each plane type and B3f at VGA; B2, B2d and B2f on each plane type
+    on each plane type and B3f at VGA; B3f beside its previous design in
+    turns on the noise and the scene canvas, CUDA events around back-to-back
+    calls and around a CUDA graph of 20 calls (no host time); B2, B2d and
+    B2f on each plane type
     again beside the previous design of B2d and B2f
     (csrc/baseline/grad_hist_pr10.cu, built with the package's sources) in
     turns, and B2d's instruction floor (its f64 operations and conversions at
@@ -231,6 +245,7 @@ Usage: python chip_smoke.py [--trace-dir DIR]   (DIR keeps the traces)
 """
 
 import argparse
+import functools
 
 import json
 import os
@@ -283,7 +298,7 @@ KERNELS = {
                        "waldboost_tpu/ops/channels_pallas.py:405 (fast=True)"),
     "cascade_fast": ("waldboost_tpu_torch.ops.cascade_static",
                      "cascade_fast_launches",
-                     "waldboost_tpu_torch/csrc/cascade.cu",
+                     "waldboost_tpu_torch/csrc/cascade_fast.cu",
                      "waldboost_tpu/ops/cascade_static.py:764 (fast=True)"),
     "grad_hist_float": ("waldboost_tpu_torch.ops.channels",
                         "grad_hist_float_launches",
@@ -365,6 +380,120 @@ def random_deep_stage(rng, window, n_channels, depth=5):
                 prediction=rng.randn(k).astype("f"))
 
 
+#: B3f's edge set: (window, channels, the canvas's rows and columns beyond
+#: the window, batch, element offset of the canvas): grids under one
+#: 16 x 64 tile of origins, widths whose bfloat16 rows are off 16 bytes
+#: (the front reads the canvas from global memory), grids of several tiles
+#: with rows on 16 bytes (box copies), the same one element off a word
+#: (global memory again)
+B3F_EDGES = (((8, 8), 1, (3, 50), 3, 0), ((8, 8), 1, (40, 205), 1, 1),
+             ((12, 12), 4, (40, 5), 1, 0), ((12, 12), 4, (19, 77), 3, 0),
+             ((12, 12), 4, (37, 140), 3, 0), ((12, 12), 4, (37, 140), 3, 1),
+             ((24, 24), 4, (9, 61), 1, 0), ((24, 24), 4, (45, 176), 3, 0),
+             ((12, 12), 5, (21, 130), 1, 0), ((12, 12), 5, (50, 148), 3, 1))
+
+
+def static_operands(casc_mod, stages, theta, window, n_channels, dev):
+    """The :class:`CascadeOperands` of stage dicts and thetas."""
+    from waldboost_tpu_torch.ops.cascade import NODE_KEYS, stage_tables
+    tab = stage_tables(stages)
+    sc = casc_mod.StaticCascade(*(tab[k] for k in NODE_KEYS),
+                                np.asarray(theta, np.float32))
+    return casc_mod.CascadeOperands.build(sc, window, n_channels, dev)
+
+
+def b3f_edge_models(casc_mod, rng, window, n_channels, dev):
+    """Seeded cascades for B3f's edges, canvas values in [0, 300): 20
+    depth-2 stages rejecting at 2 of every 3 (HEAP2 records, a front of
+    stage 0), the same with stage 0 unable to reject (a front of stages
+    0-2), 40 depth-5 stages rejecting at every second (GENERAL records, no
+    front), 256 depth-5 stages that never reject (records past the walk's
+    shared-memory budget), one stage, and 16 depth-2 stages that never
+    reject (the front runs every stage)."""
+    def stages(k, depth):
+        out = []
+        for _ in range(k):
+            st = random_deep_stage(rng, window, n_channels, depth=depth)
+            st["threshold"] = rng.uniform(0, 300, len(st["threshold"])) \
+                .astype(np.float32)
+            out.append(st)
+        return out
+
+    ninf = -np.inf
+    heap20 = stages(20, 2)
+    theta20 = [-0.3 - 0.05 * t if t % 3 != 1 else ninf for t in range(20)]
+    models = {
+        "heap20": (heap20, theta20),
+        "hard20": (heap20, [ninf] + theta20[1:]),
+        "deep40": (stages(40, 5), [-0.6 - 0.1 * t if t % 2 else ninf
+                                   for t in range(40)]),
+        "big256": (stages(256, 5), [ninf] * 256),
+        "one": (stages(1, 2), [-0.2]),
+        "never16": (stages(16, 2), [ninf] * 16),
+    }
+    return {name: static_operands(casc_mod, st, th, window, n_channels, dev)
+            for name, (st, th) in models.items()}
+
+
+def scene_batch(n, hw=VGA, seed=100):
+    """``n`` frames of ``utils.scene_generator(seed)`` as a (n, h, w) uint8
+    tensor on the CPU: textured clutter and objects, where a window enters
+    2-2.5 stages of the committed cascades."""
+    import torch
+    from waldboost_tpu_torch.utils import scene_generator
+    gen = scene_generator(seed=seed, hw=hw)
+    return torch.from_numpy(np.stack([next(gen)["image"] for _ in range(n)]))
+
+
+def previous_b3f(casc_mod, canvas, valid, ops):
+    """B3f's previous design (``csrc/cascade.cu``'s walk over a bfloat16
+    canvas, ``wb_cascade``), which no serving path launches: ``(masked,
+    n_weak, count)`` as :func:`cascade_masked` returns them."""
+    import torch
+    B, dev = canvas.shape[0], canvas.device
+    gu, gv = valid.shape
+    masked = torch.empty((B, gu, gv), dtype=torch.float32, device=dev)
+    count = torch.zeros(B, dtype=torch.int32, device=dev)
+    n_weak = torch.zeros(B, dtype=torch.int32, device=dev)
+    T = ops.sc.n_stages
+    casc_mod.launch_response("wb_cascade", canvas, valid,
+                             ops.records(tuple(canvas.shape[1:])), T, T,
+                             ops.sc.fr.shape[1], masked, count, n_weak)
+    return masked, n_weak, count
+
+
+def previous_cascade_masked(casc_mod, canvas, valid, ops):
+    """``cascade_masked`` as it was before B3f's redesign: on a bfloat16
+    CUDA canvas its checks and :func:`previous_b3f`; else the committed
+    one."""
+    import torch
+    if canvas.dtype != torch.bfloat16 or canvas.device.type != "cuda":
+        return casc_mod.cascade_masked(canvas, valid, ops)
+    casc_mod._check(canvas, valid, ops)
+    return previous_b3f(casc_mod, canvas, valid, ops)
+
+
+def b3f_edges(casc_mod, dev, seed=12):
+    """``(label, canvas, valid, ops)`` over :data:`B3F_EDGES` and
+    :func:`b3f_edge_models`: seeded bfloat16 canvases (values in [0,
+    300)) and masks (80% valid)."""
+    import torch
+    rng = np.random.RandomState(seed)
+    for window, C, (dh, dw), batch, off in B3F_EDGES:
+        shape = (batch, C, window[0] + dh, window[1] + dw)
+        vals = torch.from_numpy(rng.uniform(0, 300, shape).astype(np.float32))
+        buf = torch.empty(vals.numel() + off, dtype=torch.bfloat16,
+                          device=dev)
+        cv = buf[off:].view(shape)
+        cv.copy_(vals)
+        valid = torch.from_numpy((rng.rand(dh, dw) < 0.8).astype(np.uint8)) \
+            .to(dev)
+        for name, ops in b3f_edge_models(casc_mod, rng, window, C,
+                                         dev).items():
+            yield (f"{name} window {window} C={C} canvas {shape[2:]} batch "
+                   f"{batch} offset {off}", cv, valid, ops)
+
+
 def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -387,6 +516,45 @@ def cuda_ms(fn, iters, warmup=2):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(fn, iters, replays=3):
+    """Mean milliseconds per call of ``fn`` on the card with the host out
+    of the way: ``iters`` calls captured in one CUDA graph, the graph
+    replayed ``replays`` times between CUDA events (the calls' allocations
+    come from the graph's pool; launch counters move only at capture)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del g
+    return t0.elapsed_time(t1) / (iters * replays)
+
+
+def host_call_ms(fn, calls=50):
+    """Host milliseconds per call of ``fn`` (the wrapper's own time: no
+    synchronize inside the timed calls)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def max_abs_err(got, want):
@@ -1721,20 +1889,45 @@ def main():
                                f"smooth={sm} offset {off}", q,
                                mq if sm else None, sm)
     fcv = fcanvas["uint8"]
-    for mname in ("flagship_synth_64", "flagship_hard_256"):
+    # the timing rows' scene canvas: 8 frames of scene_generator(seed=100)
+    fcv_scene = chan_mod.grad_hist_fast(
+        cstep.planes(cstep.octaves(scene_batch(BATCH).to(dev))),
+        cstep.interior, 1)
+
+    def b3f_phase(phase, cv, valid_, ops):
+        """B3f against its plain version and B3 over the float32 copy."""
+        got = casc_mod.cascade_masked(cv, valid_, ops)
+        path = casc_mod.cascade_fast_path
+        check_phase("cascade_fast", f"{phase} (front by {path})", got,
+                    casc_mod.cascade_masked_plain(cv, valid_, ops))
+        check_phase("cascade_fast", f"{phase} against B3 on float32", got,
+                    casc_mod.cascade_masked(cv.float(), valid_, ops))
+        return got
+
+    for mname in MODEL_NAMES:
         ops = models[mname]._operands(dev)
-        for kind, cv in fcanvas.items():
-            got = casc_mod.cascade_masked(cv, grid.valid, ops)
-            check_phase("cascade_fast", f"cascade_fast {mname} bf16 canvas of "
-                        f"{kind} planes", got,
-                        casc_mod.cascade_masked_plain(cv, grid.valid, ops))
+        for kind, cv in dict(fcanvas, scene=fcv_scene).items():
+            got = b3f_phase(f"cascade_fast {mname} bf16 canvas of {kind} "
+                            "planes", cv, grid.valid, ops)
             print(f"  survivors {got[2].tolist()}, n_weak {got[1].tolist()}")
+        check_phase("cascade_fast", f"previous design of cascade_fast {mname} "
+                    "(csrc/cascade.cu)",
+                    previous_b3f(casc_mod, fcv, grid.valid, ops),
+                    casc_mod.cascade_masked_plain(fcv, grid.valid, ops))
+        if mname == "flagship_hard_64":
+            continue
         for cap in (None, 12):
             check_phase("cascade_response", f"cascade_response {mname} "
                         f"cap={cap} bf16 canvas",
                         casc_mod.cascade_response(fcv, grid.valid, ops, cap),
                         casc_mod.cascade_response_plain(fcv, grid.valid, ops,
                                                         cap))
+
+    # B3f's edges: grids under one tile, rows off 16 bytes, a canvas one
+    # element off a word, windows 8, 12 and 24, C = 1, 4 and 5, batch 1 and
+    # 3, the seeded cascades of b3f_edge_models
+    for label, ecv, evalid, eops in b3f_edges(casc_mod, dev):
+        b3f_phase(f"cascade_fast edge {label}", ecv, evalid, eops)
 
     # -- phase 3d: B2d against its plain version ----------------------------
     # on the exact float planes (the canvas step's float64 build) of float
@@ -1833,7 +2026,8 @@ def main():
         out = fdet(imgs)
         torch.cuda.synchronize()
         got = read_counters()
-        print(f"fast path {key} launches: {got}")
+        print(f"fast path {key} launches: {got}; B3f's front read the canvas "
+              f"by {casc_mod.cascade_fast_path}")
         require(all(got[k] > 0 for k in need),
                 f"fast path {key}: a kernel of the path was not launched")
         require(got["grad_hist"] == 0 and got["cascade"] == 0,
@@ -2134,7 +2328,8 @@ def main():
     bfast.detect_many(bframes)
     torch.cuda.synchronize()
     got = read_counters()
-    print(f"bucketed fast path launches (uint8 frames): {got}")
+    print(f"bucketed fast path launches (uint8 frames): {got}; B3f's front "
+          f"read the canvas by {casc_mod.cascade_fast_path}")
     require(got["grad_hist"] > 0 and got["cascade_fast"] > 0
             and got["grad_hist_fast"] == 0 and got["cascade"] == 0,
             "bucketed fast mode on uint8 frames must run B2 and B3f, not "
@@ -2557,6 +2752,32 @@ def main():
         print(f"{name}: committed {previous[name][0]:.4f} ms, previous "
               f"design {previous[name][1]:.4f} ms (same call, in turns)")
 
+    # B3f against its previous design (csrc/cascade.cu's walk over the
+    # bfloat16 canvas), in turns, on the noise canvas of the timing row and
+    # on the scene canvas: CUDA events around back-to-back calls (as every
+    # row above) and around a CUDA graph of the calls (no host time)
+    b3f_turns = {}
+    for cname, cv in (("noise", fcv), ("scene", fcv_scene)):
+        new = (lambda cv: lambda: casc_mod.cascade_masked(
+            cv, grid.valid, ops_synth))(cv)
+        old = (lambda cv: lambda: previous_cascade_masked(
+            casc_mod, cv, grid.valid, ops_synth))(cv)
+        row = {}
+        for how, clock in (("events", cuda_ms), ("graph", graph_ms)):
+            n1, o1, o2, n2 = (clock(f, 20) for f in (new, old, old, new))
+            row[how] = ((n1 + n2) / 2, (o1 + o2) / 2)
+            metric(f"cascade_fast_{cname}_{how}_kernel_us_per_image",
+                   row[how][0] * 1e3 / BATCH, "us/image")
+            metric(f"cascade_fast_{cname}_{how}_previous_us_per_image",
+                   row[how][1] * 1e3 / BATCH, "us/image")
+        b3f_turns[cname] = row
+        print(f"cascade_fast {cname} ({card}): new {row['events'][0]:.4f} "
+              f"ms, previous design {row['events'][1]:.4f} ms (back to back,"
+              f" in turns); from a CUDA graph new {row['graph'][0]:.4f} ms, "
+              f"previous {row['graph'][1]:.4f} ms; host per call new "
+              f"{host_call_ms(new):.4f} ms, previous {host_call_ms(old):.4f} "
+              f"ms")
+
     # the least time of each kernel's call at these shapes: bytes (each
     # input read once, each output written once) over the HBM rate, or its
     # arithmetic over the peak rate of its type
@@ -2650,6 +2871,16 @@ def main():
     metric("grad_hist_float_instruction_floor_us_per_image",
            (85 * n_px / F64_INSTR_S + 25 * n_px / CONV_S) * 1e6 / BATCH,
            "us/image")
+    for cname, cv in (("noise", fcv), ("scene", fcv_scene)):
+        got = casc_mod.cascade_masked(cv, grid.valid, ops_synth)
+        least = bound(nbytes(cv, grid.valid, *got, records(ops_synth, cv)),
+                      f32_ops=4 * int(got[1].sum()))[0]
+        new_ms, old_ms = b3f_turns[cname]["graph"]
+        metric(f"cascade_fast_{cname}_bound_us_per_image",
+               least * 1e3 / BATCH, "us/image")
+        print(f"cascade_fast {cname}: bound {least:.5f} ms; from a CUDA graph"
+              f" the new design at {least / new_ms:.3f} of it, the previous "
+              f"at {least / old_ms:.3f}")
     for name, (ms, what) in bounds.items():
         metric(f"{name}_bound_us_per_image", ms * 1e3 / BATCH, "us/image")
         print(f"{name}: bound by {what}; kernel at "
@@ -2726,6 +2957,42 @@ def main():
     }
     for workload, (fn_, batches) in fast_workloads.items():
         e2e(workload, fn_, batches, reps=30)
+    # the fast path with B3f's previous design (its wrapper and
+    # csrc/cascade.cu's walk over bfloat16) in place of the new one, host
+    # clock: the two alternate batch by batch (each first in every other
+    # pair), so a drift of the host's speed reaches both alike; whether the
+    # kernel's gain, or the wrappers' host time, shows end to end
+    from waldboost_tpu_torch.parallel import detect as detect_mod
+    designs = {"new": casc_mod.cascade_masked,
+               "previous": functools.partial(previous_cascade_masked,
+                                             casc_mod)}
+    for workload in ("vga_fast_noise_k128", "vga_fast_scene_k1024"):
+        fn_, batches = fast_workloads[workload]
+        ms = {k: [] for k in designs}
+        try:
+            for r in range(-2, 60):
+                images = batches[r % len(batches)]
+                for which in sorted(designs, reverse=r % 2 == 1):
+                    detect_mod.cascade_masked = designs[which]
+                    t = time.perf_counter()
+                    fn_(images)
+                    torch.cuda.synchronize()
+                    if r >= 0:
+                        ms[which].append((time.perf_counter() - t) * 1e3)
+        finally:
+            detect_mod.cascade_masked = casc_mod.cascade_masked
+        mp = {}
+        for which, v in ms.items():
+            mp[which] = sum(batches[r % len(batches)].numel()
+                            for r in range(len(v))) / sum(v) / 1e3
+            metric(f"{workload}_b3f_{which}_mp_per_s", mp[which], "MP/s")
+            metric(f"{workload}_b3f_{which}_batch_ms_p50",
+                   float(np.median(v)), "ms")
+        print(f"{workload} ({card}): with the new B3f {mp['new']:.1f} MP/s "
+              f"(p50 {np.median(ms['new']):.4f} ms a batch), with the "
+              f"previous design {mp['previous']:.1f} MP/s (p50 "
+              f"{np.median(ms['previous']):.4f} ms), batch by batch in "
+              "turns")
     # exact float frames: f32 octaves, the float64 plane build (plain
     # torch, timed alone too), B2d, B3
     metric("planes_float_us_per_image",

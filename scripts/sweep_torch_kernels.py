@@ -182,6 +182,104 @@ WALK_VARIANTS["prefetch: HEAP2 stage t+1 loaded before t's compares"] = ([(
     "          if (t + 1 < a.n_run) nx = fetch(s, t + 1, w);\n")], False)
 
 
+# B3f's new design (csrc/cascade_fast.cu).  A variant: (edits, ablation,
+# host settings of ops/cascade.py: FRONT_REJECTS, FRONT_FOOTPRINT_BYTES;
+# "previous": csrc/cascade.cu's walk instead).  The host builds the front's
+# records for the tile the built library reports.
+WF_PRODUCER = ("        uint8_t* dst = sBuf + k * a.fbytes;\n"
+               "        if (lane == 0) {\n")
+WF_CONSUMER = ("    if (kBuffers) mbar_wait(full + k, (i / kBuffers) & 1u);\n")
+WF_EMPTY = "        if (use) mbar_wait(empty + k, (use - 1) & 1u);\n"
+WF_QUEUE = "  const int rl = tid / kRowThreads, cl = (tid - rl * kRowThreads) * kP;\n"
+WF_POISON = [
+    (WF_PRODUCER,
+     "        uint8_t* dst = sBuf + k * a.fbytes;\n"
+     "        for (int j = lane; j < a.fbytes / 4; j += 32)\n"
+     "          reinterpret_cast<uint32_t*>(dst)[j] =\n"
+     "              0x7fc07fc0u ^ (j * 0x9E3779B9u) ^ (i << 8) ^ blockIdx.x;\n"
+     "        fence_proxy_async();\n"
+     "        __syncwarp();\n"
+     "        if (lane == 0) {\n"),
+    (WF_QUEUE, WF_QUEUE +
+     "  for (int j = lane; j < kQueue; j += 32) {\n"
+     "    q.out[j] = 0x7ead0000 | j;\n"
+     "    q.cv[j] = -1 - j;\n"
+     "    q.bt[j] = 0x7fff0000 | j;\n"
+     "    q.hs[j] = __int_as_float(0x7fc00000 | j);\n"
+     "  }\n  __syncwarp();\n")]
+WF_SKEW = [
+    (WF_CONSUMER, WF_CONSUMER +
+     "    if ((warp ^ i) & 1) __nanosleep(3000);\n"),
+    (WF_EMPTY, WF_EMPTY + "        if (i & 1) __nanosleep(2000);\n")]
+
+
+def wf_const(name, value):
+    pat = re.compile(rf"constexpr (int) {name} = [^;]+;")
+    return [(pat, lambda m: f"constexpr {m.group(1)} {name} = {value};")]
+
+
+def wf_tile(rows, cols, p):
+    return [(re.compile(r"constexpr int kTR = \d+, kTC = \d+;"),
+             f"constexpr int kTR = {rows}, kTC = {cols};")] + \
+        wf_const("kP", p)
+
+
+WALK_FAST_VARIANTS = {"committed": ([], False, {})}
+for _r, _c, _p in ((8, 32, 1), (8, 32, 4), (16, 64, 8), (32, 64, 4),
+                   (32, 64, 8)):
+    WALK_FAST_VARIANTS[f"tile {_r} x {_c}, {_p} origins a thread"] = (
+        wf_tile(_r, _c, _p), False, {})
+WALK_FAST_VARIANTS.update({
+    f"kFront {n}": ([], False, {"FRONT_REJECTS": n}) for n in (1, 2, 3)})
+WALK_FAST_VARIANTS.update({
+    "no front (every window to the walk)": ([], False, {"FRONT_REJECTS": 0}),
+    "front from global memory (no staging)": (
+        [], False, {"FRONT_FOOTPRINT_BYTES": 0}),
+    "one buffer": (wf_const("kBufs", 1), False, {}),
+    "three buffers": (wf_const("kBufs", 3), False, {}),
+    "kRejects 2": (wf_const("kRejects", 2), False, {}),
+    "kRejects 8": (wf_const("kRejects", 8), False, {}),
+    "kAhead 1 (one stage's loads at a time)": (wf_const("kAhead", 1), False,
+                                               {}),
+    "kAhead 8": (wf_const("kAhead", 8), False, {}),
+    "launch bound 4 blocks an SM": ([(
+        "__global__ void __launch_bounds__(kThreads + 32)",
+        "__global__ void __launch_bounds__(kThreads + 32, 4)")], False, {}),
+    "ablation: no walk after the last tile (queued windows stay -inf)": ([(
+        "  drain(true);\n  flush(nw, cnt, wb, a);",
+        "  flush(nw, cnt, wb, a);")], True, {}),
+    "poison": (WF_POISON, False, {}),
+    "skew": (WF_SKEW, False, {}),
+    "poison+skew": (WF_POISON + WF_SKEW, False, {}),
+    "ablation: no walk (survivors dropped)": ([(
+        "const unsigned queued = finish ? 0u : alive;",
+        "const unsigned queued = 0u;")], True, {}),
+    "ablation: no stores of the front": ([(
+        "      store(dst, o, a.vec_out && n_in == kP, n_in);",
+        "      if (o[0] == 1.2345f) store(dst, o, a.vec_out && n_in == kP,"
+        " n_in);")], True, {}),
+    "tiles the grid's width apart (not a run a block)": ([(
+        "  const int lo = static_cast<int>(static_cast<long long>(a.n_tiles) *\n"
+        "                                  blockIdx.x / gridDim.x);\n"
+        "  const int n_mine = static_cast<int>(static_cast<long long>(a.n_tiles) *\n"
+        "                                      (blockIdx.x + 1) / gridDim.x) - lo;\n",
+        "  const int n_mine = (a.n_tiles - 1 - static_cast<int>(blockIdx.x)) /\n"
+        "                     static_cast<int>(gridDim.x) + 1;\n"),
+        ("    const int tile = lo + i;",
+         "    const int tile = blockIdx.x + i * gridDim.x;")], False, {}),
+    "the mask read after the footprint's wait": ([
+        ("    // the mask is read above while the footprint is still on its "
+         "way\n    if (kBuffers) mbar_wait(full + k, (i / kBuffers) & 1u);\n",
+         ""),
+        ("    const int k = kBuffers ? i % kBuffers : 0;\n",
+         "    const int k = kBuffers ? i % kBuffers : 0;\n"
+         "    if (kBuffers) mbar_wait(full + k, (i / kBuffers) & 1u);\n")],
+        False, {}),
+    "previous design (csrc/cascade.cu, in turns)": ([], False,
+                                                    {"previous": True}),
+})
+
+
 FIRST_DESIGN = "first design"
 PLANES_BOUND = "__global__ void __launch_bounds__(kThreads)\nplanes_kernel("
 PLANES_V = "      __syncwarp();  // the previous piece is done with V\n"
@@ -1048,11 +1146,79 @@ def sweep_fpga_walk(_build, libs, dev, todo, failures, rows):
     return pairs
 
 
+def sweep_walk_fast(_build, libs, dev, failures, rows):
+    """B3f's variants: every non-ablation row bitwise against the plain
+    version over chip_smoke.py's B3f edge set and the VGA canvases of
+    the three committed models (noise and scenes, batch 8), then timed on
+    the VGA noise and scene canvases of flagship_synth_64 from a CUDA
+    graph (chip_smoke.graph_ms: no host time)."""
+    import torch
+    import waldboost_tpu_torch as wt
+    from chip_smoke import (MODEL_NAMES, b3f_edges, graph_ms, previous_b3f,
+                            scene_batch)
+    from waldboost_tpu_torch.ops import cascade as gen_mod
+    from waldboost_tpu_torch.ops import cascade_static as casc_mod
+    defaults = {k: getattr(gen_mod, k) for k in
+                ("FRONT_REJECTS", "FRONT_FOOTPRINT_BYTES")}
+    models = {n: wt.load(os.path.join(ROOT, "models", n + ".pb"), device=dev)
+              for n in MODEL_NAMES}
+    det = wt.make_batched_detector_boxes(models["flagship_synth_64"], VGA,
+                                         k=128, nms_iou=0.5, device=dev,
+                                         fast=True)[0]
+    rng = np.random.RandomState(0)
+    noise = torch.from_numpy(rng.randint(0, 256, (BATCH,) + VGA)
+                             .astype(np.uint8)).to(dev)
+    canvases = {"noise": det.canvas(noise),
+                "scene": det.canvas(scene_batch(BATCH).to(dev))}
+    valid = det.grid.valid
+    cases = list(b3f_edges(casc_mod, dev))
+    for name, m in models.items():
+        for cname, cv in canvases.items():
+            cases.append((f"VGA {name} {cname}", cv, valid, m._operands(dev)))
+    wants = [casc_mod.cascade_masked_plain(cv, v, o) for _, cv, v, o in cases]
+    ops = models["flagship_synth_64"]._operands(dev)
+    every_ops = {id(o): o for _, _, _, o in cases}.values()
+    order = list(WALK_FAST_VARIANTS) + ["committed"]
+    for i, label in enumerate(order):
+        edits, ablation, host = WALK_FAST_VARIANTS[label]
+        lib, ptx = libs[label]
+        _build._LIBS["cascade_fast"] = lib
+        for k, v in defaults.items():
+            setattr(gen_mod, k, host.get(k, v))
+        for o in every_ops:  # the front's records under these settings
+            o._fronts.clear()
+            o._fast_runs.clear()
+        walk = (lambda cv, v, o: previous_b3f(casc_mod, cv, v, o)) \
+            if host.get("previous") else casc_mod.cascade_masked
+        bad, paths = 0, set()
+        for (_, cv, v, o), want in zip(cases, wants):
+            bad += mismatches(walk(cv, v, o), want)
+            if not host.get("previous"):
+                paths.add(casc_mod.cascade_fast_path)
+        ms = {k: graph_ms((lambda cv: lambda: walk(cv, valid, ops))(cv), 20)
+              for k, cv in canvases.items()}
+        tag = label if i < len(order) - 1 else label + " (again)"
+        rows.append({"kernel": "cascade_fast", "variant": tag, "ms": ms,
+                     "mismatches": bad, "ablation": ablation, "ptxas": ptx,
+                     "paths": sorted(str(p) for p in paths)})
+        print(f"cascade_fast {tag}: " + ", ".join(
+            f"{t} {v:.4f} ms" for t, v in ms.items())
+            + f"; mismatches {bad}" + (" (ablation)" if ablation else "")
+            + f"; paths {sorted(str(p) for p in paths)}; ptxas {ptx}",
+            flush=True)
+        if bad and not ablation:
+            failures.append(f"cascade_fast {label}")
+    for k, v in defaults.items():
+        setattr(gen_mod, k, v)
+    _build._LIBS.pop("cascade_fast", None)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", default="fpga,walk,planes,grad_hist",
-                    help="comma-separated kernels: fpga, walk, planes, "
-                    "grad_hist (B2, B2d, B2f), grad_hist_float (B2d, B2f)")
+    ap.add_argument("--only", default="fpga,walk,walk_fast,planes,grad_hist",
+                    help="comma-separated kernels: fpga, walk, walk_fast "
+                    "(B3f), planes, grad_hist (B2, B2d, B2f), "
+                    "grad_hist_float (B2d, B2f)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -1086,6 +1252,10 @@ def main():
     if "walk" in todo:
         libs["walk"] = build_variants(_build, "cascade", WALK_VARIANTS,
                                       workdir)
+    if "walk_fast" in todo:
+        libs["walk_fast"] = build_variants(_build, "cascade_fast",
+                                           WALK_FAST_VARIANTS, workdir)
+        _build.build(["cascade"])  # the previous design
     print(f"build: {time.time() - t0:.1f} s", flush=True)
 
     rows, failures = [], []
@@ -1113,6 +1283,8 @@ def main():
     pairs = None
     if "fpga" in todo or "walk" in todo:
         pairs = sweep_fpga_walk(_build, libs, dev, todo, failures, rows)
+    if "walk_fast" in todo:
+        sweep_walk_fast(_build, libs["walk_fast"], dev, failures, rows)
     shutil.rmtree(workdir, ignore_errors=True)
     summary = {"card": card, "rows": rows, "failures": failures}
     if sass:

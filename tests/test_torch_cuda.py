@@ -31,10 +31,12 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "models", "flagship_synth_64.pb")
 HARD256 = os.path.join(ROOT, "models", "flagship_hard_256.pb")
+HARD64 = os.path.join(ROOT, "models", "flagship_hard_64.pb")
 
 sys.path.insert(0, ROOT)
 from chip_smoke import (CANVAS_GOLDEN,  # noqa: E402
                         DEVICE_FPGA_TRAIN_GOLDEN, DEVICE_TRAIN_GOLDEN,
+                        b3f_edges, previous_b3f,
                         FPGA_TRAIN_GOLDEN, TRAIN_DEPTH, TRAIN_GOLDEN,
                         canvas_golden_frames, canvas_golden_run,
                         canvas_model_path, device_train_golden_run,
@@ -458,7 +460,12 @@ def test_grad_hist_fast_matches_plain_on_card(cuda, hw, kind):
 
 def test_cascade_fast_matches_plain_on_card(cuda):
     """B3f over a bfloat16 canvas against its plain version and against B3
-    over the canvas's float32 copy; B4 likewise, with n_stages_cap."""
+    over the canvas's float32 copy (the three committed models; and
+    chip_smoke.py's B3f edges: grids under one tile, rows off 16 bytes, a
+    canvas one element off a word, windows 8, 12 and 24, C = 1, 4 and 5,
+    batch 1 and 3, deep-tree, oversized, one-stage and never-rejecting
+    cascades); its previous design (csrc/cascade.cu) likewise; B4 over the
+    canvas, with n_stages_cap."""
     rng = np.random.RandomState(4)
     hw = (96, 128)
     packed = packing._packed_plan_cached(hw[0], hw[1], 2, 2, (12, 12),
@@ -470,13 +477,17 @@ def test_cascade_fast_matches_plain_on_card(cuda):
     canvas = tcc.grad_hist_fast(planes, mask, 1)
     valid = torch.as_tensor(packed.valid_mask((12, 12)).astype(np.uint8),
                             device=cuda)
-    for path in (FLAGSHIP, HARD256):
+    for path in (FLAGSHIP, HARD64, HARD256):
         ops = wt.load(path, device=cuda)._operands(cuda)
         got = tcs.cascade_masked(canvas, valid, ops)
+        assert tcs.cascade_fast_path == "tma"
         for want in (tcs.cascade_masked_plain(canvas, valid, ops),
-                     tcs.cascade_masked(canvas.float(), valid, ops)):
+                     tcs.cascade_masked(canvas.float(), valid, ops),
+                     previous_b3f(tcs, canvas, valid, ops)):
             for g, w_ in zip(got, want):
                 assert torch.equal(g, w_)
+        if path == HARD64:
+            continue
         for cap in (None, 12):
             got = tcs.cascade_response(canvas, valid, ops, cap)
             for want in (tcs.cascade_response_plain(canvas, valid, ops, cap),
@@ -484,6 +495,15 @@ def test_cascade_fast_matches_plain_on_card(cuda):
                                               cap)):
                 for g, w_ in zip(got, want):
                     assert torch.equal(g, w_)
+    paths = set()
+    for label, cv, evalid, eops in b3f_edges(tcs, cuda):
+        got = tcs.cascade_masked(cv, evalid, eops)
+        paths.add(tcs.cascade_fast_path)
+        for want in (tcs.cascade_masked_plain(cv, evalid, eops),
+                     tcs.cascade_masked(cv.float(), evalid, eops)):
+            for g, w_ in zip(got, want):
+                assert torch.equal(g, w_), label
+    assert paths == {"tma", "global", "none"}
 
 
 @pytest.mark.parametrize("frames,fast_float", [("uint8", "f32"),

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface under ``waldboost_tpu_torch/_build/``;
-the file name carries a hash of the source (and of the compile flags), so
-an edited source is rebuilt and an unchanged one is loaded as built.  Each
+the file name carries a hash of the source, of the shared headers
+(``csrc/*.cuh``) and of the compile flags, so an edited source or header
+is rebuilt and an unchanged one is loaded as built.  Each
 C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch.
 """
@@ -45,8 +46,12 @@ def _nvcc() -> str:
 
 def _paths(name: str):
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include (csrc/*.cuh)
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     tag = digest.hexdigest()[:16]
     # a source under csrc/baseline/ builds beside the others
     flat = name.replace("/", "_")

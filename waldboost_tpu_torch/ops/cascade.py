@@ -36,6 +36,9 @@ from ..device import resolve_device
 __all__ = ["Cascade", "CascadeMeta", "NEG_INF", "MAX_COMPLETE_DEPTH",
            "NODE_KEYS", "check_children", "tree_depth", "stage_tables",
            "GENERAL", "HEAP2", "NodeRecords", "node_records",
+           "FRONT_REJECTS", "FRONT_FOOTPRINT_BYTES",
+           "FRONT_NONE", "FRONT_STAGED", "FRONT_GLOBAL", "front_stages",
+           "front_footprint", "FrontRecords", "front_records",
            "stack_node_table", "cascade_from_stages", "lockstep",
            "cascade_response_grid", "cascade_response_grid_plain",
            "cascade_survivor_counts", "cascade_predict_samples"]
@@ -367,6 +370,80 @@ def node_records(tab: dict, theta, counts, shape: Tuple[int, int, int]
     stage[:T, 0] = _bits(theta)
     stage[:T, 1] = np.asarray(counts, bool)
     return GENERAL, np.concatenate([stage.ravel(), rec.ravel()])
+
+
+#: kernel B3f's dense front (csrc/cascade_fast.cu): the stages with finite
+#: theta it runs through (0: no front) and the most bytes of one staged
+#: footprint (beyond it the front reads the canvas from global memory).
+#: The tile of origins is the kernel's own (``wb_cascade_fast_tile``).
+FRONT_REJECTS = 2
+FRONT_FOOTPRINT_BYTES = 64 * 1024
+#: where the front reads the canvas: no front, a staged footprint, global
+#: memory
+FRONT_NONE, FRONT_STAGED, FRONT_GLOBAL = 0, 1, 2
+
+
+def front_stages(theta, n_rejects: int) -> int:
+    """How many stages the front runs: stages 0 .. F-1, through the
+    ``n_rejects``-th stage whose theta is finite (all of them when the
+    cascade has fewer such stages; 0 when ``n_rejects`` is 0)."""
+    if n_rejects <= 0:
+        return 0
+    finite = np.flatnonzero(np.isfinite(np.asarray(theta, np.float32)))
+    return int(finite[n_rejects - 1]) + 1 if len(finite) >= n_rejects \
+        else len(theta)
+
+
+def front_footprint(window: Tuple[int, int], tile: Tuple[int, int]
+                    ) -> Tuple[int, int]:
+    """``(FH, FW)``: the canvas rows a tile's windows read and the staged
+    row pitch in elements (the columns they read, rounded up to 8 bfloat16
+    values: 16 bytes)."""
+    (m, n), (tr, tc) = window, tile
+    return tr + m - 1, -(-(tc + n - 1) // 8) * 8
+
+
+class FrontRecords(NamedTuple):
+    """The records of B3f's dense front for one canvas shape, window and
+    tile: ``mode`` (``FRONT_NONE``, ``FRONT_STAGED``, ``FRONT_GLOBAL``),
+    ``n_stages`` (F), the footprint ``fh`` x ``fw``, the tile, and
+    ``data``: F stages of HEAP2 records (:func:`node_records`) whose feature
+    offsets are in the staged footprint's strides ``fch*FH*FW + fr*FW +
+    fc`` (``FRONT_STAGED``) or the canvas's (``FRONT_GLOBAL``)."""
+    mode: int
+    n_stages: int
+    fh: int
+    fw: int
+    tile: Tuple[int, int]
+    data: np.ndarray
+
+
+def front_records(tab: dict, theta, counts, shape: Tuple[int, int, int],
+                  window: Tuple[int, int], tile: Tuple[int, int],
+                  stageable: bool = True) -> FrontRecords:
+    """The dense front of the (T, NN) tables ``tab`` over a (C, H, W)
+    bfloat16 canvas, for the kernel's ``tile`` of origins: stages 0 ..
+    F-1 (:func:`front_stages` of ``FRONT_REJECTS``) as HEAP2 records in
+    the strides of a tile's staged footprint when the canvas can be staged
+    (``stageable``: its rows and base on 16 bytes) and two bytes an
+    element fit ``FRONT_FOOTPRINT_BYTES``, else in the canvas's.  No front
+    (F 0) when those stages hold a tree deeper than 2."""
+    tile = tuple(tile)
+    C = shape[0]
+    fh, fw = front_footprint(window, tile)
+    F = front_stages(theta, FRONT_REJECTS)
+    none = FrontRecords(FRONT_NONE, 0, fh, fw, tile, np.zeros(4, np.int32))
+    if F == 0:
+        return none
+    sub = {k: np.asarray(v)[:F] for k, v in tab.items()}
+    staged = stageable and 2 * C * fh * fw <= FRONT_FOOTPRINT_BYTES
+    layout, rec = node_records(sub, np.asarray(theta)[:F],
+                               np.asarray(counts)[:F],
+                               (C, fh, fw) if staged else tuple(shape))
+    if layout != HEAP2:
+        return none
+    return FrontRecords(FRONT_STAGED if staged else FRONT_GLOBAL, F, fh, fw,
+                        tile, rec)
 
 
 class NodeRecords(NamedTuple):

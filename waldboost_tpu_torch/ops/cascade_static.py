@@ -2,8 +2,9 @@
 
 Counterpart of ``waldboost_tpu/ops/cascade_static.py`` (``StaticCascade``,
 ``static_cascade_from_model``, ``cascade_masked_grid_static`` and
-``cascade_response_grid_static``).  Both kernels live in
-``csrc/cascade.cu``; each has a plain-torch version here that evaluates
+``cascade_response_grid_static``).  B3 and B4 live in
+``csrc/cascade.cu``, B3f in ``csrc/cascade_fast.cu``; each has a
+plain-torch version here that evaluates
 the same cascade in lockstep over all windows
 (:func:`~waldboost_tpu_torch.ops.cascade.lockstep`).  A CPU tensor takes
 the plain version, a CUDA tensor the kernel.
@@ -19,7 +20,12 @@ each window entered alive.
   elsewhere, and per-image survivor counts.  Over a bfloat16 canvas
   (fast serving mode) it is B3f (``cascade_masked_grid_static(fast=
   True)``): each canvas value widened to f32 at its read, so the results
-  equal B3's over the canvas's float32 copy.
+  equal B3's over the canvas's float32 copy.  B3f runs a dense front over
+  TMA-staged tiles of origins (the first stages, through
+  ``ops/cascade.py::FRONT_REJECTS`` stages that can reject, from
+  :meth:`CascadeOperands.front`'s records; from global memory where the
+  canvas rows or base are off 16 bytes), then the walk for the
+  survivors.
 * B4, :func:`cascade_response`: the unmasked ``(hs, alive, n_weak)`` over
   the first ``n_stages_cap`` stages.  A rejected window keeps the ``hs`` of
   the stage it died in; an origin outside the mask keeps 0.  It takes a
@@ -31,15 +37,15 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .._build import check, load_library
 from ..device import resolve_device
-from .cascade import (NODE_KEYS, NodeRecords, check_children, lockstep,
-                      stage_tables)
+from .cascade import (NODE_KEYS, FrontRecords, NodeRecords, check_children,
+                      front_records, lockstep, stage_tables)
 
 __all__ = ["StaticCascade", "static_cascade_from_model", "CascadeOperands",
            "cascade_masked", "cascade_masked_plain", "cascade_response",
@@ -51,6 +57,12 @@ cascade_launches = 0
 cascade_fast_launches = 0
 #: kernel launches made by :func:`cascade_response` (B4)
 cascade_response_launches = 0
+#: how B3f's last launch read the canvas for its front: "tma" (footprints
+#: staged by box copies), "global", or "none"
+cascade_fast_path = None
+#: the path of each front mode (``ops/cascade.py::FRONT_NONE``,
+#: ``FRONT_STAGED``, ``FRONT_GLOBAL``)
+FAST_PATHS = ("none", "tma", "global")
 
 
 class StaticCascade:
@@ -122,8 +134,38 @@ class CascadeOperands:
                 shape, self.device)
         return self._records[shape]
 
+    @functools.cached_property
+    def _fronts(self) -> dict:
+        return {}
+
+    def front(self, shape: Tuple[int, int, int], tile: Tuple[int, int],
+              stageable: bool = True) -> "DeviceFront":
+        """B3f's front records (:func:`~waldboost_tpu_torch.ops.cascade.
+        front_records`) for a (C, H, W) canvas on :attr:`device` and the
+        kernel's ``tile`` of origins, built once per shape, tile and
+        ``stageable`` (the canvas rows and base on 16 bytes)."""
+        key = (shape, tuple(tile), stageable)
+        if key not in self._fronts:
+            rec = front_records(vars(self.sc), self.theta,
+                                np.ones(self.sc.n_stages, bool), shape,
+                                self.window, tile, stageable)
+            self._fronts[key] = DeviceFront(
+                rec, torch.as_tensor(rec.data, device=self.device))
+        return self._fronts[key]
+
+    @functools.cached_property
+    def _fast_runs(self) -> dict:
+        return {}
+
     def plain_theta(self) -> Sequence[float]:
         return self.theta.tolist()
+
+
+class DeviceFront(NamedTuple):
+    """:class:`~waldboost_tpu_torch.ops.cascade.FrontRecords` and their
+    records on a device."""
+    rec: FrontRecords
+    data: torch.Tensor
 
 
 def _check(canvas: torch.Tensor, valid: torch.Tensor,
@@ -165,9 +207,11 @@ def launch_response(name: str, canvas: torch.Tensor, valid: torch.Tensor,
                     n_nodes: int, out0, out1, n_weak) -> None:
     """Launch one of the C entry points of ``csrc/cascade.cu`` on the
     current stream over the packed ``records`` of ``n_stages`` stages of
-    ``n_nodes`` nodes, walking the first ``n_run``: ``wb_cascade`` (B3,
-    B3f: outputs masked, count, n_weak) or ``wb_cascade_response`` (B4,
-    B6: outputs hs, alive, n_weak); the canvas float32 or bfloat16."""
+    ``n_nodes`` nodes, walking the first ``n_run``: ``wb_cascade`` (B3:
+    outputs masked, count, n_weak; over a bfloat16 canvas the previous
+    design of B3f, which no serving path launches) or
+    ``wb_cascade_response`` (B4, B6: outputs hs, alive, n_weak); the
+    canvas float32 or bfloat16."""
     B, C, H, W = canvas.shape
     gu, gv = valid.shape
     stream = torch.cuda.current_stream(canvas.device).cuda_stream
@@ -179,6 +223,51 @@ def launch_response(name: str, canvas: torch.Tensor, valid: torch.Tensor,
                            n_stages, n_run, n_nodes, out0.data_ptr(),
                            out1.data_ptr(), n_weak.data_ptr(), stream)
     check(err, f"{name} kernel")
+
+
+def _fast_run(lib, ops: CascadeOperands, key) -> tuple:
+    """What every B3f launch at one canvas shape passes the same: the C
+    entry, the arguments after the stream, the front's path and the
+    device tensors those arguments point into."""
+    C, H, W, gu, gv, stageable = key
+    fn = lib.wb_cascade_fast
+    if fn.argtypes is None:
+        # canvas, B, valid, masked, sums, stream; C, H, W, gu, gv, m, n,
+        # records, bytes, layout, T, NN, front records, F, front mode
+        fn.argtypes = [_VP, _CI, _VP, _VP, _VP, _VP] + [_CI] * 7 + \
+            [_VP, _CI, _CI, _CI, _CI, _VP, _CI, _CI]
+        fn.restype = ctypes.c_int
+    rows, cols = _CI(), _CI()
+    lib.wb_cascade_fast_tile(ctypes.byref(rows), ctypes.byref(cols))
+    rec = ops.records((C, H, W))
+    front = ops.front((C, H, W), (rows.value, cols.value), stageable)
+    fr = front.rec
+    args = (C, H, W, gu, gv, *ops.window, rec.data.data_ptr(),
+            rec.data.numel() * 4, rec.layout, ops.sc.n_stages,
+            ops.sc.fr.shape[1], front.data.data_ptr(), fr.n_stages, fr.mode)
+    return fn, args, FAST_PATHS[fr.mode], (rec.data, front.data)
+
+
+def launch_fast(canvas: torch.Tensor, valid: torch.Tensor,
+                ops: CascadeOperands, masked, sums) -> str:
+    """Launch B3f (``wb_cascade_fast`` of ``csrc/cascade_fast.cu``) on the
+    current stream over a bfloat16 canvas, into ``masked`` and ``sums``
+    (2 x B int32: the count, then n_weak; zeroed by the launch); returns
+    how its front read the canvas (one of :data:`FAST_PATHS`).  The
+    arguments of a canvas shape are made once (:func:`_fast_run`)."""
+    B, C, H, W = canvas.shape
+    lib = load_library("cascade_fast")
+    key = (C, H, W, *valid.shape, W % 8 == 0 and canvas.data_ptr() % 16 == 0)
+    run = ops._fast_runs.get((lib, key))
+    if run is None:
+        run = ops._fast_runs[(lib, key)] = _fast_run(lib, ops, key)
+    fn, args, path, _ = run
+    with torch.cuda.device(canvas.device):
+        err = fn(canvas.data_ptr(), B, valid.data_ptr(), masked.data_ptr(),
+                 sums.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                 *args)
+    check(err, "wb_cascade_fast kernel")
+    return path
 
 
 def _device_kind(canvas: torch.Tensor) -> str:
@@ -197,9 +286,14 @@ def cascade_masked(canvas: torch.Tensor, valid: torch.Tensor,
     gu, gv = _check(canvas, valid, ops)
     if _device_kind(canvas) == "cpu":
         return cascade_masked_plain(canvas, valid, ops)
-    global cascade_launches, cascade_fast_launches
+    global cascade_launches, cascade_fast_launches, cascade_fast_path
     B, dev = canvas.shape[0], canvas.device
     masked = torch.empty((B, gu, gv), dtype=torch.float32, device=dev)
+    if canvas.dtype == torch.bfloat16 and B and gu and gv:
+        sums = torch.empty((2, B), dtype=torch.int32, device=dev)
+        cascade_fast_path = launch_fast(canvas, valid, ops, masked, sums)
+        cascade_fast_launches += 1
+        return masked, sums[1], sums[0]
     count = torch.zeros(B, dtype=torch.int32, device=dev)
     n_weak = torch.zeros(B, dtype=torch.int32, device=dev)
     if B and gu and gv:
@@ -207,10 +301,7 @@ def cascade_masked(canvas: torch.Tensor, valid: torch.Tensor,
         launch_response("wb_cascade", canvas, valid,
                         ops.records(tuple(canvas.shape[1:])), T, T,
                         ops.sc.fr.shape[1], masked, count, n_weak)
-        if canvas.dtype == torch.bfloat16:
-            cascade_fast_launches += 1
-        else:
-            cascade_launches += 1
+        cascade_launches += 1
     return masked, n_weak, count
 
 
