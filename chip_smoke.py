@@ -10,7 +10,9 @@ float32 frames, exact float32 frames, bucketed serving at any frame size
 (BucketedDetector), its host-pool training loop (BASELINE config 4), the
 FPGA trainer, the device-pool trainer (BASELINE config 4b), the
 per-level channel pyramid, the image-space channel canvas (shrink 1 and
-grad_mag, plain torch) and CNN-verified detection, and checks and times
+grad_mag, plain torch), CNN-verified detection, verifier training, the
+command-line tools (train, detect) with the native loader and
+single-scale serving (BASELINE config 1, n_scales), and checks and times
 its nine CUDA kernels
 (planes B1,
 grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
@@ -186,9 +188,43 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
     scores bitwise the golden's, its verified scores and verify_scores
     within 1e-5 of the scores' scale, the fused bucket (k=1024, NMS 0.5)
     equal to detect_and_verify then host NMS and to the golden's;
+ 7a. verifier training, teacher-forced with dropout off
+    (tests/data/torch_port_cli_golden.npz, scripts/make_torch_cli_golden.py):
+    from the golden's flax init on seeded pools (1000 windows a class, 12 x
+    12 x 4), 2 epochs of 50 batches of 64, lr 1e-4, twice with TF32 switched
+    on globally: printed epoch losses within 1e-5 and parameters within 2e-5
+    of JAX's, the two runs bitwise, full float32 in every pass; ms a step;
+    then planted faults (TF32 on, Adam's bias corrections dropped), each
+    of which must put the parameters outside that tolerance;
+ 7b. the verifier arm of BASELINE.md round 4 with dropout on: config 4's
+    detector to 32 stages, the verifier 3 x 400 batches of 64 on its final
+    pool, the AUC of the cascade and of detect_and_verify over 200 held-out
+    images (seed 999, IoU 0.5): verified >= cascade - 0.03; steps a second;
+    B1, B2, B4 and B6 launched;
+ 7c. the CLI's train_main in-process: config 4's widths (4 stages, pool
+    1000/1000, seed 0) and --fpga (3 stages, 8 x 8 x 4 grad_hist_4_u1), each
+    model equal to JAX's CLI model (trees, features and thresholds bitwise,
+    predictions and thetas within 1e-5) and its JSON line equal (loss within
+    1e-6), B1, B2 (B5 with --fpga) and B6 launched, stages a minute; then 2
+    stages from a bbGt directory of PGM files through the native loader
+    (stage count, the model loads);
+ 7d. the CLI's detect_main in-process over 8 VGA scenes saved as .npy:
+    flagship_synth_64 alone (BucketedDetector; B1, B2, B3) with its JSON
+    equal to JAX's, then with flagship_hard_64 too (wt.detect; B1, B2, B4)
+    with each file's (box, score, label) rows equal to JAX's as sets (the
+    list order is JAX's two-phase compaction's); frames a second after a
+    warm call;
+ 7e. single-scale serving: make_batched_detector_boxes(n_scales=1) of
+    config 1 (models/config1_stump_synth_64.pb, k=128, n_weak off as
+    bench.py serves it, and on) and of flagship_synth_64 at n_scales 1 and
+    4 (k=1024) on a noise batch, the scene batch and a coarse-noise batch
+    (on which every run keeps windows): counts, n_weak, boxes and scores
+    bitwise JAX's; B1, B2 and B3 launched; 10 config-1 batches and config
+    1's Model.detect on the coarse frames through profiling.Meter, its
+    report (with config 1's cascade counters) printed;
  6. times each kernel against its plain version (CUDA events, in turns), each
     layer of the serving path, the serving path end to end (60 batches of 8
-    per workload, MP/s, p50/p80), Model.detect and the three-model wt.detect
+    per workload, MP/s, p50/p80; config 1 single-scale among them), Model.detect and the three-model wt.detect
     (ms/frame, p50 of 30 frames) and make_batched_detector (MP/s at batch 8,
     30 batches), B3 on the 40-stage depth-5 model (GENERAL node records); B2f
     on each plane type and B3f at VGA; B3f beside its previous design in
@@ -238,7 +274,8 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
     max_abs_err, ms, plain_ms, bound_ms from this run's shapes), then the
     final ok line.
 
-Any failed phase raises and the script exits nonzero without the ok line.
+Before the summary it prints its own wall time.  Any failed phase raises
+and the script exits nonzero without the ok line.
 It never falls back to the CPU.
 
 Usage: python chip_smoke.py [--trace-dir DIR]   (DIR keeps the traces)
@@ -1480,19 +1517,25 @@ def canvas_golden_run(wt, dev, g, frames, idx):
     return out
 
 
-def golden_verifier(wt, g):
-    """The golden's verifier as the port's (module, state dict)."""
-    from waldboost_tpu_torch.convert import verifier_state_dict
+def flax_params(g, prefix):
+    """The flax parameter tree stored in ``g`` under ``prefix/...`` keys
+    (one key a leaf, its path joined by "/") as nested dicts."""
     tree = {}
     for k in g.files:
-        if k.startswith("verifier/"):
+        if k.startswith(prefix + "/"):
             node = tree
             *path, leaf = k.split("/")[1:]
             for p in path:
                 node = node.setdefault(p, {})
             node[leaf] = g[k]
+    return tree
+
+
+def golden_verifier(wt, g):
+    """The golden's verifier as the port's (module, state dict)."""
+    from waldboost_tpu_torch.convert import verifier_state_dict
     return (wt.verification.VerifierCNN(TRAIN_SHAPE),
-            verifier_state_dict(tree))
+            verifier_state_dict(flax_params(g, "verifier")))
 
 
 def verifier_close(got, want):
@@ -1502,11 +1545,12 @@ def verifier_close(got, want):
         VERIFIER_TOL * scale
 
 
-def tf32_probe(wt, verifier, dev):
-    """``(seen, handle)``: a list that each call of ``verifier``'s program
-    on ``dev`` appends the float32 matmul precision and cuDNN's
-    convolution precision to, as they stand during the call, and the
-    hook's handle (``handle.remove()`` ends the probe)."""
+def precision_probe(net):
+    """``(seen, handle)``: a list that each forward call of ``net`` (and
+    of its deep copies, which share the hook) appends the float32 matmul
+    precision and cuDNN's convolution precision to, as they stand during
+    the call, and the hook's handle (``handle.remove()`` ends the
+    probe)."""
     import torch
     seen = []
 
@@ -1516,8 +1560,20 @@ def tf32_probe(wt, verifier, dev):
                      getattr(conv, "fp32_precision", None)
                      if conv is not None
                      else not torch.backends.cudnn.allow_tf32))
-    prog = wt.verification.get_verifier_program(*verifier, dev)
-    return seen, prog.net.register_forward_pre_hook(probe)
+    return seen, net.register_forward_pre_hook(probe)
+
+
+def tf32_probe(wt, verifier, dev):
+    """:func:`precision_probe` on the program of ``verifier`` on
+    ``dev``."""
+    return precision_probe(
+        wt.verification.get_verifier_program(*verifier, dev).net)
+
+
+def full_f32(seen) -> bool:
+    """Whether a probe saw calls, each at full float32 (no TF32)."""
+    return bool(seen) and all(p == "highest" and c in ("ieee", True)
+                              for p, c in seen)
 
 
 def verifier_golden_run(wt, dev, g, scenes, idx, verifier):
@@ -1577,6 +1633,432 @@ def verifier_golden_run(wt, dev, g, scenes, idx, verifier):
     return out, worst
 
 
+#: slice 13's golden (scripts/make_torch_cli_golden.py, JAX on the CPU):
+#: verifier training, the CLI's train and detect, single-scale serving
+CLI_GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_cli_golden.npz")
+#: phase 7a: the verifier trained teacher-forced (dropout off) on seeded
+#: pools of config 4's window, VTRAIN_POOL windows a class
+VTRAIN_POOL = 1000
+VTRAIN_KW = dict(epochs=2, steps=50, batch_size=64, lr=1e-4, seed=0)
+#: 7a's tolerances, absolute: the trained parameters and the printed epoch
+#: losses against JAX's (the two sides sum convolutions, GroupNorm's
+#: statistics and the loss in other orders).  On an H100 a sound run read
+#: 4.27e-6 for the parameters and 0 for the losses; with TF32 on the
+#: parameters read 2.53e-3, with Adam's bias corrections dropped 3.8e-2:
+#: 7a requires both planted faults to fall outside the tolerance
+VTRAIN_PARAM_TOL, VTRAIN_LOSS_TOL = 2e-5, 1e-5
+#: 7b: the verifier arm of BASELINE.md round 4 (scripts/exp_r10_verifier.py):
+#: config 4's detector to 32 stages, the verifier 3 epochs x 400 batches of
+#: 64 on the final pool, AUC over 200 held-out images (seed 999, IoU 0.5)
+VARM_STAGES, VARM_EPOCHS, VARM_STEPS = 32, 3, 400
+VARM_EVAL, VARM_EVAL_SEED, VARM_AUC_SLACK = 200, 999, 0.03
+#: 7c: the CLI's training runs: config 4's widths; the FPGA trainer at
+#: FPGA_TRAIN_*'s; a bbGt directory of CLI_BBGT_IMAGES frames
+CLI_TRAIN_ARGS = ("--length", "4", "--n-per-oct", "4", "--min-tp", "1000",
+                  "--min-fp", "1000", "--seed", "0")
+CLI_FPGA_ARGS = ("--fpga", "--length", "3", "--shape", "8", "8", "4",
+                 "--channels", "grad_hist_4_u1", "--n-per-oct", "2",
+                 "--min-tp", "60", "--min-fp", "60", "--seed", "3")
+CLI_BBGT_ARGS = ("--length", "2", "--n-per-oct", "2", "--min-tp", "50",
+                 "--min-fp", "50", "--seed", "0")
+CLI_TRAIN_RUNS = {"train": CLI_TRAIN_ARGS, "fpga": CLI_FPGA_ARGS}
+CLI_BBGT_IMAGES = 10
+#: 7d: the CLI's detection over CLI_FRAMES VGA scenes (scene_batch), with
+#: the first model alone and with both
+CLI_FRAMES = 8
+CLI_DETECT_MODELS = ("flagship_synth_64", "flagship_hard_64")
+#: 7e: single-scale serving (model, n_scales, k, with_n_weak): config 1 as
+#: bench.py::bench_vga_single_scale serves it, and counting n_weak, then
+#: the flagship's pyramid capped at 1 and 4 levels; on a noise batch, the
+#: scene batch and a batch of coarse noise (N_SCALES_GRAIN-pixel blocks).
+#: Config 1's stumps pass no window of the first two (n_weak shows their
+#: walk); on the coarse batch every run keeps windows, whose boxes and
+#: scores are compared
+N_SCALES_RUNS = (("config1_stump_synth_64", 1, 128, False),
+                 ("config1_stump_synth_64", 1, 128, True),
+                 ("flagship_synth_64", 1, 1024, True),
+                 ("flagship_synth_64", 4, 1024, True))
+N_SCALES_NOISE_SEED, N_SCALES_COARSE_SEED, N_SCALES_GRAIN = 13, 2, 6
+
+
+def dropout_off(wt, shape=TRAIN_SHAPE):
+    """The port's verifier for ``shape`` with its dropout off, as JAX's
+    tests switch flax's off from outside: a subclass whose ``forward``
+    ignores the generator of the dropout masks that ``train`` hands it."""
+    class DropoutOff(wt.verification.VerifierCNN):
+        def forward(self, x, generator=None):
+            return super().forward(x)
+    return DropoutOff(shape)
+
+
+def verifier_pools(n=VTRAIN_POOL, shape=TRAIN_SHAPE, seed=0):
+    """Seeded verifier pools ``(X0, H0, X1, H1)``: ``n`` uniform windows a
+    class, the positives with a brighter centre, cascade scores N(0,
+    0.1)."""
+    rng = np.random.RandomState(seed)
+    X0 = rng.rand(n, *shape).astype(np.float32)
+    X1 = rng.rand(n, *shape).astype(np.float32)
+    m, w = shape[0] // 4, shape[1] // 4
+    X1[:, m:shape[0] - m, w:shape[1] - w, :] += 1.0
+    H0 = (rng.randn(n) * 0.1).astype(np.float32)
+    H1 = (rng.randn(n) * 0.1).astype(np.float32)
+    return X0, H0, X1, H1
+
+
+def printed_losses(text):
+    """The losses of the ``Epoch e/E: loss x`` lines of a training log."""
+    return [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+            if line.startswith("Epoch ")]
+
+
+def vtrain_golden_run(wt, dev, g):
+    """Phase 7a: the verifier trained on ``dev`` with dropout off from the
+    golden's flax init on :func:`verifier_pools`, the epoch losses and
+    the parameters held to JAX's (VTRAIN_*_TOL).  Returns ``(state,
+    worst parameter difference, worst loss difference, ms a step by the
+    host clock ending in a synchronize, the precision probe's calls)``."""
+    import contextlib
+    import io
+
+    import torch
+    from waldboost_tpu_torch.convert import verifier_state_dict
+    X0, H0, X1, H1 = verifier_pools()
+    module = dropout_off(wt)
+    seen, probe = precision_probe(module)
+    log = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state = wt.verification.train(
+            module, verifier_state_dict(flax_params(g, "vinit")), X0, H0,
+            X1, H1, device=dev, **VTRAIN_KW)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t) * 1e3 / (VTRAIN_KW["epochs"]
+                                            * VTRAIN_KW["steps"])
+    probe.remove()
+    got, want = printed_losses(log.getvalue()), printed_losses(
+        str(g["vtrain_log"]))
+    require(len(got) == len(want) == VTRAIN_KW["epochs"],
+            f"verifier training printed {got}, JAX {want}")
+    loss_err = max(abs(a - b) for a, b in zip(got, want))
+    require(loss_err <= VTRAIN_LOSS_TOL, f"verifier training: epoch losses "
+            f"{got} against JAX's {want} (tolerance {VTRAIN_LOSS_TOL})")
+    ref = verifier_state_dict(flax_params(g, "vfinal"))
+    require(sorted(state) == sorted(ref), "verifier training: other "
+            "parameters than JAX's")
+    err = max(float((state[k] - ref[k]).abs().max()) for k in ref)
+    require(err <= VTRAIN_PARAM_TOL, f"verifier training: parameters {err} "
+            f"from JAX's (tolerance {VTRAIN_PARAM_TOL})")
+    return state, err, loss_err, ms, seen
+
+
+def vtrain_planted_faults(wt, dev, g):
+    """7a's parameter difference from JAX's with a fault planted in the
+    port's training: ``{"tf32": TF32 on inside every pass, "no_bias_
+    correction": Adam's bias corrections dropped (the step count taken as
+    1e6, where both are 1 in float32)}``; the readings that
+    VTRAIN_PARAM_TOL must stay below."""
+    import contextlib
+
+    import torch
+    from waldboost_tpu_torch.convert import verifier_state_dict
+    from waldboost_tpu_torch.ops.fit import full_f32_matmul
+    V = wt.verification
+    adam = V._adam_step
+
+    @contextlib.contextmanager
+    def tf32_on():
+        with full_f32_matmul():        # restores the caller's settings
+            torch.set_float32_matmul_precision("high")
+            conv = getattr(torch.backends.cudnn, "conv", None)
+            if conv is not None and hasattr(conv, "fp32_precision"):
+                conv.fp32_precision = "tf32"
+            else:
+                torch.backends.cudnn.allow_tf32 = True
+            yield
+
+    faults = {"tf32": ("full_f32_matmul", tf32_on),
+              "no_bias_correction": ("_adam_step", lambda p, gr, m, v, t, lr:
+                                     adam(p, gr, m, v, 10 ** 6, lr))}
+    ref = verifier_state_dict(flax_params(g, "vfinal"))
+    init = verifier_state_dict(flax_params(g, "vinit"))
+    out = {}
+    for key, (attr, fault) in faults.items():
+        sound = getattr(V, attr)
+        setattr(V, attr, fault)
+        try:
+            state = V.train(dropout_off(wt), init, *verifier_pools(),
+                            device=dev, verbose=False, **VTRAIN_KW)
+        finally:
+            setattr(V, attr, sound)
+        out[key] = max(float((state[k] - ref[k]).abs().max()) for k in ref)
+    return out
+
+
+def verifier_arm_run(wt, dev):
+    """Phase 7b: BASELINE.md round 4's verifier arm on ``dev`` (dropout
+    on): config 4's detector trained to VARM_STAGES stages, the verifier
+    trained on its final pool's false and true positives, the AUC of the
+    cascade (``evaluate_model``) and of ``detect_and_verify`` over
+    VARM_EVAL held-out images.  Requires the verified AUC at least the
+    cascade's less VARM_AUC_SLACK.  Returns ``(auc_cascade, auc_verified,
+    verifier steps a second, stages)``."""
+    from itertools import islice
+
+    import torch
+    from waldboost_tpu_torch.testing import Evaluator, evaluate_model
+    from waldboost_tpu_torch.utils import fake_data_generator
+    model = wt.Model(TRAIN_SHAPE, TRAIN_OPTS, device=dev)
+    pool = wt.SamplePool(min_tp=TRAIN_POOL, min_fp=TRAIN_POOL, seed=0)
+    wt.train(model, fake_data_generator(seed=TRAIN_SEED), pool=pool,
+             length=VARM_STAGES,
+             learner=wt.Learner(alpha=TRAIN_ALPHA, max_depth=TRAIN_DEPTH))
+    X0, H0 = pool.get_false_positives()
+    X1, H1 = pool.get_true_positives()
+    module, params = wt.verification.init_verifier(model.shape, seed=0)
+    t = time.perf_counter()
+    params = wt.verification.train(module, params, X0, H0, X1, H1,
+                                   epochs=VARM_EPOCHS, steps=VARM_STEPS,
+                                   batch_size=64, verbose=False, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    steps_s = VARM_EPOCHS * VARM_STEPS / (time.perf_counter() - t)
+    corpus = list(islice(fake_data_generator(seed=VARM_EVAL_SEED), VARM_EVAL))
+    auc_cascade = evaluate_model(corpus, model).evaluate()["auc"]
+    ev = Evaluator()
+    for i, d in enumerate(corpus, 1):
+        ev.add_ground_truth(i, d["groundtruth_boxes"], d["image"].shape)
+        ev.add_detections(i, wt.verification.detect_and_verify(
+            d["image"], model, module, params))
+    auc_verified = ev.evaluate()["auc"]
+    require(auc_verified >= auc_cascade - VARM_AUC_SLACK,
+            f"phase 7b: the verifier degrades the AUC ({auc_verified} "
+            f"against the cascade's {auc_cascade})")
+    return auc_cascade, auc_verified, steps_s, len(model)
+
+
+def cli_output(fn, argv) -> str:
+    """What a CLI entry ``fn`` prints on ``argv``."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(list(argv))
+    return out.getvalue()
+
+
+def check_cli_model(wt, path, model_bytes, what):
+    """The model file at ``path`` equal to JAX's ``model_bytes``: stage
+    count, tree structure, features and thresholds bitwise, predictions
+    and thetas within 1e-5 (numpy's and XLA's ``log`` round differently;
+    the thetas follow the predictions)."""
+    ref_path = path + ".jax.pb"
+    with open(ref_path, "wb") as f:
+        f.write(np.asarray(model_bytes, np.uint8).tobytes())
+    got, ref = (wt.load(p, device="cpu") for p in (path, ref_path))
+    require(len(got) == len(ref), f"{what}: {len(got)} stages, JAX "
+            f"{len(ref)}")
+    for s_, (a, b) in enumerate(zip(got.stages, ref.stages)):
+        for k in ("feature", "left", "right", "threshold"):
+            require(np.array_equal(a[k], b[k]),
+                    f"{what}: stage {s_}'s {k} differs from JAX's")
+        require(np.abs(a["prediction"] - b["prediction"]).max() <= 1e-5,
+                f"{what}: stage {s_}'s predictions differ from JAX's")
+    require(np.abs(np.subtract(got.theta, ref.theta)).max(initial=0) <= 1e-5,
+            f"{what}: thetas {got.theta} against JAX's {ref.theta}")
+
+
+def check_cli_stats(out, want, what):
+    """The JSON line a training run printed equal to JAX's (the model
+    path aside), the loss within 1e-6 (numpy's float32 ``exp`` differs
+    by an ULP between hosts)."""
+    got = json.loads(out.strip().splitlines()[-1])
+    want = json.loads(str(want))
+    loss, ref_loss = got.pop("loss"), want.pop("loss")
+    got.pop("model")
+    want.pop("model")
+    require(got == want and abs(loss - ref_loss) <= 1e-6,
+            f"{what}: JSON {got} (loss {loss}) against JAX's {want} (loss "
+            f"{ref_loss})")
+    return got["stages"]
+
+
+def write_bbgt_dataset(root, n_images=CLI_BBGT_IMAGES, seed=4):
+    """A bbGt-style dataset under ``root``: P5 PGM images and 12-field v3
+    annotations of ``fake_data_generator(seed)``; ``(image dir,
+    annotation dir)``."""
+    from waldboost_tpu_torch.utils import fake_data_generator
+    img_dir, ann_dir = os.path.join(root, "img"), os.path.join(root, "ann")
+    os.makedirs(img_dir)
+    os.makedirs(ann_dir)
+    gen = fake_data_generator(seed=seed)
+    for i in range(n_images):
+        d = next(gen)
+        img = d["image"]
+        with open(os.path.join(img_dir, f"im{i:03d}.pgm"), "wb") as f:
+            f.write(b"P5\n%d %d\n255\n" % (img.shape[1], img.shape[0]))
+            f.write(img.tobytes())
+        lines = ["% bbGt version=3"]
+        for x0, y0, x1, y1 in d["groundtruth_boxes"].get():
+            lines.append(f"obj {x0:.0f} {y0:.0f} {x1 - x0:.0f} "
+                         f"{y1 - y0:.0f} 0 0 0 0 0 0 0")
+        with open(os.path.join(ann_dir, f"im{i:03d}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return img_dir, ann_dir
+
+
+def cli_train_golden_run(wt, dev, g, tmp, key):
+    """One of phase 7c's runs on ``dev``: ``train_main`` at
+    CLI_TRAIN_RUNS[key], its model and JSON line held to the golden's
+    (:func:`check_cli_model`, :func:`check_cli_stats`).  Returns its
+    stages a minute (host clock)."""
+    from waldboost_tpu_torch import cli
+    path = os.path.join(tmp, f"cli_{key}.pb")
+    argv = CLI_TRAIN_RUNS[key]
+    t = time.perf_counter()
+    out = cli_output(cli.train_main, ("-o", path) + argv
+                     + ("--device", str(dev)))
+    rate = 60 * int(argv[argv.index("--length") + 1]) / (
+        time.perf_counter() - t)
+    check_cli_stats(out, g[key + "_json"], f"CLI train {key}")
+    check_cli_model(wt, path, g[key + "_model"], f"CLI train {key}")
+    return rate
+
+
+def cli_bbgt_run(wt, dev, tmp):
+    """Phase 7c's bbGt run: ``train_main --images/--annotations`` on a
+    :func:`write_bbgt_dataset` directory through the native loader (the
+    loader's threads finish out of order, so this holds the contract:
+    the stage count, and the saved model loads)."""
+    from waldboost_tpu_torch import cli
+    from waldboost_tpu_torch.io import native_available
+    require(native_available(), "the native loader did not build")
+    img_dir, ann_dir = write_bbgt_dataset(os.path.join(tmp, "bbgt"))
+    path = os.path.join(tmp, "cli_bbgt.pb")
+    out = cli_output(cli.train_main, ("-o", path) + CLI_BBGT_ARGS + (
+        "--images", img_dir, "--annotations", ann_dir, "--device", str(dev)))
+    stages = json.loads(out.strip().splitlines()[-1])["stages"]
+    require(stages == int(CLI_BBGT_ARGS[1]) and len(wt.load(
+        path, device=dev)) == stages, f"CLI bbGt training: {stages} stages")
+    return stages
+
+
+def cli_json(text):
+    """A detect_main JSON with each file name cut to its base name."""
+    res = json.loads(text)
+    for r in res:
+        r["filename"] = os.path.basename(r["filename"])
+    return res
+
+
+def cli_rows(res):
+    """Each file's (box, score, label) rows of a detect_main result, as a
+    set: the list order of several models' boxes is JAX's two-phase
+    compaction's (ROADMAP A13, not ported)."""
+    return [(r["filename"], sorted(zip(map(tuple, r["boxes"]), r["scores"],
+                                       r["labels"] or [0] * len(r["boxes"]))))
+            for r in res]
+
+
+def write_cli_frames(tmp, n=CLI_FRAMES):
+    """``n`` VGA scenes (:func:`scene_batch`) saved as ``.npy`` files."""
+    paths = []
+    for i, frame in enumerate(scene_batch(n).numpy()):
+        paths.append(os.path.join(tmp, f"scene{i}.npy"))
+        np.save(paths[-1], frame)
+    return paths
+
+
+def cli_detect_args(n_models, paths, dev=None):
+    """detect_main's arguments: CLI_DETECT_MODELS' first ``n_models``,
+    the files, and ``--device dev`` unless ``dev`` is None."""
+    args = []
+    for name in CLI_DETECT_MODELS[:n_models]:
+        args += ["-m", os.path.join(ROOT, "models", name + ".pb")]
+    args += list(paths)
+    return args if dev is None else args + ["--device", str(dev)]
+
+
+def cli_detect_golden_run(dev, g, paths, n_models):
+    """Phase 7d on ``dev``: ``detect_main`` over ``paths``
+    (:func:`write_cli_frames`) with CLI_DETECT_MODELS' first
+    ``n_models``: with one (BucketedDetector) its JSON equal to the
+    golden's; with two (``wt.detect``) each file's rows equal to the
+    golden's as sets (:func:`cli_rows`).  Returns the result."""
+    from waldboost_tpu_torch import cli
+    got = cli_json(cli_output(cli.detect_main,
+                              cli_detect_args(n_models, paths, dev)))
+    want = cli_json(str(g[f"detect_json_{n_models}"]))
+    if n_models == 1:
+        require(got == want, "CLI detect: the JSON differs from JAX's")
+    else:
+        require(cli_rows(got) == cli_rows(want), f"CLI detect with "
+                f"{n_models} models: boxes differ from JAX's")
+    return got
+
+
+def n_scales_frames():
+    """7e's frames: (name, (BATCH, 480, 640) uint8) for a seeded noise
+    batch, the scene batch and a seeded batch of coarse noise (uniform
+    N_SCALES_GRAIN x N_SCALES_GRAIN blocks)."""
+    noise = np.random.RandomState(N_SCALES_NOISE_SEED).randint(
+        0, 256, (BATCH,) + VGA).astype(np.uint8)
+    f = N_SCALES_GRAIN
+    coarse = np.random.RandomState(N_SCALES_COARSE_SEED).randint(
+        0, 256, (BATCH, -(-VGA[0] // f), -(-VGA[1] // f))).astype(np.uint8)
+    coarse = coarse.repeat(f, 1).repeat(f, 2)[:, :VGA[0], :VGA[1]]
+    return (("noise", noise), ("scenes", scene_batch(BATCH).numpy()),
+            ("coarse", np.ascontiguousarray(coarse)))
+
+
+def n_scales_key(name, n_scales, with_n_weak, frames):
+    """The golden's key prefix of one N_SCALES_RUNS entry and batch."""
+    return f"ns/{name}/{n_scales}/{'n_weak' if with_n_weak else 'plain'}/" \
+        f"{frames}"
+
+
+def n_scales_golden_run(wt, dev, g):
+    """Phase 7e's checks on ``dev``: each N_SCALES_RUNS detector on each
+    :func:`n_scales_frames` batch, its packed plan of ``n_scales``
+    levels, counts and n_weak equal to the golden's and every frame's
+    valid boxes and scores bitwise (as sorted rows); on the coarse batch
+    each run must keep windows.  Returns the detectors and their survivor
+    counts."""
+    import torch
+    dets, counts = {}, {}
+    frames = n_scales_frames()
+    for name, ns, k, with_n_weak in N_SCALES_RUNS:
+        model = wt.load(os.path.join(ROOT, "models", name + ".pb"),
+                        device=dev)
+        fn, packed = wt.make_batched_detector_boxes(
+            model, VGA, k=k, with_n_weak=with_n_weak, n_scales=ns,
+            device=dev)
+        require(len(packed.levels) == ns, f"{name} n_scales={ns}: "
+                f"{len(packed.levels)} levels")
+        dets[(name, ns, with_n_weak)] = fn
+        for fname, batch in frames:
+            key = n_scales_key(name, ns, with_n_weak, fname)
+            rects, scores, valid, count, n_weak = (
+                a.cpu().numpy() for a in fn(torch.from_numpy(batch).to(dev)))
+            require(np.array_equal(count, g[key + "/count"])
+                    and np.array_equal(n_weak, g[key + "/n_weak"]),
+                    f"{key}: counts {count.tolist()} / n_weak "
+                    f"{n_weak.tolist()} against JAX's "
+                    f"{g[key + '/count'].tolist()} / "
+                    f"{g[key + '/n_weak'].tolist()}")
+            want = np.split(g[key + "/rows"],
+                            np.cumsum(g[key + "/kept"])[:-1])
+            for b in range(len(batch)):
+                require(np.array_equal(
+                    sorted_rows(rects[b][valid[b]], scores[b][valid[b]]),
+                    sorted_rows(want[b][:, :4], want[b][:, 4])),
+                    f"{key} frame {b}: boxes or scores differ from JAX's")
+            require(fname != "coarse" or valid.any(),
+                    f"{key}: no window kept, so no box is compared")
+            counts[key] = count.tolist()
+    return dets, counts
+
+
 def main():
     import importlib
 
@@ -1586,6 +2068,7 @@ def main():
     ap.add_argument("--trace-dir", default=None,
                     help="keep the profiler traces (Chrome JSON) here")
     args = ap.parse_args()
+    started = time.perf_counter()
 
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: the smoke "
@@ -1593,6 +2076,7 @@ def main():
     sys.path.insert(0, ROOT)
     import waldboost_tpu_torch as wt
     from waldboost_tpu_torch import _build, packing
+    from waldboost_tpu_torch import cli as cli_mod
     from waldboost_tpu_torch.canvas import (ChannelCanvas, channel_canvas,
                                             serving_opts)
     from waldboost_tpu_torch.channels import resolve_channel_function
@@ -1604,6 +2088,7 @@ def main():
     from waldboost_tpu_torch.ops.nms import extract_detections
     from waldboost_tpu_torch.parallel.detect import BucketedDetector
     from waldboost_tpu_torch.polyphase import META_COLS
+    from waldboost_tpu_torch.profiling import Meter
     from waldboost_tpu_torch.utils import fake_data_generator
     counters = {name: (importlib.import_module(mod), attr)
                 for name, (mod, attr, _, _) in KERNELS.items()}
@@ -2620,12 +3105,136 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     probe.remove()
-    require(seen and all(p == "highest" and c in ("ieee", True)
-                         for p, c in seen),
+    require(full_f32(seen),
             f"phase 6d: TF32 was on inside a verifier call ({seen})")
     print(f"phase 6d: (windows, kept) {vres}: boxes and cascade scores "
           f"bitwise, verified scores within {verr:.3g} of JAX's, TF32 off "
           f"in {len(seen)} calls ({time.perf_counter() - t:.1f} s)")
+
+    # -- phase 7a: verifier training, teacher-forced, dropout off ----------
+    # twice from the golden's flax init with TF32 switched on globally:
+    # the epoch losses and parameters against JAX's, the two runs bitwise,
+    # full float32 inside every forward pass
+    t = time.perf_counter()
+    clig = np.load(CLI_GOLDEN)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    vruns = [vtrain_golden_run(wt, dev, clig) for _ in range(2)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (vs1, verr, vlerr, vms1, vseen1), (vs2, _, _, vms2, vseen2) = vruns
+    require(all(torch.equal(vs1[k], vs2[k]) for k in vs1),
+            "phase 7a: two runs of verifier training differ")
+    require(full_f32(vseen1 + vseen2),
+            f"phase 7a: TF32 was on inside a training pass "
+            f"({set(vseen1 + vseen2)})")
+    print(f"phase 7a ({card}): verifier training {VTRAIN_KW['epochs']} x "
+          f"{VTRAIN_KW['steps']} batches of {VTRAIN_KW['batch_size']}: "
+          f"parameters within {verr:.3g} of JAX's (tolerance "
+          f"{VTRAIN_PARAM_TOL}), epoch losses within {vlerr:.3g}; two runs "
+          f"bitwise; full f32 in {len(vseen1) + len(vseen2)} passes; "
+          f"{vms1:.3f} / {vms2:.3f} ms a step "
+          f"({time.perf_counter() - t:.1f} s)")
+    del vruns, vs1, vs2
+    faults = vtrain_planted_faults(wt, dev, clig)
+    print(f"phase 7a ({card}): parameters from JAX's with a planted fault: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in faults.items())
+          + f" (tolerance {VTRAIN_PARAM_TOL})")
+    require(min(faults.values()) > VTRAIN_PARAM_TOL,
+            f"phase 7a: a planted fault stays inside the tolerance "
+            f"{VTRAIN_PARAM_TOL} ({faults})")
+
+    # -- phase 7b: the verifier arm of BASELINE.md round 4 (dropout on) ----
+    t = time.perf_counter()
+    zero_counters()
+    auc_c, auc_v, vsteps, vstages = verifier_arm_run(wt, dev)
+    torch.cuda.synchronize()
+    arm_launches = read_counters()
+    print(f"phase 7b ({card}): {vstages} stages; AUC cascade {auc_c:.4f}, "
+          f"verified {auc_v:.4f} (gate {auc_c - VARM_AUC_SLACK:.4f}); "
+          f"verifier {vsteps:.1f} steps/s; launches {arm_launches} "
+          f"({time.perf_counter() - t:.1f} s)")
+    require(all(arm_launches[k] > 0 for k in ("planes", "grad_hist",
+                                              "cascade_response",
+                                              "cascade_generic")),
+            "phase 7b: training, evaluation or detect_and_verify did not "
+            "run B1, B2, B4 and B6")
+
+    # -- phase 7c: the CLI's train, in-process -----------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        for key in CLI_TRAIN_RUNS:
+            t = time.perf_counter()
+            zero_counters()
+            rate = cli_train_golden_run(wt, dev, clig, tmp, key)
+            torch.cuda.synchronize()
+            cl = read_counters()
+            chans = "fpga" if key == "fpga" else "grad_hist"
+            print(f"phase 7c ({card}): CLI train {key}: model and JSON "
+                  f"equal to JAX's, {rate:.1f} stages/min, launches {cl} "
+                  f"({time.perf_counter() - t:.1f} s)")
+            require(all(cl[k] > 0 for k in ("planes", chans,
+                                            "cascade_generic")),
+                    f"phase 7c: CLI train {key} did not run B1, "
+                    f"{'B5' if key == 'fpga' else 'B2'} and B6")
+        t = time.perf_counter()
+        zero_counters()
+        stages = cli_bbgt_run(wt, dev, tmp)
+        torch.cuda.synchronize()
+        print(f"phase 7c ({card}): CLI train on a bbGt directory through "
+              f"the native loader: {stages} stages, the model loads; "
+              f"launches {read_counters()} "
+              f"({time.perf_counter() - t:.1f} s)")
+
+        # -- phase 7d: the CLI's detect, in-process -------------------------
+        paths = write_cli_frames(tmp)
+        for n_models, want in ((1, ("planes", "grad_hist", "cascade")),
+                               (2, ("planes", "grad_hist",
+                                    "cascade_response"))):
+            t = time.perf_counter()
+            zero_counters()
+            res = cli_detect_golden_run(dev, clig, paths, n_models)
+            torch.cuda.synchronize()
+            dl = read_counters()
+            require(all(dl[k] > 0 for k in want),
+                    f"phase 7d: CLI detect with {n_models} model(s) did not "
+                    f"launch {want} ({dl})")
+            t1 = time.perf_counter()
+            cli_output(cli_mod.detect_main,
+                       cli_detect_args(n_models, paths, dev))
+            fps = len(paths) / (time.perf_counter() - t1)
+            print(f"phase 7d ({card}): CLI detect, {n_models} model(s), "
+                  f"{len(paths)} VGA scenes: {[len(r['boxes']) for r in res]}"
+                  f" boxes, {'JSON' if n_models == 1 else 'rows'} equal to "
+                  f"JAX's; launches {dl}; {fps:.1f} frames/s after a warm "
+                  f"call ({time.perf_counter() - t:.1f} s)")
+
+    # -- phase 7e: single-scale serving (config 1), n_scales ---------------
+    t = time.perf_counter()
+    zero_counters()
+    ns_dets, ns_counts = n_scales_golden_run(wt, dev, clig)
+    torch.cuda.synchronize()
+    nl = read_counters()
+    print(f"phase 7e ({card}): n_scales runs bitwise JAX's, survivors "
+          f"{ns_counts}; launches {nl} ({time.perf_counter() - t:.1f} s)")
+    require(all(nl[k] > 0 for k in ("planes", "grad_hist", "cascade")),
+            "phase 7e: single-scale serving did not run B1, B2 and B3")
+    # profiling.Meter: config 1 served single-scale on noise batches, and
+    # its Model.detect (the full pyramid, B4) on the coarse frames, whose
+    # cascade counters the report gives
+    det_c1 = ns_dets[N_SCALES_RUNS[0][:2] + (N_SCALES_RUNS[0][3],)]
+    c1 = wt.load(os.path.join(ROOT, "models", N_SCALES_RUNS[0][0] + ".pb"),
+                 device=dev)
+    coarse = dict(n_scales_frames())["coarse"]
+    meter = Meter()
+    for r in range(10):
+        with meter.phase("config1_single_scale", items=BATCH,
+                         pixels=noise[r % 4].numel(), block_on=noise):
+            det_c1(noise[r % 4])
+    for im in coarse:
+        with meter.phase("config1_model_detect", items=1, pixels=im.size):
+            c1.detect(im)
+    meter.note_model(c1, N_SCALES_RUNS[0][0])
+    print(f"phase 7e profiling.Meter ({card}):\n{meter.report()}")
 
     # -- phase 5: timing and the host --------------------------------------
     def metric(name, value, unit):
@@ -2878,9 +3487,13 @@ def main():
         new_ms, old_ms = b3f_turns[cname]["graph"]
         metric(f"cascade_fast_{cname}_bound_us_per_image",
                least * 1e3 / BATCH, "us/image")
+        plain_ms = cuda_ms(lambda: casc_mod.cascade_masked_plain(
+            cv, grid.valid, ops_synth), 2)
+        metric(f"cascade_fast_{cname}_plain_us_per_image",
+               plain_ms * 1e3 / BATCH, "us/image")
         print(f"cascade_fast {cname}: bound {least:.5f} ms; from a CUDA graph"
               f" the new design at {least / new_ms:.3f} of it, the previous "
-              f"at {least / old_ms:.3f}")
+              f"at {least / old_ms:.3f}; plain version {plain_ms:.4f} ms")
     for name, (ms, what) in bounds.items():
         metric(f"{name}_bound_us_per_image", ms * 1e3 / BATCH, "us/image")
         print(f"{name}: bound by {what}; kernel at "
@@ -2932,6 +3545,7 @@ def main():
     det128, _ = wt.make_batched_detector_boxes(synth, VGA, k=128,
                                                nms_iou=0.5, device=dev)
     workloads = {
+        "vga_single_scale_noise_k128": (det_c1, noise),
         "vga_full_pyramid_noise_k128": (det128, noise),
         "vga_full_pyramid_scene_k1024": (det, [scene,
                                                torch.flip(scene, dims=[2])]),
@@ -3303,6 +3917,8 @@ def main():
     if args.trace_dir is None:
         os.rmdir(trace_dir)
 
+    print(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s "
+          f"({card})")
     # launches: the Model-API path's, B5's from the config-5 path, B2f's
     # and B3f's from the fast serving path
     launches = dict(path_launches, fpga=fpga_launches["fpga"],

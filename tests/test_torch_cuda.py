@@ -40,9 +40,11 @@ from chip_smoke import (CANVAS_GOLDEN,  # noqa: E402
                         FPGA_TRAIN_GOLDEN, TRAIN_DEPTH, TRAIN_GOLDEN,
                         canvas_golden_frames, canvas_golden_run,
                         canvas_model_path, device_train_golden_run,
-                        fpga_train_golden_run, golden_verifier,
-                        random_deep_stage, tf32_probe, train_golden_run,
-                        tree_diff, verifier_golden_run)
+                        dropout_off, fpga_train_golden_run, full_f32,
+                        golden_verifier,
+                        precision_probe, random_deep_stage, tf32_probe,
+                        train_golden_run, tree_diff, verifier_golden_run,
+                        verifier_pools, VTRAIN_PARAM_TOL)
 
 pytestmark = pytest.mark.cuda
 
@@ -749,3 +751,40 @@ def test_verifier_ignores_global_tf32(cuda):
     assert seen and all(p == "highest" and c in ("ieee", True)
                         for p, c in seen)
     assert sum(n for n, _ in res) > 300
+
+
+def test_verifier_train_on_card(cuda):
+    """Verifier training (chip_smoke.py phase 7a at a small size: 200
+    windows a class, 2 epochs of 10 batches of 64, dropout off) with TF32
+    switched on globally: two runs on the card bitwise equal, every pass
+    in full float32, the parameters within VTRAIN_PARAM_TOL of the CPU's
+    run; with dropout on, two card runs are bitwise equal too (masks
+    from the seeded generator)."""
+    from waldboost_tpu_torch import verification as TV
+    X0, H0, X1, H1 = verifier_pools(n=200)
+    _, init = TV.init_verifier((12, 12, 4), seed=1)
+    kw = dict(epochs=2, steps=10, batch_size=64, lr=1e-4, seed=0,
+              verbose=False)
+    module = dropout_off(wt)
+    seen, probe = precision_probe(module)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        a, b = (TV.train(module, init, X0, H0, X1, H1, device=cuda, **kw)
+                for _ in range(2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.backends.cudnn.allow_tf32 = prev[1]
+        probe.remove()
+    assert full_f32(seen)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    ref = TV.train(module, init, X0, H0, X1, H1, device="cpu", **kw)
+    assert max(float((a[k] - ref[k]).abs().max()) for k in ref) \
+        <= VTRAIN_PARAM_TOL
+    drop = TV.VerifierCNN((12, 12, 4))
+    c, d = (TV.train(drop, init, X0, H0, X1, H1, device=cuda, **kw)
+            for _ in range(2))
+    assert all(torch.equal(c[k], d[k]) for k in c)
+    assert not all(torch.equal(c[k], a[k]) for k in c)

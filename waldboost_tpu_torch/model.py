@@ -48,7 +48,7 @@ from . import model_io
 from .boxes import Boxes
 from .canvas import as_image, channel_canvas, serving_opts, window_grid
 from .channels import (ChannelFunction, _normalize_opts, channel_pyramid,
-                       resolve_channel_function)
+                       pyramid_plan, resolve_channel_function)
 from .device import resolve_device
 from .mining import gather_windows
 from .ops.cascade import (Cascade, CascadeMeta, cascade_from_stages,
@@ -311,14 +311,21 @@ class Model:
         return out
 
     # -- the packed pyramid ---------------------------------------------------
-    def _plan(self, image_hw
+    def _plan(self, image_hw, n_scales: Optional[int] = None
               ) -> Tuple[PackedPyramidPlan, int, ChannelFunction]:
         """``(packed, smooth, cf)``: the packed plan of ``image_hw`` frames
-        for this window, and the channel options the canvas needs."""
+        for this window (of the pyramid's first ``n_scales`` levels when
+        given), and the channel options the canvas needs."""
         m, n, C = self.shape
         shrink, n_per_oct, smooth, cf = serving_opts(self.channel_opts, C)
-        packed = _packed_plan_cached(int(image_hw[0]), int(image_hw[1]),
-                                     shrink, n_per_oct, (m, n), halo=cf.halo)
+        h, w = int(image_hw[0]), int(image_hw[1])
+        if n_scales is None:
+            packed = _packed_plan_cached(h, w, shrink, n_per_oct, (m, n),
+                                         halo=cf.halo)
+        else:
+            packed = PackedPyramidPlan.build(
+                pyramid_plan(h, w, shrink, n_per_oct)[:n_scales], (m, n),
+                halo=cf.halo, shrink=shrink)
         return packed, smooth, cf
 
     def _scan_setup(self, images: np.ndarray, device=None):

@@ -211,21 +211,23 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
     ``WB_FAST_FLOAT=bf16``).  The results are
     JAX's fast mode's, not the exact path's.  FPGA models have no fast
     variant: they serve uint8 frames as in exact mode.
+
+    ``n_scales`` serves only the pyramid's first ``n_scales`` levels (the
+    single-scale workload at 1): their packed plan runs through the same
+    canvas step, walk, extraction and NMS.
     """
     no_mesh(mesh, "serving")
     if two_phase:
         raise NotImplementedError("two-phase serving is not ported yet "
                                   "(ROADMAP item A13)")
-    if n_scales is not None:
-        if not isinstance(n_scales, int) or n_scales < 1:
-            raise ValueError(f"n_scales must be a positive int, got "
-                             f"{n_scales!r}")
-        raise NotImplementedError("n_scales serving is not ported yet "
-                                  "(ROADMAP item A4)")
+    if n_scales is not None and (isinstance(n_scales, bool) or not
+                                 isinstance(n_scales, int) or n_scales < 1):
+        raise ValueError(f"n_scales must be a positive int, got "
+                         f"{n_scales!r}")
     if int(k) < 1:
         raise ValueError(f"k must be positive, got {k}")
     h, w = (int(s) for s in image_shape)
-    packed, _, _ = model._plan((h, w))
+    packed, _, _ = model._plan((h, w), n_scales)
     fn = BatchedDetector(model, packed, (h, w), int(k), nms_iou,
                          with_n_weak, model._device_for(device), fast,
                          fast_float)

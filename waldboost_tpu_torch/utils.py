@@ -1,9 +1,12 @@
-"""The synthetic training datasets: squares on noise, and harder scenes.
+"""Synthetic datasets, visualisation and training callbacks.
 
-The port's own copy of the generators of ``waldboost_tpu/utils.py``
-(``fake_data_generator``, ``scene_generator``), pure numpy.  The random-draw
+The port's own copy of ``waldboost_tpu/utils.py``: the generators
+(``fake_data_generator``, ``scene_generator``, pure numpy: the random-draw
 order of each generator defines its dataset, so the frames and ground truth
-are the JAX package's, bitwise, for the same seed.
+are the JAX package's, bitwise, for the same seed), the sample montage and
+the detection drawing (matplotlib and cv2, imported where they are used),
+and the training callbacks ``ShowImageCallback`` and
+``class_prob_callback``.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ import numpy as np
 from . import boxes as bbx
 from . import groundtruth
 
-__all__ = ["fake_data_generator", "scene_generator"]
+__all__ = ["fake_data_generator", "scene_generator", "montage",
+           "draw_detections", "ShowImageCallback", "class_prob_callback"]
 
 _SCENE_HW = (256, 256)
 
@@ -108,3 +112,92 @@ def scene_generator(seed=None, hw=(256, 256), max_objects=3, octaves=3,
         gt = bbx.Boxes(rects, ignore=np.asarray(ignore, np.int32)
                        if ignore else np.empty(0, np.int32))
         yield dict(image=image, groundtruth_boxes=gt)
+
+
+def montage(X, nrows=4, ncols=4, figsize=None):
+    """Grid plot of up to ``nrows * ncols`` sample windows on one gray
+    scale clipped at the 99th percentile; returns the figure."""
+    import matplotlib.pyplot as plt
+
+    X = np.asarray(X)
+    if figsize is None:
+        h, w = X.shape[1:3]
+        figsize = (15, 15 * (h * nrows) / max(w * ncols, 1))
+    fig, axes = plt.subplots(nrows, ncols, figsize=figsize, squeeze=False)
+    top = np.percentile(X, 99)
+    for ax, idx in zip(axes.ravel(), range(nrows * ncols)):
+        ax.set_axis_off()
+        if idx < len(X):
+            ax.imshow(np.squeeze(X[idx]), cmap="gray", vmax=top)
+    plt.show()
+    return fig
+
+
+def _score_palette(scores, vmin, vmax):
+    """(N, 4) uint8 colour of each score by the plasma colormap over
+    [vmin, vmax] (the scores' range where None)."""
+    import matplotlib as mpl
+    from matplotlib import cm
+
+    lo = float(np.min(scores)) if vmin is None else vmin
+    hi = float(np.max(scores)) if vmax is None else vmax
+    norm = mpl.colors.Normalize(vmin=lo, vmax=hi)
+    rgba = cm.plasma(norm(np.asarray(scores, np.float64)))
+    return np.uint8(np.round(255.0 * rgba))
+
+
+def draw_detections(image, dt_boxes, gt_boxes=None, *, dt_thickness=1,
+                    gt_thickness=1, gt_color=(255, 0, 0), vmin=None,
+                    vmax=None):
+    """A copy of ``image`` with the detections drawn coloured by score
+    (low scores first, so strong ones stay on top) and the optional
+    ground truth; returns an RGB array."""
+    import cv2
+
+    canvas = np.asarray(image).copy()
+    if canvas.ndim == 2:
+        canvas = cv2.cvtColor(canvas, cv2.COLOR_GRAY2BGR)
+
+    if gt_boxes is not None:
+        for rect in np.asarray(gt_boxes.get(), np.int32):
+            cv2.rectangle(canvas, tuple(rect[:2]), tuple(rect[2:]),
+                          gt_color, thickness=gt_thickness)
+
+    if dt_boxes is not None and len(dt_boxes):
+        ordered = bbx.sort_by_field(dt_boxes, "scores", descending=False)
+        palette = _score_palette(ordered.get_field("scores"), vmin, vmax)
+        for rect, color in zip(np.asarray(ordered.get(), np.int32), palette):
+            cv2.rectangle(canvas, tuple(rect[:2]), tuple(rect[2:]),
+                          tuple(int(c) for c in color),
+                          thickness=dt_thickness)
+
+    return canvas[..., ::-1]
+
+
+class ShowImageCallback:
+    """Training callback: once the cumulative false positive rate is
+    below ``max_fpr``, run the model on a held-out image and show its
+    detections."""
+
+    def __init__(self, image, gt_boxes, max_fpr=0.05):
+        self.image = image
+        self.gt = gt_boxes
+        self.max_fpr = max_fpr
+
+    def __call__(self, model, learner, stage):
+        import cv2
+
+        if learner.false_positive_rate >= self.max_fpr:
+            return
+        rendered = draw_detections(self.image, model.detect(self.image),
+                                   self.gt, gt_thickness=3,
+                                   gt_color=(255, 0, 0))
+        cv2.imshow("Testing image", rendered)
+        cv2.waitKey(20)
+
+
+def class_prob_callback(model, learner, stage):
+    """Training callback: print the stage's cumulative p0 and p1."""
+    print(f"Stage {stage}:")
+    print(f"\tp0 = {learner.false_positive_rate:.5f}; "
+          f"p1 = {learner.true_positive_rate:.5f}")
