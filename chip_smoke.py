@@ -11,8 +11,10 @@ float32 frames, exact float32 frames, bucketed serving at any frame size
 FPGA trainer, the device-pool trainer (BASELINE config 4b), the
 per-level channel pyramid, the image-space channel canvas (shrink 1 and
 grad_mag, plain torch), CNN-verified detection, verifier training, the
-command-line tools (train, detect) with the native loader and
-single-scale serving (BASELINE config 1, n_scales), and checks and times
+command-line tools (train, detect) with the native loader,
+single-scale serving (BASELINE config 1, n_scales), and all of it over
+several devices and processes (meshes, tile sharding, two ranks over
+torch.distributed), and checks and times
 its nine CUDA kernels
 (planes B1,
 grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
@@ -268,7 +270,36 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
     trace's memcpy events): a stage that does not mine copies at most 256
     KB to the host and 64 KB to the device, and no copy is as large as a
     pool's samples (2048 x 576 float32);
- 8. prints the per-kernel JSON summary (launches from the Model-API path,
+ 8. several devices and processes (phases 8a-8f), each on a mesh of the
+    card repeated four times and, where two or more cards are visible, on
+    meshes of 2 and min(4, count) real cards (with one card it prints
+    that the real-card runs need two or more); every kernel launch
+    counted per phase (once a shard), on real cards each shard's kernels
+    found on its card in a profiler trace:
+    8a. sharded VGA serving (flagship_synth_64, k 128 and 1024, NMS 0.5,
+        8 frames a shard: the golden scenes and their flips): each shard
+        bitwise the unsharded detector, the golden frames the golden's;
+    8b. fast mode over the mesh (B2f, B3f): bitwise the unsharded fast
+        path and the fast golden;
+    8c. tile-sharded 4K (fpga_4k_synth_64, each config-5 golden frame in
+        mesh-size bands of origin rows): hs, alive and n_weak bitwise the
+        unsharded B4 path, boxes=True the golden's counts, n_weak and
+        (12-stage prefix) kept boxes; ms a frame beside the unsharded
+        B4 path;
+    8d. BucketedDetector(mesh) on the bucket golden's four sizes, and
+        detect_and_verify(mesh) on the golden scenes (verified scores
+        within 1e-5 of their scale);
+    8e. train_sharded(mesh) at config 4b (2048 slots a class, 6 stages)
+        and fpga.train(mesh) (2 stages), teacher-forced against their
+        goldens as in 6w; then config 4b's stages/min on the mesh;
+    8f. tests/torch_mp_worker.py as two ranks (NCCL, a card each, with two
+        or more cards; gloo, both on the card, with one), 4 shards a
+        rank: 8 stages of wt.train and sharded detection bitwise the same
+        program in this process on 8 shards, and both teacher-forced
+        equal to tests/data/torch_port_mesh_golden.npz; its wall time;
+    and sharded VGA MP/s (k=128, noise) at 1 shard, 4 shards on one card
+    (overhead, not scaling) and each real-card mesh;
+ 9. prints the per-kernel JSON summary (launches from the Model-API path,
     B5's from the config-5 path, B2f's and B3f's from the fast path, B2d's
     from the exact float path,
     max_abs_err, ms, plain_ms, bound_ms from this run's shapes), then the
@@ -279,6 +310,8 @@ and the script exits nonzero without the ok line.
 It never falls back to the CPU.
 
 Usage: python chip_smoke.py [--trace-dir DIR]   (DIR keeps the traces)
+       python chip_smoke.py --mesh-only   (build, then phases 8a-8f alone,
+                                           no summary)
 """
 
 import argparse
@@ -1161,14 +1194,16 @@ def check_bank_stages(model, banks, scheduled):
                 f"depth {d}'s bank {banks_s[d]}")
 
 
-def device_train_golden_run(wt, dev, g, fpga=False):
+def device_train_golden_run(wt, dev, g, fpga=False, mesh=None):
     """The device-pool trainer on ``dev``, teacher-forced against the
     device-training golden ``g``.  Config 4b (``fpga`` false):
     ``train_sharded`` as bench.py runs it (the prefetched generator, a
     warm call to ``DEVICE_TRAIN_WARM`` stages, then the rest, one
     ``pools`` dict).  ``fpga``: one call at the ``FPGA_TRAIN_*`` settings
     with ``DEVICE_FPGA_TRAIN_KW`` and :func:`bank_masks_fn`, and
-    :func:`check_bank_stages` at the end.
+    :func:`check_bank_stages` at the end.  With ``mesh`` the pools are
+    sharded over it (their shards gathered on ``dev`` for the checks),
+    and the FPGA run is ``fpga.train(mesh=...)`` with the same settings.
 
     Each stage step is wrapped: the pools entering it (v, H, counts, the
     digests of x), the model's mining counters and the step's inputs
@@ -1189,6 +1224,8 @@ def device_train_golden_run(wt, dev, g, fpga=False):
     from waldboost_tpu_torch.parallel import train_step, trainer
     from waldboost_tpu_torch.utils import fake_data_generator
 
+    from waldboost_tpu_torch.parallel.mesh import gather
+
     n_stages = len(g["theta"])
     if fpga:
         shape, opts, depth = FPGA_TRAIN_SHAPE, FPGA_TRAIN_OPTS, \
@@ -1198,6 +1235,10 @@ def device_train_golden_run(wt, dev, g, fpga=False):
         kw = dict(DEVICE_FPGA_TRAIN_KW, feature_masks_fn=bank_masks_fn(
             banks, BankScheduler(int(banks.n_banks)), scheduled))
         lengths = (n_stages,)
+        if mesh is not None:
+            # fpga.train schedules the same banks itself
+            sched = BankScheduler(int(banks.n_banks))
+            scheduled += [sched.schedule(depth) for _ in range(n_stages)]
     else:
         shape, opts, depth = TRAIN_SHAPE, TRAIN_OPTS, TRAIN_DEPTH
         gen = prefetch_iterable(fake_data_generator(seed=TRAIN_SEED),
@@ -1212,7 +1253,8 @@ def device_train_golden_run(wt, dev, g, fpga=False):
     done = []
 
     def host(t):
-        return t.cpu().numpy()
+        return (gather(t, mesh, dev) if isinstance(t, list) else t).cpu() \
+            .numpy()
 
     def forced_fit(s):
         def fit(xf, y, w_split, w_pred, valid, **kwargs):
@@ -1300,8 +1342,16 @@ def device_train_golden_run(wt, dev, g, fpga=False):
     try:
         learner = wt.Learner(alpha=TRAIN_ALPHA, max_depth=depth)
         for length in lengths:
-            trainer.train_sharded(model, gen, learner=learner, length=length,
-                                  **kw)
+            if fpga and mesh is not None:
+                wt.fpga.train(model, gen, learner=learner, length=length,
+                              pool=wt.SamplePool(min_tp=kw["min_tp"],
+                                                 min_fp=kw["min_fp"],
+                                                 seed=kw["seed"]),
+                              max_depth=depth, clip=kw["clip"],
+                              quantizer=kw["quantizer"], mesh=mesh)
+            else:
+                trainer.train_sharded(model, gen, learner=learner,
+                                      length=length, mesh=mesh, **kw)
     finally:
         trainer.make_train_step = real_make
     require(len(done) == len(model) == n_stages,
@@ -2059,6 +2109,498 @@ def n_scales_golden_run(wt, dev, g):
     return dets, counts
 
 
+#: phases 8a-8f: the tests' two-process golden (JAX's tests/mp_worker.py
+#: program over 8 devices, scripts/make_torch_mesh_golden.py), the frames
+#: a shard takes in 8a and 8b, and each launch counter's kernel function
+#: as a profiler trace names it (where a counter has its own function)
+MESH_GOLDEN = os.path.join(ROOT, "tests", "data",
+                           "torch_port_mesh_golden.npz")
+MESH_SHARD_BATCH = 8
+TRACE_KERNELS = {"planes": "planes_kernel", "grad_hist": "grad_hist_kernel",
+                 "cascade": "cascade_kernel", "fpga": "fpga_kernel",
+                 "grad_hist_fast": "grad_hist_float_kernel",
+                 "cascade_fast": "cascade_fast_kernel"}
+#: the two-process run's own time limit (each rank)
+MP_TIMEOUT_S = 300
+
+
+def sync_all():
+    """Wait for every visible card."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def card_meshes(dev):
+    """``[(label, mesh)]`` of phases 8a-8f: ``dev`` repeated four times
+    (on any card machine), then the real cards' meshes of 2 and of
+    ``min(4, count)`` cards where two or more are visible."""
+    import torch
+    from waldboost_tpu_torch.parallel.mesh import make_mesh
+    meshes = [("4 shards on one card", make_mesh(devices=[dev] * 4))]
+    n = torch.cuda.device_count()
+    for k in sorted({2, min(4, n)} if n >= 2 else ()):
+        meshes.append((f"{k} cards", make_mesh(n_devices=k)))
+    if n < 2:
+        print(f"phases 8a-8f: one card visible ({n}): the runs on a mesh of "
+              f"real cards and NCCL need two or more")
+    return meshes
+
+
+def kernel_devices(fn):
+    """``(fn(), {kernel function name: device indices})``: ``fn`` run once
+    under torch.profiler, every card waited for, and the devices each
+    kernel of its trace ran on."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync_all()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    seen = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            seen.setdefault(e["name"], set()).add(
+                int(e.get("args", {}).get("device", -1)))
+    return out, seen
+
+
+def require_on_devices(seen, kernels, mesh, what):
+    """Each of ``kernels`` (launch-counter names) ran on every card of
+    ``mesh`` in the trace ``seen`` (:func:`kernel_devices`)."""
+    want = {d.index for d in mesh.local_devices}
+    for k in kernels:
+        got = set().union(*(v for name, v in seen.items()
+                            if TRACE_KERNELS[k] in name))
+        require(want <= got, f"{what}: {k} ran on devices {sorted(got)}, "
+                f"the mesh's are {sorted(want)}")
+
+
+def mesh_launches(zero, read, fn, kernels, n, what):
+    """``fn()`` with the launch counters set to 0 first; each of
+    ``kernels`` launched ``n`` times, once a shard.  Returns the output
+    and the counts."""
+    zero()
+    out = fn()
+    sync_all()
+    got = read()
+    require(all(got[k] == n for k in kernels),
+            f"{what}: launches {got}, {n} of each of {kernels} expected")
+    return out, got
+
+
+def mesh_blocks_equal(outs, want, mesh, dev, what):
+    """Each output gathered on ``dev`` is ``want``'s (one shard's batch)
+    repeated shard by shard, bitwise."""
+    from waldboost_tpu_torch.parallel.mesh import gather
+    for i, (o, w) in enumerate(zip(outs, want)):
+        g = gather(o, mesh, dev)
+        b = w.shape[0]
+        require(all(bool(g[s * b:(s + 1) * b].eq(w).all())
+                    for s in range(mesh.size)),
+                f"{what}: output {i} differs from the unsharded path")
+
+
+def mesh_serving_run(wt, dev, mesh, label, synth, scene_np, golden, fastg,
+                     zero, read):
+    """Phases 8a and 8b on ``mesh``: the VGA detector (k 128 and 1024, NMS
+    0.5) and the fast one (the fast golden's k and NMS, no n_weak) over
+    ``MESH_SHARD_BATCH`` frames a shard (the golden scenes and their
+    flips), every output bitwise the unsharded detector's on one shard's
+    frames, the first three frames the goldens', each kernel launched
+    once a shard, on the shard's card.  Returns the launches of 8a and
+    8b."""
+    import torch
+    from waldboost_tpu_torch.parallel.mesh import shard_array
+    n = mesh.size
+    scene = torch.from_numpy(scene_np).to(dev)
+    shards = shard_array(np.concatenate([scene_np] * n), mesh)
+    launches = {}
+    runs = (("8a", 128, None, False), ("8a", 1024, None, False),
+            ("8b", int(fastg["k"]), float(fastg["nms_iou"]), True))
+    for phase, k, iou, fast in runs:
+        kw = dict(k=k, nms_iou=0.5 if iou is None else iou, fast=fast,
+                  with_n_weak=not fast)
+        fs, _ = wt.make_batched_detector_boxes(synth, VGA, mesh=mesh, **kw)
+        fu, _ = wt.make_batched_detector_boxes(synth, VGA, device=dev, **kw)
+        kernels = ("planes", "grad_hist_fast", "cascade_fast") if fast \
+            else ("planes", "grad_hist", "cascade")
+        what = f"phase {phase} ({label}, k={k})"
+        outs, got = mesh_launches(zero, read, lambda: fs(shards), kernels, n,
+                                  what)
+        require(not fast or got["grad_hist"] == got["cascade"] == 0,
+                f"{what}: an exact-mode kernel was launched")
+        launches[phase] = got
+        want = fu(scene)
+        mesh_blocks_equal(outs, want, mesh, dev, what)
+        rects, scores, valid, count, _ = (a.cpu().numpy() for a in want)
+        if fast:
+            ref_counts = fastg["uint8_counts"]
+            refs = np.split(fastg["uint8_kept"],
+                            np.cumsum(fastg["uint8_kept_counts"])[:-1])
+        elif k == 1024:
+            ref_counts = golden["raw_counts"]
+            refs = [np.concatenate([r, s[:, None]], 1) for r, s in zip(
+                np.split(golden["kept_rects"],
+                         np.cumsum(golden["kept_counts"])[:-1]),
+                np.split(golden["kept_scores"],
+                         np.cumsum(golden["kept_counts"])[:-1]))]
+        else:
+            continue
+        require(np.array_equal(count[:len(ref_counts)], ref_counts)
+                and all(np.array_equal(sorted_rows(rects[b][valid[b]],
+                                                   scores[b][valid[b]]),
+                                       sorted_rows(ref))
+                        for b, ref in enumerate(refs)),
+                f"{what}: the golden frames' boxes differ from JAX's")
+        if any(d.index != dev.index for d in mesh.local_devices):
+            _, seen = kernel_devices(lambda: fs(shards))
+            require_on_devices(seen, kernels, mesh, what)
+    print(f"phases 8a, 8b ({label}): {n} shards of {MESH_SHARD_BATCH} VGA "
+          f"frames, k 128 and 1024 and fast mode, bitwise the unsharded "
+          f"path and the goldens; launches 8a {launches['8a']}, 8b "
+          f"{launches['8b']}")
+    return launches
+
+
+def mesh_rate(wt, dev, mesh, synth, reps=10):
+    """Sharded VGA MP/s (k=128, NMS 0.5) over ``MESH_SHARD_BATCH`` noise
+    frames a shard, the shards already on their cards; every card is
+    waited for at the end of each batch."""
+    from waldboost_tpu_torch.parallel.mesh import shard_array
+    rng = np.random.RandomState(21)
+    frames = rng.randint(0, 256, (MESH_SHARD_BATCH * mesh.size,) + VGA
+                         ).astype(np.uint8)
+    shards = shard_array(frames, mesh)
+    fs, _ = wt.make_batched_detector_boxes(synth, VGA, k=128, nms_iou=0.5,
+                                           mesh=mesh)
+    for _ in range(2):
+        fs(shards)
+    sync_all()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fs(shards)
+        sync_all()
+    dt = (time.perf_counter() - t) / reps
+    return frames.size / 1e6 / dt, dt * 1e3
+
+
+def tile_run(wt, dev, mesh, label, g5, models5, zero, read, reps=10):
+    """Phase 8c on ``mesh``: each config-5 golden frame (3840 x 2160) of
+    fpga_4k_synth_64 in ``mesh.size`` bands: hs, alive and n_weak bitwise
+    the unsharded B4 path's; with boxes the full cascade's and its
+    prefix's counts and n_weak, and the prefix's kept boxes, the
+    golden's; B1 and B5 launched once a frame, B4 once a band.  Returns
+    the launches and ms a frame of the tile-sharded and the unsharded
+    response."""
+    import torch
+    from waldboost_tpu_torch.parallel.detect import \
+        make_tile_sharded_detector
+    name = FPGA_MODELS[0]
+    model = models5[name]
+    hw, frames = fpga_frames(g5)
+    k, iou = int(g5["k"]), float(g5["nms_iou"])
+    P = int(g5[name + "_prefix_stages"])
+    prefix = wt.model_from_stages(model.shape, model.channel_opts,
+                                  model.stages[:P], model.theta[:P],
+                                  device=dev)
+    ft, _ = make_tile_sharded_detector(model, hw, mesh)
+    fu, _ = wt.make_batched_detector(model, hw, device=dev)
+    boxed = {"full": make_tile_sharded_detector(model, hw, mesh, boxes=True,
+                                                k=k, nms_iou=iou)[0],
+             "prefix": make_tile_sharded_detector(prefix, hw, mesh,
+                                                  boxes=True, k=k,
+                                                  nms_iou=iou)[0]}
+    what = f"phase 8c ({label})"
+    images = [torch.from_numpy(f).to(dev) for f in frames]
+    launches = None
+    for b, img in enumerate(images):
+        (hs, alive, nw), got = mesh_launches(
+            zero, read, lambda: ft(img), ("cascade_response",), mesh.size,
+            what)
+        require(got["planes"] == got["fpga"] == 1,
+                f"{what}: the canvas took {got}")
+        launches = launches or got
+        hu, au, nu = fu(img[None])
+        require(torch.equal(hs, hu[0]) and torch.equal(alive, au[0])
+                and int(nw) == int(nu[0]),
+                f"{what} frame {b}: the bands differ from the unsharded B4")
+        for key, fb in boxed.items():
+            rects, scores, valid, count, bnw = (
+                a.cpu().numpy() for a in fb(img))
+            require(int(count) == int(g5[f"{name}_{key}_count"][b])
+                    and int(bnw) == int(g5[f"{name}_{key}_n_weak"][b]),
+                    f"{what} frame {b}: the {key} cascade's count or n_weak "
+                    f"differs from the golden's")
+            if key == "prefix":
+                ref = golden_split(g5, name + "_prefix_kept_host")[b]
+                require(np.array_equal(sorted_rows(rects[valid],
+                                                   scores[valid]),
+                                       sorted_rows(ref)),
+                        f"{what} frame {b}: the prefix's kept boxes differ "
+                        f"from the golden's")
+    if any(d.index != dev.index for d in mesh.local_devices):
+        _, seen = kernel_devices(lambda: ft(images[0]))
+        require_on_devices(seen, ("cascade",), mesh, what)
+    times = {}
+    for key, fn in (("tile", lambda: ft(images[0])),
+                    ("unsharded", lambda: fu(images[0][None]))):
+        fn()
+        sync_all()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            sync_all()
+        times[key] = (time.perf_counter() - t) / reps * 1e3
+    print(f"phase 8c ({label}): {len(images)} 4K frames in {mesh.size} "
+          f"bands bitwise the unsharded B4 and the golden's boxes; "
+          f"launches {launches}")
+    return launches, times
+
+
+def bucket_verifier_run(wt, dev, mesh, label, synth, bgold, cgold, scenes,
+                        zero, read):
+    """Phase 8d on ``mesh``: BucketedDetector over the bucket golden's four
+    sizes (each group padded to the mesh with blank frames) equal to the
+    golden's kept boxes; detect_and_verify over the golden scenes: boxes
+    and cascade scores bitwise the canvas golden's, verified scores
+    within VERIFIER_TOL of their scale.  Returns the bucket's launches and
+    the largest verified-score error."""
+    from waldboost_tpu_torch.parallel.detect import BucketedDetector
+    bframes = [bgold[f"frame_{h}x{w}"] for h, w in BUCKET_SIZES]
+    bdet = BucketedDetector(synth, bucket=int(bgold["bucket"]),
+                            k=int(bgold["k"]), nms_iou=float(bgold["nms_iou"]),
+                            mesh=mesh)
+    zero()
+    out = bdet.detect_many(bframes)
+    sync_all()
+    launches = read()
+    what = f"phase 8d ({label})"
+    require(all(launches[k] >= mesh.size
+                for k in ("planes", "grad_hist", "cascade")),
+            f"{what}: the bucket's launches {launches}")
+    for (h, w), bx in zip(BUCKET_SIZES, out):
+        want = bgold[f"kept_{h}x{w}"]
+        require(np.array_equal(box_rows(bx, "scores"),
+                               sorted_rows(want[:, :4], want[:, 4])),
+                f"{what} {h}x{w}: kept boxes differ from the JAX golden")
+    module, state = golden_verifier(wt, cgold)
+    worst = 0.0
+    for i, scene in enumerate(scenes):
+        dv = wt.verification.detect_and_verify(scene, synth, module, state,
+                                               mesh=mesh)
+        rects, scores, casc = golden_rows(cgold, "ver", i, "rects", "scores",
+                                          "cascade_scores")
+        require(np.array_equal(dv.get(), rects) and np.array_equal(
+            dv.get_field("cascade_scores"), casc),
+            f"{what} frame {i}: verified boxes or cascade scores differ")
+        err, tol = verifier_close(dv.get_field("scores"), scores)
+        require(err <= tol, f"{what} frame {i}: verified scores {err} from "
+                f"the golden (tolerance {tol})")
+        worst = max(worst, err)
+    print(f"phase 8d ({label}): bucket golden equal at {len(out)} sizes, "
+          f"launches {launches}; detect_and_verify on {len(scenes)} scenes "
+          f"within {worst:.3g} of JAX's")
+    return launches, worst
+
+
+def mesh_train_run(wt, dev, mesh, label, zero, read):
+    """Phase 8e on ``mesh``: config 4b's ``train_sharded`` (2048 slots a
+    class, 6 stages) and ``fpga.train`` (2 stages) teacher-forced against
+    their goldens, bitwise; then config 4b untouched, a warm call to 2
+    stages and 6 timed.  Returns the launches and the stages/min."""
+    from waldboost_tpu_torch.io import prefetch_iterable
+    from waldboost_tpu_torch.parallel.trainer import train_sharded
+    from waldboost_tpu_torch.utils import fake_data_generator
+    what = f"phase 8e ({label})"
+    zero()
+    model, _ = device_train_golden_run(wt, dev, np.load(DEVICE_TRAIN_GOLDEN),
+                                       mesh=mesh)
+    sync_all()
+    launches = read()
+    require(all(launches[k] > 0 for k in ("planes", "grad_hist",
+                                          "cascade_generic")),
+            f"{what}: config 4b's mining did not run B1, B2 and B6")
+    zero()
+    fmodel, _ = device_train_golden_run(
+        wt, dev, np.load(DEVICE_FPGA_TRAIN_GOLDEN), fpga=True, mesh=mesh)
+    sync_all()
+    flaunch = read()
+    require(all(flaunch[k] > 0 for k in ("planes", "fpga",
+                                         "cascade_generic")),
+            f"{what}: fpga.train's mining did not run B1, B5 and B6")
+    model = wt.Model(TRAIN_SHAPE, TRAIN_OPTS, device=dev)
+    gen = prefetch_iterable(fake_data_generator(seed=TRAIN_SEED),
+                            depth=DEVICE_TRAIN_PREFETCH)
+    learner, pools = wt.Learner(alpha=TRAIN_ALPHA, max_depth=TRAIN_DEPTH), {}
+    kw = dict(learner=learner, min_tp=TRAIN_POOL, min_fp=TRAIN_POOL,
+              seed=DEVICE_TRAIN_SEED, pools=pools, mesh=mesh)
+    train_sharded(model, gen, length=DEVICE_TRAIN_WARM, **kw)
+    sync_all()
+    t = time.perf_counter()
+    train_sharded(model, gen, length=DEVICE_TRAIN_WARM + 6, **kw)
+    sync_all()
+    rate = 6 / (time.perf_counter() - t) * 60.0
+    require(len(pools["fp"].x) == mesh.n_local,
+            f"{what}: the pools are not sharded over the mesh")
+    print(f"phase 8e ({label}): config 4b 6 stages and fpga.train 2 stages "
+          f"equal to JAX's; launches {launches}, FPGA {flaunch}")
+    return launches, flaunch, rate
+
+
+def mesh_golden_diff(got, g):
+    """None when the program's teacher-forced outputs ``got`` are the
+    mesh golden's (tests/torch_mp_worker.py: stages bitwise, thetas as
+    float32, losses within 1e-6, counts and kept boxes bitwise; on the
+    scene frames the host NMS of the golden's candidates), else what
+    differs.  The port's host NMS is the JAX package's, copied."""
+    import waldboost_tpu_torch as wt
+    for t in range(len(g["theta"])):
+        for k in ("feature", "threshold", "left", "right", "prediction"):
+            if not np.array_equal(got[f"{k}{t}"], g[f"{k}{t}"]):
+                return f"stage {t} {k}"
+    if not np.array_equal(got["theta"].astype(np.float32),
+                          g["theta"].astype(np.float32)):
+        return "theta"
+    if not np.allclose(got["losses"], g["losses"], rtol=1e-6, atol=0):
+        return "losses"
+    for prefix in ("", "scene_"):
+        if not np.array_equal(got[prefix + "count"], g[prefix + "count"]):
+            return prefix + "count"
+        r, s, v = (got[prefix + k] for k in ("rects", "scores", "valid"))
+        gr, gs, gv = (g[prefix + k] for k in ("rects", "scores", "valid"))
+        for b in range(len(v)):
+            want = sorted_rows(gr[b][gv[b]], gs[b][gv[b]])
+            if prefix:
+                kept = wt.bbx.non_max_suppression(
+                    wt.Boxes(gr[b][gv[b]], scores=gs[b][gv[b]]),
+                    iou_threshold=0.5)
+                want = box_rows(kept, "scores")
+            if not np.array_equal(sorted_rows(r[b][v[b]], s[b][v[b]]),
+                                  want):
+                return f"{prefix}frame {b}"
+    return None
+
+
+def two_process_run(dev, tmp):
+    """Phase 8f: tests/torch_mp_worker.py as two ranks (NCCL, one card a
+    rank, with two or more cards; else gloo, both on ``dev``), 4 shards a
+    rank, free and teacher-forced with the mesh golden; the same program
+    in this process over 8 shards of ``dev``.  Free: the two layouts
+    bitwise (losses within 1e-6); forced: both the golden's.  Returns the
+    two-process wall time (s) and the backend."""
+    import socket
+
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_mp_worker import run_program
+    from waldboost_tpu_torch.parallel.mesh import make_mesh
+    nccl = torch.cuda.device_count() >= 2
+    backend, device = ("nccl", "cuda") if nccl else ("gloo", str(dev))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(tmp, "mp.npz")
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tests", "torch_mp_worker.py"),
+         "--rank", str(r), "--world", "2", "--backend", backend,
+         "--init", f"tcp://localhost:{port}", "--device", device,
+         "--local-devices", "4", "--golden", MESH_GOLDEN, "--out", out],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"phase 8f: rank {r} exited "
+                f"{p.returncode}:\n{log[-3000:]}")
+    sp = os.path.join(tmp, "sp.npz")
+    mesh = make_mesh(devices=[dev] * 8)
+    g = np.load(MESH_GOLDEN)
+    run_program(mesh, sp)
+    run_program(mesh, sp + ".forced.npz", forced=g)
+    mp, one = np.load(out), np.load(sp)
+    require(set(mp.files) == set(one.files)
+            and np.allclose(mp["losses"], one["losses"], rtol=1e-6, atol=0)
+            and all(np.array_equal(mp[f], one[f]) for f in mp.files
+                    if f != "losses"),
+            "phase 8f: two processes differ from one process on 8 shards")
+    for name, path in (("two processes", out), ("one process", sp)):
+        diff = mesh_golden_diff(np.load(path + ".forced.npz"), g)
+        require(diff is None, f"phase 8f: {name}, teacher-forced, differ "
+                f"from the mesh golden ({diff})")
+    print(f"phase 8f: two ranks over {backend} ({device}, 4 shards each) "
+          f"bitwise one process on 8 shards; both teacher-forced equal to "
+          f"the golden; scene survivors {one['scene_count'].tolist()}")
+    return wall, backend
+
+
+def mesh_phases(wt, dev, card, metric, zero, read, synth, scene_np, golden,
+                fastg):
+    """Phases 8a-8f on every mesh of :func:`card_meshes`; prints the rates
+    beside ``card``.  Returns the launches of each kernel per mesh path
+    (on the repeated-card mesh)."""
+    from waldboost_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    meshes = card_meshes(dev)
+    models5 = {name: wt.load(os.path.join(ROOT, "models", name + ".pb"),
+                             device=dev) for name in FPGA_MODELS[:1]}
+    g5, bgold, cgold = (np.load(p) for p in (FPGA_GOLDEN, BUCKET_GOLDEN,
+                                            CANVAS_GOLDEN))
+    scenes = canvas_golden_frames(cgold)[:int(cgold["n_scenes"])]
+    per_path = {}
+    for label, mesh in meshes:
+        sv = mesh_serving_run(wt, dev, mesh, label, synth, scene_np, golden,
+                              fastg, zero, read)
+        tl, tms = tile_run(wt, dev, mesh, label, g5, models5, zero, read)
+        bl, _ = bucket_verifier_run(wt, dev, mesh, label, synth, bgold,
+                                    cgold, scenes, zero, read)
+        trl, ftl, rate = mesh_train_run(wt, dev, mesh, label, zero, read)
+        tag = label.replace(" ", "_")
+        metric(f"tile_sharded_4k_{tag}_ms_per_frame", tms["tile"], "ms")
+        metric(f"unsharded_4k_b4_ms_per_frame", tms["unsharded"], "ms")
+        metric(f"train_config4b_{tag}_stages_per_min", rate, "stages/min")
+        print(f"phase 8c ({label}, {card}): tile-sharded 4K "
+              f"{tms['tile']:.4f} ms a frame, the unsharded B4 path "
+              f"{tms['unsharded']:.4f} ms; phase 8e: config 4b {rate:.1f} "
+              f"stages/min on the mesh")
+        if not per_path:
+            per_path = {"8a": sv["8a"], "8b": sv["8b"], "8c": tl, "8d": bl,
+                        "8e": trl, "8e_fpga": ftl}
+    rate_meshes = [("1 shard", make_mesh(devices=[dev]))] + meshes
+    for label, mesh in rate_meshes:
+        mps, ms = mesh_rate(wt, dev, mesh, synth)
+        kind = ("overhead, not scaling: every shard on one card"
+                if len({d.index for d in mesh.devices}) == 1
+                and mesh.size > 1 else "scaling")
+        metric(f"sharded_vga_{label.replace(' ', '_')}_mp_per_s", mps, "MP/s")
+        print(f"phase 8a rate ({label}, {card}): {mps:.1f} MP/s, "
+              f"{ms:.4f} ms a batch of {MESH_SHARD_BATCH * mesh.size} "
+              f"frames ({kind})")
+    with tempfile.TemporaryDirectory() as tmp:
+        wall, backend = two_process_run(dev, tmp)
+    metric(f"two_process_{backend}_wall_s", wall, "s")
+    print(f"phase 8f ({card}): two-process run {wall:.1f} s wall over "
+          f"{backend}")
+    print(f"phases 8a-8f: {time.perf_counter() - t0:.1f} s")
+    return per_path
+
+
 def main():
     import importlib
 
@@ -2067,6 +2609,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trace-dir", default=None,
                     help="keep the profiler traces (Chrome JSON) here")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build, then run phases 8a-8f alone (no summary)")
     args = ap.parse_args()
     started = time.perf_counter()
 
@@ -2141,6 +2685,19 @@ def main():
     require(scene_np.shape == (BATCH,) + VGA,
             "scene batch must hold BATCH frames")
     scene = torch.from_numpy(scene_np).to(dev)
+
+    def metric(name, value, unit):
+        print(json.dumps({"metric": name, "value": value, "unit": unit,
+                          "device": device_name,
+                          "power_limit": power_limit}))
+
+    if args.mesh_only:
+        mesh_phases(wt, dev, card, metric, zero_counters, read_counters,
+                    synth, scene_np, golden, np.load(FAST_GOLDEN))
+        print(f"chip_smoke --mesh-only wall time: "
+              f"{time.perf_counter() - started:.1f} s ({card}); phases 1 "
+              f"and 8a-8f passed, the others were not run")
+        return
 
     # -- phase 2: each kernel against its plain version at VGA batch 8 -----
     det, packed = wt.make_batched_detector_boxes(synth, VGA, k=1024,
@@ -3237,11 +3794,6 @@ def main():
     print(f"phase 7e profiling.Meter ({card}):\n{meter.report()}")
 
     # -- phase 5: timing and the host --------------------------------------
-    def metric(name, value, unit):
-        print(json.dumps({"metric": name, "value": value, "unit": unit,
-                          "device": device_name,
-                          "power_limit": power_limit}))
-
     timing = {}
     ops_synth = synth._operands(dev)
     casc_synth = tables["flagship_synth_64"][0]
@@ -3916,6 +4468,13 @@ def main():
           f"launch")
     if args.trace_dir is None:
         os.rmdir(trace_dir)
+
+    # -- phases 8a-8f: several devices and processes ------------------------
+    mesh_path_launches = mesh_phases(wt, dev, card, metric, zero_counters,
+                                     read_counters, synth, scene_np, golden,
+                                     fastg)
+    print(f"mesh path launches (4 shards on one card): "
+          f"{json.dumps(mesh_path_launches)}")
 
     print(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s "
           f"({card})")

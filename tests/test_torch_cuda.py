@@ -788,3 +788,44 @@ def test_verifier_train_on_card(cuda):
             for _ in range(2))
     assert all(torch.equal(c[k], d[k]) for k in c)
     assert not all(torch.equal(c[k], a[k]) for k in c)
+
+
+def test_mesh_on_card(cuda):
+    """A mesh of the current card repeated four times, and of the real
+    cards when two or more are visible: sharded VGA serving (8 frames a
+    shard) and a tile-sharded frame bitwise the unsharded paths, and
+    config 4b's device-pool trainer over the mesh bitwise its golden
+    (chip_smoke.py's phases 8a, 8c and 8e at a smaller size)."""
+    from waldboost_tpu_torch.parallel.detect import \
+        make_tile_sharded_detector
+    from waldboost_tpu_torch.parallel.mesh import (gather, make_mesh,
+                                                   shard_array)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    meshes = [make_mesh(devices=[dev] * 4)]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(make_mesh(n_devices=min(4, torch.cuda.device_count())))
+    model = wt.load(FLAGSHIP, device=dev)
+    hw = (480, 640)
+    frames = _frames(8, hw, seed=3)
+    fu, _ = wt.make_batched_detector_boxes(model, hw, k=256, nms_iou=0.5,
+                                           device=dev)
+    want = fu(frames.to(dev))
+    fr, _ = wt.make_batched_detector(model, hw, device=dev)
+    hu, au, nu = fr(frames[:1].to(dev))
+    for mesh in meshes:
+        fs, _ = wt.make_batched_detector_boxes(model, hw, k=256, nms_iou=0.5,
+                                               mesh=mesh)
+        outs = fs(shard_array(torch.cat([frames] * mesh.size), mesh))
+        for o, w in zip(outs, want):
+            assert [s.device for s in o] == list(mesh.local_devices)
+            g = gather(o, mesh, dev)
+            for s in range(mesh.size):
+                assert torch.equal(g[8 * s:8 * (s + 1)], w)
+        ft, _ = make_tile_sharded_detector(model, hw, mesh)
+        hs, alive, nw = ft(frames[0])
+        assert torch.equal(hs, hu[0]) and torch.equal(alive, au[0])
+        assert int(nw) == int(nu[0])
+        trained, _ = device_train_golden_run(
+            wt, dev, np.load(DEVICE_TRAIN_GOLDEN), mesh=mesh)
+        assert len(trained) == 6

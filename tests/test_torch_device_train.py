@@ -28,6 +28,7 @@ import waldboost_tpu_torch as wt
 from waldboost_tpu_torch.ops.fit import TreeFitResult
 from waldboost_tpu_torch.parallel import DevicePool, make_train_step
 from waldboost_tpu_torch.parallel import train_step as tts
+from waldboost_tpu_torch.parallel.mesh import make_mesh
 from waldboost_tpu_torch.parallel import trainer as ttrainer
 from waldboost_tpu_torch.parallel.train_step import tree_predict_device
 from waldboost_tpu_torch.utils import fake_data_generator as tgen
@@ -315,12 +316,15 @@ def test_device_fpga_train_golden_on_cpu():
 
 def test_sharded_options_raise():
     model = wt.Model((8, 8, 4), OPTS, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ttrainer.train_sharded(model, iter(()), mesh=object(), length=2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_train_step(mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        DevicePool(256, 16, device="cpu", mesh=object())
+    # a mesh whose size does not divide the pools' slots or the samples
+    mesh = make_mesh(devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="mesh size"):
+        make_train_step(mesh=mesh)(*(torch.zeros(256, 4) for _ in range(6)),
+                                   0.5, 0.5, 0.0, False)
+    with pytest.raises(ValueError, match="mesh size"):
+        DevicePool(300, 16, mesh=mesh)
+    pool = DevicePool(300, 16, mesh=make_mesh(devices=["cpu"] * 2))
+    assert pool.capacity == 512 and [len(s) for s in pool.x] == [256] * 2
     # prewarm_length is accepted; a model already long enough returns at
     # once with the learner it was given
     learner = wt.Learner()

@@ -21,8 +21,6 @@ import waldboost_tpu_torch as wt
 from waldboost_tpu_torch import channels as tch
 from waldboost_tpu_torch import model_io, packing, polyphase
 from waldboost_tpu_torch.ops.exact import axis_taps_exact
-from waldboost_tpu_torch.parallel.detect import (BucketedDetector,
-                                                 make_bucket_detector_boxes)
 
 from torch_port_util import make_model_pair
 
@@ -189,11 +187,9 @@ def test_port_import_leaves_jax_out():
 
 def test_unported_options_raise():
     _, tm = make_model_pair(n_stages=2)
-    for kwargs, item in ((dict(mesh=object()), "A11"),
-                         (dict(two_phase=True), "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            wt.make_batched_detector_boxes(tm, (48, 64), device="cpu",
-                                           **kwargs)
+    with pytest.raises(NotImplementedError, match="A13"):
+        wt.make_batched_detector_boxes(tm, (48, 64), device="cpu",
+                                       two_phase=True)
     with pytest.raises(ValueError):
         wt.make_batched_detector_boxes(tm, (48, 64), n_scales=0,
                                        device="cpu")
@@ -204,13 +200,6 @@ def test_unported_options_raise():
         fn(torch.zeros((1, 40, 64), dtype=torch.uint8))
     with pytest.raises(ValueError):
         fn(torch.zeros((1, 48, 64), dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="A11"):
-        BucketedDetector(tm, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_bucket_detector_boxes(tm, (64, 64), device="cpu", mesh=object())
-    for train in (wt.train, wt.fpga.train):
-        with pytest.raises(NotImplementedError, match="A11"):
-            train(tm, iter(()), mesh=object(), length=3)
 
 
 def test_boxes_add_field_matches_jax():

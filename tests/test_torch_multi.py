@@ -13,6 +13,7 @@ import waldboost_tpu as wb
 from waldboost_tpu.parallel import detect as jdet
 
 import waldboost_tpu_torch as wt
+from waldboost_tpu_torch.parallel.mesh import gather, make_mesh
 
 from torch_port_util import make_model_pair, noise_frames, sorted_rows
 
@@ -89,8 +90,12 @@ def test_detect_batch_and_batched_detector_match_jax():
         for a, b in zip(ft(torch.from_numpy(images)),
                         fj(jnp.asarray(images))):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    with pytest.raises(NotImplementedError, match="A11"):
-        wt.make_batched_detector(tm, (48, 64), device="cpu", mesh=object())
+    # over a mesh of 3 shards: the gathered maps are the same bits
+    mesh = make_mesh(devices=["cpu"] * 3)
+    fm, _ = wt.make_batched_detector(tm, (48, 64), n_stages_cap=cap,
+                                     mesh=mesh)
+    for a, b in zip(fm(images), fj(jnp.asarray(images))):
+        np.testing.assert_array_equal(gather(a, mesh).numpy(), np.asarray(b))
 
 
 def test_multi_model_errors():

@@ -34,7 +34,6 @@ from . import fpga, groundtruth, testing, utils, verification  # noqa: F401
 from .boxes import Boxes
 from .channels import _normalize_opts, channel_pyramid
 from .convert import model_from_stages
-from .device import no_mesh as _no_mesh
 from .model import Model, detect_multi, load
 from .parallel.detect import (detect_batch, make_batched_detector,
                               make_batched_detector_boxes,
@@ -138,7 +137,10 @@ def train(model: Model,
     exp-loss weights, fit the SPRT rejection threshold, run the callbacks.
     ``training_images`` is an iterable of dicts with ``"image"`` ((H, W)
     uint8) and ``"groundtruth_boxes"`` (:class:`Boxes`, optional 'ignore'
-    field).  ``mesh`` (sharded training) is not ported yet.
+    field).  With ``mesh`` (:mod:`.parallel.mesh`) training runs the
+    device-pool path sharded over its devices
+    (:func:`.parallel.trainer.train_sharded`), its quotas, seed and
+    labeling options taken from ``pool``.
 
     ``prefetch``: depth of the background-thread record prefetcher around
     ``training_images`` (0 disables it; sized iterables skip it).  Record
@@ -146,10 +148,14 @@ def train(model: Model,
     consumed are handed back to the next ``train`` call on the same
     iterable, so a resumed run sees the frames it would have seen.
     """
-    _no_mesh(mesh, "training")
-    return _train_loop(model, training_images, learner, pool, length,
-                       theta_schedule, callbacks,
-                       logger or logging.getLogger("Training"), prefetch)
+    logger = logger or logging.getLogger("Training")
+    if mesh is not None:
+        return _train_loop(training_images, prefetch, lambda images: (
+            _train_mesh(model, images, learner, pool, length, theta_schedule,
+                        callbacks, logger, mesh)))
+    return _train_loop(training_images, prefetch, lambda images: (
+        _train_body(model, images, learner, pool, length, theta_schedule,
+                    callbacks, logger)))
 
 
 def _no_rejection(stage, fpr) -> float:
@@ -157,10 +163,28 @@ def _no_rejection(stage, fpr) -> float:
     return float(-np.inf)
 
 
-def _train_loop(model, training_images, learner, pool, length,
-                theta_schedule, callbacks, logger, prefetch,
-                stage_args=None):
-    """:func:`_train_body` behind ``train``'s record prefetcher, with the
+def _train_mesh(model, training_images, learner, pool, length,
+                theta_schedule, callbacks, logger, mesh, **step_options):
+    """``train``'s mesh path: :func:`.parallel.trainer.train_sharded` with
+    ``pool``'s quotas, seed, mining batch and labeling options, the
+    learner's tree depth and ``step_options`` (``fpga.train``'s)."""
+    from .parallel.trainer import train_sharded
+    pool_kwargs = {}
+    if pool is not None:
+        pool_kwargs = dict(min_tp=pool.min_tp, min_fp=pool.min_fp,
+                           seed=pool.seed, mine_batch=pool.mine_batch,
+                           **pool.label_boxes_args)
+    learner = learner or Learner(alpha=0.2, max_depth=2)
+    step_options.setdefault("max_depth",
+                            int(learner.wh_args.get("max_depth", 2)))
+    return train_sharded(model, training_images, mesh=mesh, learner=learner,
+                         length=length, theta_schedule=theta_schedule,
+                         callbacks=callbacks, logger=logger, **pool_kwargs,
+                         **step_options)
+
+
+def _train_loop(training_images, prefetch, body):
+    """``body(records)`` behind ``train``'s record prefetcher, with the
     residue hand-back; shared by ``train`` and ``fpga.train``."""
     prefetcher = None
     source = training_images
@@ -173,8 +197,7 @@ def _train_loop(model, training_images, learner, pool, length,
         prefetcher = Prefetcher(feed, depth=prefetch)
         training_images = iter(prefetcher)
     try:
-        return _train_body(model, training_images, learner, pool, length,
-                           theta_schedule, callbacks, logger, stage_args)
+        return body(training_images)
     finally:
         if prefetcher is not None:
             leftover = prefetcher.stop()

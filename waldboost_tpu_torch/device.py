@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["no_mesh", "resolve_device"]
+__all__ = ["resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -24,10 +24,3 @@ def resolve_device(device=None) -> torch.device:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
 
-
-def no_mesh(mesh, what: str) -> None:
-    """Raise unless ``mesh`` is None: ``what`` over a mesh of devices is
-    ROADMAP item A11."""
-    if mesh is not None:
-        raise NotImplementedError(f"{what} over a mesh is not ported yet "
-                                  f"(ROADMAP item A11)")

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import logging
 
-from ..device import no_mesh
+import numpy as np
+
 from ..samples import SamplePool
 from ..training import DTree as BaseDTree, Learner
 
@@ -60,16 +61,40 @@ def train(model,
 
     ``bank_pattern_shape``: window pixels are tiled into this many banks;
     each stage's tree reads one scheduled bank per depth.  ``quantizer``:
-    responses become integers when multiplied by it.  ``mesh`` (sharded
-    training) is not ported yet.
-    """
-    from .. import _train_loop
+    responses become integers when multiplied by it.
 
-    no_mesh(mesh, "training")
+    With ``mesh``, training runs the sharded device-pool path
+    (:func:`waldboost_tpu_torch.parallel.trainer.train_sharded`) with the
+    bank restriction as per-stage feature masks and the clip, quantize
+    and integer-threshold transforms applied in-step.
+    """
+    from .. import _train_body, _train_loop, _train_mesh
+
     log = logger_ or logging.getLogger("WaldBoost/FPGA")
 
     if len(model) >= length:
         return learner
+
+    if mesh is not None:
+        F = int(np.prod(model.shape))
+        masks_fn = None
+        if bank_pattern_shape is not None:
+            banks = PixelBanks(model.shape, bank_pattern_shape)
+            scheduler = BankScheduler(int(np.prod(bank_pattern_shape)))
+
+            def masks_fn(stage):
+                mask = np.zeros((max_depth, F), bool)
+                for d, b in enumerate(scheduler.schedule(max_depth)):
+                    mask[d, banks.bank_pixels(b)] = True
+                return mask
+
+        learner = learner or Learner(alpha=0.2, wh=DTree, clip=clip,
+                                     quantizer=quantizer, max_depth=max_depth)
+        return _train_loop(training_images, prefetch, lambda images: (
+            _train_mesh(model, images, learner, pool, length, theta_schedule,
+                        callbacks, log, mesh, max_depth=max_depth,
+                        feature_masks_fn=masks_fn, clip=clip,
+                        quantizer=quantizer, integer_thresholds=True)))
 
     learner = learner or Learner(wh=DTree, clip=clip, quantizer=quantizer)
     if learner.wh is not DTree:
@@ -86,5 +111,6 @@ def train(model,
             return dict(allowed_features=[
                 banks.bank_pixels(b) for b in scheduler.schedule(max_depth)])
 
-    return _train_loop(model, training_images, learner, pool, length,
-                       theta_schedule, callbacks, log, prefetch, stage_args)
+    return _train_loop(training_images, prefetch, lambda images: (
+        _train_body(model, images, learner, pool, length, theta_schedule,
+                    callbacks, log, stage_args)))

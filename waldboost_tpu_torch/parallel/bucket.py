@@ -50,14 +50,14 @@ from ..boxes import Boxes, non_max_suppression
 from ..canvas import (FAST_FLOAT, ChannelCanvas, WindowGrid, as_image,
                       serving_opts, span)
 from ..channels import pyramid_plan, resolve_channel_function
-from ..device import no_mesh
 from ..model import Model
 from ..mining import gather_windows
 from ..ops.cascade_static import cascade_masked
 from ..ops.nms import extract_detections, nms
 from ..packing import PackedPyramidPlan, _packed_plan_cached
 from ..verification import detect_and_verify, get_verifier_program
-from .detect import empty_results, extract_boxes
+from .detect import MeshDetector, empty_results, extract_boxes
+from .mesh import gather
 
 __all__ = ["BucketedDetector", "BucketProgram", "BucketSize",
            "make_bucket_detector_boxes", "bucket_geometry"]
@@ -153,7 +153,9 @@ class BucketProgram:
         return BucketSize(packed, real_hw, self.window, smooth, cf,
                           self.device, self.fast, self.fast_float)
 
-    def __call__(self, images: torch.Tensor, geom: BucketSize):
+    def launch(self, images: torch.Tensor, geom: BucketSize):
+        """The canvas and the walk of a batch, queued on the device: what
+        :meth:`finish` takes."""
         Hb, Wb = self.bucket_hw
         if not isinstance(images, torch.Tensor) or images.dim() != 3 \
                 or tuple(images.shape[1:]) != (Hb, Wb) \
@@ -165,7 +167,7 @@ class BucketProgram:
                              f"{self.device}")
         B = images.shape[0]
         if not geom.packed.levels:
-            return empty_results(B, self.device)
+            return B, geom
         h, w = geom.real_hw
         crop = images[:, :h, :w]
         if self.fast and crop.is_floating_point():
@@ -176,8 +178,15 @@ class BucketProgram:
             if self.fast:  # B2's exact values, walked in bfloat16
                 canvas = canvas.to(torch.bfloat16)
         with span("wb.cascade"):
-            masked, n_weak, count = cascade_masked(canvas, geom.grid.valid,
-                                                   self.cascade_ops)
+            return geom, exact, cascade_masked(canvas, geom.grid.valid,
+                                               self.cascade_ops)
+
+    def finish(self, launched):
+        """The outputs of a launched batch: extraction, the verifier and
+        NMS, which wait for the device."""
+        if isinstance(launched[0], int):
+            return empty_results(launched[0], self.device)
+        geom, exact, (masked, n_weak, count) = launched
         if not self.with_n_weak:
             n_weak = torch.zeros_like(n_weak)
         if self.verify is None:
@@ -199,6 +208,23 @@ class BucketProgram:
                 keep = keep & nms(rects, scores, keep, float(self.nms_iou))
         return rects, scores, keep, count, n_weak, casc
 
+    def __call__(self, images: torch.Tensor, geom: BucketSize):
+        return self.finish(self.launch(images, geom))
+
+
+class MeshBucketProgram(MeshDetector):
+    """A :class:`BucketProgram` on each mesh device of this process:
+    ``fn(images, fn.geometry(real_hw))`` with the full padded batch (or
+    this process's shards) returns each output as a list of shards."""
+
+    @property
+    def packed(self) -> PackedPyramidPlan:
+        return self.parts[0].packed
+
+    def geometry(self, real_hw: Tuple[int, int]):
+        """The operands of ``real_hw`` frames on each mesh device."""
+        return [p.geometry(real_hw) for p in self.parts]
+
 
 def make_bucket_detector_boxes(model: Model, bucket_hw: Tuple[int, int],
                                k: int = 1024,
@@ -212,12 +238,17 @@ def make_bucket_detector_boxes(model: Model, bucket_hw: Tuple[int, int],
     packed plan.  ``count == -1`` flags more than ``k`` survivors (callers
     fall back to the per-size path).  ``fast`` and ``fast_float`` are the
     serving mode, fixed at build time; ``verifier=(module, params)`` fuses
-    the CNN rescoring in; runs on ``device`` (the model's when None)."""
-    no_mesh(mesh, "bucketed serving")
+    the CNN rescoring in; runs on ``device`` (the model's when None), or
+    with ``mesh`` on each mesh device (a :class:`MeshBucketProgram`)."""
     if int(k) < 1:
         raise ValueError(f"k must be positive, got {k}")
-    fn = BucketProgram(model, bucket_hw, k, nms_iou, with_n_weak,
-                       model._device_for(device), fast, fast_float, verifier)
+    build = lambda d: BucketProgram(model, bucket_hw, k, nms_iou,
+                                    with_n_weak, d, fast, fast_float,
+                                    verifier)
+    if mesh is None:
+        fn = build(model._device_for(device))
+    else:
+        fn = MeshBucketProgram(mesh, [build(d) for d in mesh.local_devices])
     return fn, fn.packed
 
 
@@ -240,7 +271,9 @@ class BucketedDetector:
     params)``: every bucket program re-scores its survivors with the CNN
     verifier; 'scores' are the verified scores (NMS ranks by them) and
     'cascade_scores' the cascade's, as ``detect_and_verify`` gives them.
-    Runs on ``device`` (the model's when None)."""
+    Runs on ``device`` (the model's when None), or with ``mesh`` over its
+    devices: each batch, padded with blank frames to a multiple of the
+    mesh size, is split over them, and every process gets every box."""
 
     #: real sizes whose device tables each bucket keeps
     MAX_SIZES = 16
@@ -250,7 +283,6 @@ class BucketedDetector:
                  max_batch: int = 16, track_cost: bool = False,
                  verifier=None, fast: bool = False, fast_float: str = "f32",
                  device=None):
-        no_mesh(mesh, "bucketed serving")
         serving_opts(model.channel_opts, model.shape[2])
         if fast_float not in FAST_FLOAT:
             raise ValueError(f"fast_float must be one of {sorted(FAST_FLOAT)}"
@@ -264,7 +296,9 @@ class BucketedDetector:
         self.fast = bool(fast)
         self.fast_float = fast_float
         self.verifier = verifier
-        self.device = model._device_for(device)
+        self.mesh = mesh
+        self.device = model._device_for(device) if mesh is None \
+            else mesh.local_devices[0]
         self._programs: Dict[Tuple[int, int], BucketProgram] = {}
         self._sizes: Dict[Tuple[int, int], collections.OrderedDict] = {}
         self.compiles = 0  # bucket set-ups (packer runs) so far
@@ -278,8 +312,8 @@ class BucketedDetector:
         if bucket_hw not in self._programs:
             self._programs[bucket_hw] = make_bucket_detector_boxes(
                 self.model, bucket_hw, k=self.k, nms_iou=self.nms_iou,
-                with_n_weak=self.track_cost, verifier=self.verifier,
-                device=self.device, fast=self.fast,
+                mesh=self.mesh, with_n_weak=self.track_cost,
+                verifier=self.verifier, device=self.device, fast=self.fast,
                 fast_float=self.fast_float)[0]
             self._sizes[bucket_hw] = collections.OrderedDict()
             self.compiles += 1
@@ -311,15 +345,20 @@ class BucketedDetector:
         H, W = bucket_hw
         out = []
         # no padding of the batch to a power of two: nothing is compiled
-        # per batch size
+        # per batch size; under a mesh, blank frames fill the last shards
+        mult = 1 if self.mesh is None else self.mesh.size
         for i0 in range(0, len(images), self.max_batch):
             chunk = images[i0:i0 + self.max_batch]
-            batch = np.zeros((len(chunk), H, W), chunk[0].dtype)
+            batch = np.zeros((-(-len(chunk) // mult) * mult, H, W),
+                             chunk[0].dtype)
             for j, im in enumerate(chunk):
                 batch[j, :im.shape[0], :im.shape[1]] = im
+            if self.mesh is None:
+                outs = fn(torch.from_numpy(batch).to(self.device), geom)
+            else:
+                outs = [gather(o, self.mesh) for o in fn(batch, geom)]
             rects, scores, valid, count, n_weak, *casc = (
-                a.cpu().numpy()
-                for a in fn(torch.from_numpy(batch).to(self.device), geom))
+                a.cpu().numpy() for a in outs)
             for j, im in enumerate(chunk):
                 if count[j] < 0:
                     out.append(self._fallback_detect(im))

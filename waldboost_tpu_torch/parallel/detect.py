@@ -29,7 +29,11 @@ span named ``wb.<step>`` (``wb.octaves``, ``wb.planes``, ``wb.channels``,
 and device time to the layers.
 
 Every entry point runs on ``device``, or on the model's device when None
-(which is the card unless the model was loaded or moved elsewhere).
+(which is the card unless the model was loaded or moved elsewhere).  With
+``mesh`` (:mod:`.mesh`) a batch is split over the mesh devices, one
+detector per device (:class:`MeshDetector`, outputs as lists of shards),
+and ``make_tile_sharded_detector`` splits one frame's window grid into
+bands of origin rows, one per mesh device.
 """
 
 from __future__ import annotations
@@ -38,20 +42,21 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..boxes import Boxes
 from ..canvas import (as_image, channel_canvas, is_image_space, serving_opts,
                       span, window_grid)
-from ..device import no_mesh
 from ..model import Model, shared_plan
 from ..ops.cascade_static import cascade_masked, cascade_response
 from ..ops.nms import extract_detections, nms
 from ..packing import PackedPyramidPlan
+from .mesh import Mesh, as_shards, gather
 
-__all__ = ["BatchedDetector", "make_batched_detector",
+__all__ = ["BatchedDetector", "MeshDetector", "make_batched_detector",
            "make_batched_detector_boxes", "make_multi_detector_boxes",
-           "detect_batch", "span", "BucketedDetector",
-           "make_bucket_detector_boxes"]
+           "make_tile_sharded_detector", "detect_batch", "span",
+           "BucketedDetector", "make_bucket_detector_boxes"]
 
 
 def _check_images(images, image_shape, device) -> int:
@@ -126,19 +131,31 @@ class BatchedDetector:
     def extract(self, masked: torch.Tensor, count: torch.Tensor):
         return extract_boxes(masked, count, self.grid, self.k, self.nms_iou)
 
-    def __call__(self, images: torch.Tensor):
-        """``(rects, scores, valid, count, n_weak)`` of a (B, H, W) batch;
-        see :func:`make_batched_detector_boxes`."""
+    def launch(self, images: torch.Tensor):
+        """The canvas and the walk of a (B, H, W) batch, queued on the
+        device without waiting for it: what :meth:`finish` takes."""
         B = _check_images(images, self.image_shape, self.device)
         if not self.packed.levels:
-            return empty_results(B, self.device)
+            return B
         canvas = self.canvas(images)
         with span("wb.cascade"):
-            masked, n_weak, count = self.cascade(canvas)
+            return self.cascade(canvas)
+
+    def finish(self, launched):
+        """``(rects, scores, valid, count, n_weak)`` of a launched batch:
+        the extraction and NMS, which wait for the device."""
+        if isinstance(launched, int):
+            return empty_results(launched, self.device)
+        masked, n_weak, count = launched
         rects, scores, keep, count = self.extract(masked, count)
         if not self.with_n_weak:
             n_weak = torch.zeros_like(n_weak)
         return rects, scores, keep, count, n_weak
+
+    def __call__(self, images: torch.Tensor):
+        """``(rects, scores, valid, count, n_weak)`` of a (B, H, W) batch;
+        see :func:`make_batched_detector_boxes`."""
+        return self.finish(self.launch(images))
 
 
 def serving_canvas(packed, image_shape, smooth, cf, device, fast: bool,
@@ -153,36 +170,94 @@ def serving_canvas(packed, image_shape, smooth, cf, device, fast: bool,
                           fast_float)
 
 
+class MeshDetector:
+    """A detector's copies on this process's mesh devices, one per shard.
+
+    ``fn(images)`` takes the full (B, H, W) batch (every process passes
+    the same) or this process's shards (:func:`~.mesh.shard_array`) and
+    returns each output as the list of this process's shards, on their
+    devices; concatenated in mesh order (:func:`~.mesh.gather`) they are
+    the unsharded detector's outputs, bitwise.  Every shard's canvas and
+    walk are queued before any shard's extraction, which waits for its
+    device (NMS once per kept box), so the cards work at the same time.
+    The extractions run in turn: a thread for each card's was measured
+    three to five times slower on four cards (PERF.md §5)."""
+
+    def __init__(self, mesh: Mesh, parts: Sequence):
+        self.mesh = mesh
+        self.parts = list(parts)
+
+    def __call__(self, images, *per_part):
+        """``per_part``: further arguments, each a list with one entry per
+        part (a bucket program's geometries)."""
+        shards = as_shards(images, self.mesh)
+        launched = [p.launch(x, *a)
+                    for p, x, *a in zip(self.parts, shards, *per_part)]
+        outs = [p.finish(s) for p, s in zip(self.parts, launched)]
+        return tuple(list(o) for o in zip(*outs))
+
+
+def _on_mesh(mesh: Optional[Mesh], build, device):
+    """``build(device)`` on ``device``, or one per mesh device of this
+    process in a :class:`MeshDetector`."""
+    if mesh is None:
+        return build(device)
+    return MeshDetector(mesh, [build(d) for d in mesh.local_devices])
+
+
+class ResponseDetector:
+    """``fn(images) -> (hs, alive, n_weak)`` of one device; built by
+    :func:`make_batched_detector`."""
+
+    def __init__(self, model: Model, packed: PackedPyramidPlan, image_shape,
+                 smooth, cf, device, n_stages_cap, fast, fast_float):
+        self.packed = packed
+        self.image_shape = image_shape
+        self.device = device
+        self.n_stages_cap = n_stages_cap
+        self.grid = window_grid(packed, model.shape[:2], device)
+        self.canvas = serving_canvas(packed, image_shape, smooth, cf, device,
+                                     fast, fast_float, counts=True)
+        self.ops = model._operands(device)
+
+    def launch(self, images: torch.Tensor):
+        B = _check_images(images, self.image_shape, self.device)
+        if not self.packed.levels:
+            gu, gv = self.grid.valid.shape
+            z = lambda *s, dt: torch.zeros(s, dtype=dt, device=self.device)
+            return (z(B, gu, gv, dt=torch.float32), z(B, gu, gv, dt=torch.bool),
+                    z(B, dt=torch.int32))
+        cv = self.canvas(images)
+        with span("wb.cascade"):
+            return cascade_response(cv, self.grid.valid, self.ops,
+                                    self.n_stages_cap)
+
+    def finish(self, launched):
+        return launched
+
+    __call__ = launch
+
+
 def make_batched_detector(model: Model, image_shape: Tuple[int, int],
                           n_stages_cap: Optional[int] = None, device=None,
-                          mesh=None, fast: bool = False,
+                          mesh: Optional[Mesh] = None, fast: bool = False,
                           fast_float: str = "f32"):
     """Build ``fn(images) -> (hs, alive, n_weak)`` for ``image_shape``
     frames: the (B, GU, GV) float32 and bool maps and per-image int32
     ``n_weak`` of the first ``n_stages_cap`` stages (all when None) over
     the packed canvas (kernels B1, B2 or B5, B4; with ``fast``, B2f and B4
     over the bfloat16 canvas, and float32 frames, as in
-    :func:`make_batched_detector_boxes`).  Returns ``(fn, packed)``."""
-    no_mesh(mesh, "serving")
+    :func:`make_batched_detector_boxes`).  Returns ``(fn, packed)``.
+
+    With ``mesh`` (:mod:`.mesh`; it takes the place of ``device``) ``fn``
+    is a :class:`MeshDetector`: the batch is split over the mesh devices,
+    each shard runs the whole path on its device, and each output is a
+    list of shards."""
     h, w = (int(s) for s in image_shape)
-    dev = model._device_for(device)
     packed, smooth, cf = model._plan((h, w))
-    grid = window_grid(packed, model.shape[:2], dev)
-    canvas = serving_canvas(packed, (h, w), smooth, cf, dev, fast, fast_float,
-                            counts=True)
-    ops = model._operands(dev)
-
-    def fn(images: torch.Tensor):
-        B = _check_images(images, (h, w), dev)
-        if not packed.levels:
-            gu, gv = grid.valid.shape
-            return (torch.zeros((B, gu, gv), dtype=torch.float32, device=dev),
-                    torch.zeros((B, gu, gv), dtype=torch.bool, device=dev),
-                    torch.zeros(B, dtype=torch.int32, device=dev))
-        cv = canvas(images)
-        with span("wb.cascade"):
-            return cascade_response(cv, grid.valid, ops, n_stages_cap)
-
+    fn = _on_mesh(mesh, lambda d: ResponseDetector(
+        model, packed, (h, w), smooth, cf, d, n_stages_cap, fast, fast_float),
+        None if mesh else model._device_for(device))
     return fn, packed
 
 
@@ -190,7 +265,7 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
                                 k: int = 1024,
                                 nms_iou: Optional[float] = None,
                                 with_n_weak: bool = True,
-                                device=None, mesh=None,
+                                device=None, mesh: Optional[Mesh] = None,
                                 two_phase: bool = False,
                                 n_scales: Optional[int] = None,
                                 fast: bool = False, fast_float: str = "f32"):
@@ -203,7 +278,10 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
     ``nms_iou``, NMS-kept) entries (B, k), the exact survivor count (B,)
     int32 (-1 when it exceeds ``k``), and the number of weak-classifier
     evaluations (B,) int32 (zeros unless ``with_n_weak``).  ``packed`` is
-    the packed pyramid plan; ``fn`` is a :class:`BatchedDetector`.
+    the packed pyramid plan; ``fn`` is a :class:`BatchedDetector`, or with
+    ``mesh`` (which takes the place of ``device``) a
+    :class:`MeshDetector` of one per mesh device, whose outputs are lists
+    of shards.
 
     ``fast`` is fast serving mode (JAX's ``WB_SERVING_MODE=fast``): a
     bfloat16 canvas from kernel B2f, walked by B3f; float32 frames' planes
@@ -216,7 +294,6 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
     single-scale workload at 1): their packed plan runs through the same
     canvas step, walk, extraction and NMS.
     """
-    no_mesh(mesh, "serving")
     if two_phase:
         raise NotImplementedError("two-phase serving is not ported yet "
                                   "(ROADMAP item A13)")
@@ -228,18 +305,84 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
         raise ValueError(f"k must be positive, got {k}")
     h, w = (int(s) for s in image_shape)
     packed, _, _ = model._plan((h, w), n_scales)
-    fn = BatchedDetector(model, packed, (h, w), int(k), nms_iou,
-                         with_n_weak, model._device_for(device), fast,
-                         fast_float)
+    fn = _on_mesh(mesh, lambda d: BatchedDetector(
+        model, packed, (h, w), int(k), nms_iou, with_n_weak, d, fast,
+        fast_float), None if mesh else model._device_for(device))
     return fn, packed
+
+
+class MultiDetector:
+    """K models over one shared canvas on one device; built by
+    :func:`make_multi_detector_boxes`."""
+
+    def __init__(self, models, packed, image_shape, smooth, cf, device, k,
+                 nms_iou, response_scale, with_n_weak, fast, fast_float):
+        self.packed = packed
+        self.image_shape = image_shape
+        self.device = device
+        self.k = k
+        self.nms_iou = nms_iou
+        self.with_n_weak = with_n_weak
+        self.canvas = serving_canvas(packed, image_shape, smooth, cf, device,
+                                     fast, fast_float, with_n_weak)
+        self.scans = [(window_grid(packed, mm.shape[:2], device),
+                       mm._operands(device), float(np.float32(s)))
+                      for mm, s in zip(models, response_scale)]
+
+    def launch(self, images: torch.Tensor):
+        """The shared canvas and every model's walk (kernel B3), queued."""
+        B = _check_images(images, self.image_shape, self.device)
+        if not self.packed.levels:
+            return B
+        cv = self.canvas(images)  # once for every model
+        walks = []
+        for grid, ops, _ in self.scans:
+            with span("wb.cascade"):
+                walks.append(cascade_masked(cv, grid.valid, ops))
+        return walks
+
+    def finish(self, launched):
+        dev = self.device
+        if isinstance(launched, int):
+            z = lambda *s, dt: torch.zeros(s, dtype=dt, device=dev)
+            B = launched
+            return (z(B, 0, 4, dt=torch.float32), z(B, 0, dt=torch.float32),
+                    z(B, 0, dt=torch.bool), z(B, 0, dt=torch.int32),
+                    z(B, len(self.scans), dt=torch.int32), z(B, dt=torch.int32))
+        outs: List = []
+        B = launched[0][0].shape[0]
+        n_weak_total = torch.zeros(B, dtype=torch.int32, device=dev)
+        for kix, ((grid, _, scale), (masked, n_weak, count)) in enumerate(
+                zip(self.scans, launched)):
+            with span("wb.extract"):
+                rects, scores, valid, count = extract_detections(
+                    masked, count, grid.level_id, grid.offsets,
+                    grid.inv_scales, grid.window, self.k)
+                scores = scores * scale
+            if self.nms_iou is not None:
+                with span("wb.nms"):
+                    valid = valid & nms(rects, scores, valid,
+                                        float(self.nms_iou))
+            outs.append((rects, scores, valid,
+                         torch.full(scores.shape, kix, dtype=torch.int32,
+                                    device=dev), count))
+            n_weak_total += n_weak
+        cat = lambda i: torch.cat([o[i] for o in outs], dim=1)
+        if not self.with_n_weak:
+            n_weak_total.zero_()
+        return (cat(0), cat(1), cat(2), cat(3),
+                torch.stack([o[4] for o in outs], dim=1), n_weak_total)
+
+    def __call__(self, images: torch.Tensor):
+        return self.finish(self.launch(images))
 
 
 def make_multi_detector_boxes(models: Sequence[Model],
                               image_shape: Tuple[int, int], k: int = 256,
                               nms_iou: Optional[float] = None,
                               response_scale=None, with_n_weak: bool = True,
-                              device=None, mesh=None, fast: bool = False,
-                              fast_float: str = "f32"):
+                              device=None, mesh: Optional[Mesh] = None,
+                              fast: bool = False, fast_float: str = "f32"):
     """K models over ONE shared channel canvas, batched.
 
     The canvas is planned from the elementwise-minimum window and built
@@ -250,66 +393,127 @@ def make_multi_detector_boxes(models: Sequence[Model],
     scores, valid, label, count, n_weak)`` with shapes (B, K*k, 4),
     (B, K*k), (B, K*k), (B, K*k) int32 model index, (B, K) per-model exact
     survivor counts (-1 past ``k``) and (B,) int32.  Runs on ``device``
-    (the first model's when None).  ``fast`` and ``fast_float`` as in
+    (the first model's when None), or with ``mesh`` on each mesh device
+    (a :class:`MeshDetector`).  ``fast`` and ``fast_float`` as in
     :func:`make_batched_detector_boxes` (B2f, B3f)."""
-    no_mesh(mesh, "serving")
     if response_scale is None:
         response_scale = [1.0] * len(models)
     if len(response_scale) != len(models):
         raise ValueError("Wrong response_scale parameter")
     h, w = (int(s) for s in image_shape)
     packed, smooth, cf = shared_plan(models, (h, w))
-    dev = models[0]._device_for(device)
-    canvas = serving_canvas(packed, (h, w), smooth, cf, dev, fast, fast_float,
-                            with_n_weak)
-    scans = [(window_grid(packed, mm.shape[:2], dev), mm._operands(dev),
-              float(np.float32(s))) for mm, s in zip(models, response_scale)]
-
-    def fn(images: torch.Tensor):
-        B = _check_images(images, (h, w), dev)
-        if not packed.levels:
-            z = lambda *s, dt: torch.zeros(s, dtype=dt, device=dev)
-            return (z(B, 0, 4, dt=torch.float32), z(B, 0, dt=torch.float32),
-                    z(B, 0, dt=torch.bool), z(B, 0, dt=torch.int32),
-                    z(B, len(models), dt=torch.int32), z(B, dt=torch.int32))
-        cv = canvas(images)  # once for every model
-        outs: List = []
-        n_weak_total = torch.zeros(B, dtype=torch.int32, device=dev)
-        for kix, (grid, ops, scale) in enumerate(scans):
-            with span("wb.cascade"):
-                masked, n_weak, count = cascade_masked(cv, grid.valid, ops)
-            with span("wb.extract"):
-                rects, scores, valid, count = extract_detections(
-                    masked, count, grid.level_id, grid.offsets,
-                    grid.inv_scales, grid.window, k)
-                scores = scores * scale
-            if nms_iou is not None:
-                with span("wb.nms"):
-                    valid = valid & nms(rects, scores, valid, float(nms_iou))
-            outs.append((rects, scores, valid,
-                         torch.full(scores.shape, kix, dtype=torch.int32,
-                                    device=dev), count))
-            n_weak_total += n_weak
-        cat = lambda i: torch.cat([o[i] for o in outs], dim=1)
-        if not with_n_weak:
-            n_weak_total.zero_()
-        return (cat(0), cat(1), cat(2), cat(3),
-                torch.stack([o[4] for o in outs], dim=1), n_weak_total)
-
+    fn = _on_mesh(mesh, lambda d: MultiDetector(
+        models, packed, (h, w), smooth, cf, d, k, nms_iou, response_scale,
+        with_n_weak, fast, fast_float),
+        None if mesh else models[0]._device_for(device))
     return fn, packed
+
+
+class TileShardedDetector:
+    """One frame's window grid split over a mesh; built by
+    :func:`make_tile_sharded_detector`."""
+
+    def __init__(self, model: Model, image_shape, mesh: Mesh, boxes: bool,
+                 k: int, nms_iou: Optional[float]):
+        m, n, _ = model.shape
+        self.image_shape = tuple(int(s) for s in image_shape)
+        self.packed, smooth, cf = model._plan(self.image_shape)
+        self.mesh = mesh
+        self.device = mesh.local_devices[0]
+        self.window = (m, n)
+        self.boxes = boxes
+        self.k = k
+        self.nms_iou = nms_iou
+        self.canvas = channel_canvas(self.packed, self.image_shape, smooth,
+                                     cf, self.device)
+        self.grid = window_grid(self.packed, self.window, self.device)
+        gu, gv = self.grid.valid.shape
+        self.rows = -(-gu // mesh.size)
+        # dead rows pad the mask so that the bands divide evenly
+        valid = np.zeros((self.rows * mesh.size, gv), np.uint8)
+        valid[:gu] = self.grid.valid.cpu().numpy()
+        self.starts = [(mesh.local_start + i) * self.rows
+                       for i in range(mesh.n_local)]
+        self.bands = [(torch.as_tensor(valid[s:s + self.rows], device=d),
+                       model._operands(d))
+                      for s, d in zip(self.starts, mesh.local_devices)]
+
+    def __call__(self, image):
+        h, w = self.image_shape
+        if not isinstance(image, torch.Tensor):
+            image = torch.from_numpy(np.ascontiguousarray(image))
+        images = image.to(self.device)[None]
+        _check_images(images, (h, w), self.device)
+        gu, gv = self.grid.valid.shape
+        m = self.window[0]
+        if not self.packed.levels:
+            hs = torch.zeros((gu, gv), dtype=torch.float32, device=self.device)
+            nw = torch.zeros((), dtype=torch.int32, device=self.device)
+            return self._finish(hs, hs.bool(), nw)
+        cv = self.canvas(images)
+        # every band reads its rows and the window's m rows below them
+        need = self.rows * self.mesh.size + m
+        if cv.shape[2] < need:
+            cv = F.pad(cv, (0, 0, 0, need - cv.shape[2]))
+        outs = []
+        for s, (valid, ops), d in zip(self.starts, self.bands,
+                                      self.mesh.local_devices):
+            band = cv[:, :, s:s + self.rows + m].contiguous().to(d)
+            with span("wb.cascade"):
+                outs.append(cascade_response(band, valid, ops))
+        hs, alive, nw = (gather([o[i] for o in outs], self.mesh, self.device)
+                         for i in range(3))
+        return self._finish(hs.reshape(-1, gv)[:gu],
+                            alive.reshape(-1, gv)[:gu], nw.sum())
+
+    def _finish(self, hs, alive, nw):
+        if not self.boxes:
+            return hs, alive, nw
+        masked = torch.where(alive, hs, torch.tensor(float("-inf"),
+                                                     device=hs.device))
+        rects, scores, keep, count = extract_boxes(
+            masked[None], alive.sum(dtype=torch.int32)[None], self.grid,
+            self.k, self.nms_iou)
+        return rects[0], scores[0], keep[0], count[0], nw
+
+
+def make_tile_sharded_detector(model: Model, image_shape: Tuple[int, int],
+                               mesh: Mesh, boxes: bool = False,
+                               k: int = 1024,
+                               nms_iou: Optional[float] = None):
+    """Split ONE frame's window grid over ``mesh`` (single-frame latency).
+
+    The packed canvas is built once, on this process's first mesh device
+    (kernels B1, B2 or B5); each mesh device walks (kernel B4) a band of
+    ``ceil(GU / n)`` window-origin rows, copied with the window's ``m``
+    rows of halo below it, under the valid mask padded with dead rows, and
+    the bands are gathered back.  Returns ``(fn, packed)``; ``fn(image)``
+    of one (H, W) frame gives ``(hs, alive, n_weak)``: the (GU, GV) maps
+    and the frame's int32 ``n_weak``, bitwise the unsharded
+    :func:`make_batched_detector`'s; with ``boxes=True`` it gives
+    ``(rects, scores, valid, count, n_weak)`` of
+    :func:`make_batched_detector_boxes` for the one frame (the exact
+    extraction, then NMS with ``nms_iou``), on the first mesh device.
+    Every process passes the same frame and gets the whole result."""
+    fn = TileShardedDetector(model, image_shape, mesh, boxes, int(k),
+                             nms_iou)
+    return fn, fn.packed
 
 
 def detect_batch(model: Model, images, k: int = 4096, mesh=None
                  ) -> List[Boxes]:
-    """Batched detection with extraction on the model's device: one
-    :class:`Boxes` per image (before NMS), the same survivor set as
-    ``Model.detect``.  An image with more than ``k`` survivors falls back
-    to ``Model.detect``."""
+    """Batched detection with extraction on the model's device (or over
+    ``mesh``): one :class:`Boxes` per image (before NMS), the same
+    survivor set as ``Model.detect``.  An image with more than ``k``
+    survivors falls back to ``Model.detect``."""
     images = as_image(images, ndim=3)
     fn, _ = make_batched_detector_boxes(model, images.shape[1:], k=k,
                                         mesh=mesh)
-    rects, scores, valid, count, _ = (
-        a.cpu().numpy() for a in fn(torch.from_numpy(images).to(fn.device)))
+    if mesh is None:
+        outs = fn(torch.from_numpy(images).to(fn.device))
+    else:
+        outs = [gather(o, mesh) for o in fn(images)]
+    rects, scores, valid, count, _ = (a.cpu().numpy() for a in outs)
     out = []
     for b in range(images.shape[0]):
         if count[b] < 0:

@@ -12,7 +12,16 @@ host reads the tree tables and a few scalars once per stage.
 The JAX module builds one jitted program per parameter set (memoized) and
 chooses among XLA formulations of the fit's histograms (``hist_mode``,
 ``WB_HIST_*``); the port runs the same steps eagerly with its one
-formulation.  A mesh (sharded pools) is ROADMAP item A11.
+formulation.
+
+Under a mesh (:mod:`.mesh`) the pools are sharded at rest.  A stage
+gathers ``x``, ``H`` and ``v`` of both pools in global slot order on the
+process's first mesh device, runs the unsharded stage there (every
+process computes the same replicated result), and writes the updated
+scores and validity back as shards.  The statistics are then the
+unsharded step's, bitwise, at every mesh size and process layout:
+partial sums reduced per shard would round differently for each mesh
+and flip near-tie splits, so none are taken.
 """
 
 from __future__ import annotations
@@ -23,9 +32,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import no_mesh
 from ..ops.fit import TreeFitResult, fit_tree_complete
 from ..training import fit_rejection_threshold_device
+from .mesh import as_shards, gather, shard_array
 
 __all__ = ["StageResult", "make_train_step", "tree_predict_device"]
 
@@ -143,10 +152,25 @@ def make_train_step(alpha: float = 0.1, max_depth: int = 2, n_bins: int = 256,
     float32); ``feature_mask``: optional (max_depth, F) bool allowed split
     features per depth (the FPGA bank restriction).  ``clip``,
     ``quantizer`` and ``integer_thresholds`` apply the FPGA transforms
-    in-step.  ``mesh`` (sharded pools) is not ported yet.
+    in-step.
+
+    With ``mesh`` the pool arguments are lists of this process's shards
+    (or full tensors, which are sharded first); the result's ``H0``,
+    ``H1``, ``v0`` and ``v1`` are lists of shards, the rest lies on the
+    process's first mesh device.
     """
-    no_mesh(mesh, "training")
-    return functools.partial(
+    body = functools.partial(
         _stage_body, alpha=alpha, max_depth=max_depth, n_bins=n_bins,
         min_samples_leaf=min_samples_leaf, clip=clip, quantizer=quantizer,
         integer_thresholds=integer_thresholds, binning=binning)
+    if mesh is None:
+        return body
+
+    def step(x0, H0, v0, x1, H1, v1, *args):
+        pools = [gather(as_shards(a, mesh), mesh)
+                 for a in (x0, H0, v0, x1, H1, v1)]
+        res = body(*pools, *args)
+        return res._replace(**{f: shard_array(getattr(res, f), mesh)
+                               for f in ("H0", "H1", "v0", "v1")})
+
+    return step

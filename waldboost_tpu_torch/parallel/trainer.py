@@ -13,8 +13,16 @@ While a torch profiler runs, the loop runs in ``wb.train.*`` spans:
 ``insert`` (crops into the pools) and ``step`` (the stage step), besides
 mining's ``mine`` and ``label``.
 
-The JAX module's compile prewarming and its multi-process insert path
-serve XLA and a process mesh; a mesh is ROADMAP item A11.
+Under a mesh (:mod:`.mesh`) each pool is sharded at rest: each mesh
+device holds ``capacity / n`` slots, and the stage step gathers them
+(:mod:`.train_step`).  Mining runs on the model's device, which in a
+mesh run is the process's first mesh device; each process mines the same
+seeded stream, and copies the kept rows whose slots fall in its own
+shards straight from the mining device to the shard's device (the JAX
+package stages them through the host on a multi-process mesh).
+
+The JAX module's compile prewarming serves XLA; the port compiles
+nothing.
 """
 
 from __future__ import annotations
@@ -26,10 +34,11 @@ import numpy as np
 import torch
 
 from ..canvas import span
-from ..device import no_mesh, resolve_device
+from ..device import resolve_device
 from ..ops.fit import prune_heap_tree
 from ..samples import SampleLabel, batched_records, mine_labeled_windows
 from ..training import BasicRejectionSchedule, DTree, Learner
+from .mesh import Mesh, gather
 from .train_step import make_train_step
 
 __all__ = ["DevicePool", "train_sharded"]
@@ -43,24 +52,40 @@ class DevicePool:
     """One class (tp or fp) of the device-resident sample pool: ``x``
     (capacity, F) float32 samples, ``H`` scores and ``v`` validity on
     ``device`` (the card when None); ``count`` is the host mirror of
-    ``sum(v)``."""
+    ``sum(v)``.  With ``mesh``, ``x``, ``H`` and ``v`` are lists of this
+    process's shards, ``capacity / mesh.size`` slots each, in global slot
+    order; ``device`` is then the process's first mesh device.  The
+    capacity is rounded up to 256 slots whatever the mesh, so the slots,
+    and the trained model, do not depend on it."""
 
-    def __init__(self, capacity: int, feat_dim: int, device=None, mesh=None):
-        no_mesh(mesh, "training")
+    def __init__(self, capacity: int, feat_dim: int, device=None,
+                 mesh: Optional[Mesh] = None):
+        n = 1 if mesh is None else mesh.size
         self.capacity = _round_up(capacity, 256)
-        self.device = resolve_device(device)
-        self.x = torch.zeros((self.capacity, feat_dim), dtype=torch.float32,
-                             device=self.device)
-        self.H = torch.zeros(self.capacity, dtype=torch.float32,
-                             device=self.device)
-        self.v = torch.zeros(self.capacity, dtype=torch.bool,
-                             device=self.device)
+        if self.capacity % n:
+            raise ValueError(f"the mesh size {n} must divide the pool's "
+                             f"{self.capacity} slots")
+        self.mesh = mesh
+        self.feat_dim = feat_dim
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.local_devices[0]
+        devices = [self.device] if mesh is None else mesh.local_devices
+        per = self.capacity // n
+        z = lambda *s, dt: [torch.zeros(s, dtype=dt, device=d)
+                            for d in devices]
+        self.x = z(per, feat_dim, dt=torch.float32)
+        self.H = z(per, dt=torch.float32)
+        self.v = z(per, dt=torch.bool)
+        if mesh is None:
+            self.x, self.H, self.v = self.x[0], self.H[0], self.v[0]
         self.count = 0
 
     def _put(self, xn: torch.Tensor, Hn: torch.Tensor) -> None:
-        """Rows ``xn``/``Hn`` into the first free slots in index order (a
-        stable sort of ``v`` puts them first); occupied slots are never
-        overwritten."""
+        """Rows ``xn``/``Hn`` into the first free slots in global index
+        order (a stable sort of ``v`` puts them first); occupied slots are
+        never overwritten."""
+        if self.mesh is not None:
+            return self._put_sharded(xn, Hn)
         k = xn.shape[0]
         slots = torch.sort(self.v.to(torch.uint8), stable=True).indices[:k]
         free = ~self.v[slots]
@@ -68,13 +93,34 @@ class DevicePool:
         self.H[slots] = torch.where(free, Hn, self.H[slots])
         self.v[slots] = True
 
+    def _put_sharded(self, xn: torch.Tensor, Hn: torch.Tensor) -> None:
+        """:meth:`_put` over the shards: the slots come from the gathered
+        ``v`` (all free: callers accept at most ``capacity - count``
+        rows), and each of this process's shards takes the rows whose
+        slots it holds, copied from ``xn``'s device to its own."""
+        mesh = self.mesh
+        v = gather(self.v, mesh, xn.device)
+        slots = torch.sort(v.to(torch.uint8), stable=True).indices[
+            :xn.shape[0]].cpu().numpy()
+        per = self.capacity // mesh.size
+        for i, d in enumerate(mesh.local_devices):
+            lo = (mesh.local_start + i) * per
+            rows = np.flatnonzero((slots >= lo) & (slots < lo + per))
+            if rows.size == 0:
+                continue
+            src = torch.from_numpy(rows).to(xn.device)
+            dst = torch.from_numpy(slots[rows] - lo).to(d)
+            self.x[i][dst] = xn[src].to(d)
+            self.H[i][dst] = Hn[src].to(d)
+            self.v[i][dst] = True
+
     def insert(self, X_new, H_new) -> int:
         """Insert host-mined crops; returns how many were accepted."""
         k = int(len(X_new))
         accept = min(k, self.capacity - self.count)
         if accept <= 0:
             return 0
-        F = self.x.shape[1]
+        F = self.feat_dim
         X_new = np.asarray(X_new, np.float32).reshape(k, F)[:accept]
         H_new = np.asarray(H_new, np.float32).ravel()[:accept]
         self._put(torch.from_numpy(np.ascontiguousarray(X_new)).to(
@@ -95,16 +141,17 @@ class DevicePool:
             return 0
         idx = torch.from_numpy(np.ascontiguousarray(idx[:accept], np.int64))
         idx = idx.to(src_x.device)
-        self._put(src_x[idx].reshape(accept, -1).to(self.device,
-                                                     torch.float32),
-                  src_H[idx].to(self.device, torch.float32))
+        # under a mesh the rows go from the mining device to each shard's
+        dev = self.device if self.mesh is None else src_x.device
+        self._put(src_x[idx].reshape(accept, -1).to(dev, torch.float32),
+                  src_H[idx].to(dev, torch.float32))
         self.count += accept
         return accept
 
-    def apply_stage(self, H: torch.Tensor, v: torch.Tensor,
-                    count: int) -> None:
-        """Adopt a stage's scores, pruned validity mask and its ``sum(v)``
-        as read on the host (``x`` is unchanged by a stage)."""
+    def apply_stage(self, H, v, count: int) -> None:
+        """Adopt a stage's scores, pruned validity mask (shards under a
+        mesh) and its ``sum(v)`` as read on the host (``x`` is unchanged by
+        a stage)."""
         self.H = H
         self.v = v
         self.count = int(count)
@@ -170,9 +217,13 @@ def train_sharded(model, training_images, mesh=None, learner: Learner = None,
 
     ``prewarm_length`` is accepted and does nothing: the JAX trainer
     starts its mining programs' compiles with it, and the port compiles
-    nothing.  ``mesh`` (sharded pools) is not ported yet (ROADMAP A11).
+    nothing.
+
+    ``mesh`` shards the pools over its devices (see :mod:`.trainer`);
+    the trained model is the unsharded run's, bitwise, at every mesh size
+    and process layout.  Mining runs on the model's device: make it the
+    process's first mesh device.
     """
-    no_mesh(mesh, "training")
     logger = logger or logging.getLogger("Training")
     if len(model) >= length:
         return learner
@@ -192,10 +243,10 @@ def train_sharded(model, training_images, mesh=None, learner: Learner = None,
         pool_fp, pool_tp = pools.get("fp"), pools.get("tp")
         # carried scores are valid only for the SAME model object at the
         # stage count it had when the previous call returned
-        tag = (id(model), len(model), F)
+        tag = (id(model), len(model), F, mesh)
         if pool_fp is not None and pools.get("model_tag") != tag:
-            logger.info("pools carry-over rejected (model or stage count "
-                        "changed): re-bootstrapping the device pool")
+            logger.info("pools carry-over rejected (model, stage count or "
+                        "mesh changed): re-bootstrapping the device pool")
             pool_fp = pool_tp = None
         if pool_fp is not None and pool_fp.capacity < _round_up(capacity,
                                                                 256):
@@ -204,14 +255,14 @@ def train_sharded(model, training_images, mesh=None, learner: Learner = None,
                 "requested capacity %d is ignored", pool_fp.capacity,
                 capacity)
     if pool_fp is None or pool_tp is None:
-        pool_fp = DevicePool(capacity, F, device=dev)
-        pool_tp = DevicePool(capacity, F, device=dev)
+        pool_fp = DevicePool(capacity, F, device=dev, mesh=mesh)
+        pool_tp = DevicePool(capacity, F, device=dev, mesh=mesh)
     if pools is not None:
         pools["fp"], pools["tp"] = pool_fp, pool_tp
     rng = np.random.default_rng(seed)
     step = make_train_step(alpha=learner.alpha, max_depth=max_depth,
-                           n_bins=n_bins, binning=binning, clip=clip,
-                           quantizer=quantizer,
+                           n_bins=n_bins, binning=binning, mesh=mesh,
+                           clip=clip, quantizer=quantizer,
                            integer_thresholds=integer_thresholds)
     it = iter(training_images)
 
@@ -271,5 +322,5 @@ def train_sharded(model, training_images, mesh=None, learner: Learner = None,
         for cb in callbacks:
             cb(model, learner, stage)
     if pools is not None:
-        pools["model_tag"] = (id(model), len(model), F)
+        pools["model_tag"] = (id(model), len(model), F, mesh)
     return learner

@@ -243,59 +243,95 @@ class VerifierProgram:
     GroupNorm normalises each window on its own, so the batch's other
     windows (or padding, which the JAX package adds to bound its
     compiles) change a score by rounding at most (the convolution's
-    algorithm may depend on the batch size)."""
+    algorithm may depend on the batch size).
 
-    def __init__(self, module: VerifierCNN, params: Dict, device):
-        self.device = resolve_device(device)
-        self.net = VerifierCNN(module.input_shape).to(self.device)
-        self.net.load_state_dict({k: torch.as_tensor(np.asarray(v))
-                                  for k, v in params.items()})
-        self.net.eval()
+    With ``mesh`` (:mod:`~waldboost_tpu_torch.parallel.mesh`) a copy of
+    the network sits on each of this process's mesh devices, the windows
+    are split over them (their count a multiple of the mesh size) and
+    the scores gathered back on the first one, :attr:`device`."""
+
+    def __init__(self, module: VerifierCNN, params: Dict, device,
+                 mesh=None):
+        self.mesh = mesh
+        devices = [resolve_device(device)] if mesh is None \
+            else list(mesh.local_devices)
+        self.device = devices[0]
+        self.nets = {}
+        for d in devices:
+            if d not in self.nets:
+                net = VerifierCNN(module.input_shape).to(d)
+                net.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                                     for k, v in params.items()})
+                self.nets[d] = net.eval()
+        self.net = self.nets[self.device]
 
     def __call__(self, X: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
-        """(K, m, n, C) windows and (K,) cascade scores on the device ->
-        (K,) float32 verified scores."""
+        """(K, m, n, C) windows and (K,) cascade scores -> (K,) float32
+        verified scores on :attr:`device`."""
         with torch.no_grad(), full_f32_matmul():
-            return self.net(X.to(self.device, torch.float32)) \
-                + H.to(self.device, torch.float32)
+            if self.mesh is None:
+                return self._run(self.device, X, H)
+            # imported here: the parallel package imports this module
+            from .parallel.mesh import gather, shard_array
+            return gather([self._run(x.device, x, h) for x, h in zip(
+                shard_array(X, self.mesh), shard_array(H, self.mesh))],
+                self.mesh)
+
+    def _run(self, device, X, H):
+        return self.nets[device](X.to(device, torch.float32)) \
+            + H.to(device, torch.float32)
 
 
 _PROGRAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def get_verifier_program(module: VerifierCNN, params: Dict,
-                         device=None) -> VerifierProgram:
-    """The memoized :class:`VerifierProgram` of (module, params, device)
-    identity (entries hold ``params``, so an ``id`` is never reused while
-    its entry lives); ``device`` is the card when None."""
-    dev = resolve_device(device)
+                         device=None, mesh=None) -> VerifierProgram:
+    """The memoized :class:`VerifierProgram` of (module, params, device,
+    mesh) identity (entries hold ``params``, so an ``id`` is never reused
+    while its entry lives); ``device`` is the card when None, and a mesh
+    takes its place."""
+    dev = resolve_device(device) if mesh is None else None
     progs = _PROGRAMS.setdefault(module, [])
-    for p, d, prog in progs:
-        if p is params and d == dev:
+    for p, d, m, prog in progs:
+        if p is params and d == dev and m == mesh:
             return prog
-    prog = VerifierProgram(module, params, dev)
-    progs.append((params, dev, prog))
+    prog = VerifierProgram(module, params, dev, mesh)
+    progs.append((params, dev, mesh, prog))
     return prog
 
 
+def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to a multiple of ``multiple``."""
+    pad = -x.shape[0] % multiple
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))]) \
+        if pad else x
+
+
 def verify_scores(module: VerifierCNN, params: Dict, X, H,
-                  device=None) -> np.ndarray:
+                  device=None, mesh=None) -> np.ndarray:
     """``cnn(X) + H`` of (K, m, n, C) windows and (K,) scores (numpy) on
-    ``device`` (the card when None), as a (K,) float32 numpy array."""
+    ``device`` (the card when None), as a (K,) float32 numpy array; with
+    ``mesh`` over its devices, the windows padded to a multiple of its
+    size (as the JAX package pads them)."""
     X = np.asarray(X, np.float32)
     H = np.asarray(H, np.float32).ravel()
-    if X.shape[0] == 0:
+    k = X.shape[0]
+    if k == 0:
         return np.zeros(0, np.float32)
-    prog = get_verifier_program(module, params, device)
-    return prog(torch.from_numpy(X), torch.from_numpy(H)).cpu().numpy()
+    prog = get_verifier_program(module, params, device, mesh)
+    mult = 1 if mesh is None else mesh.size
+    return prog(_pad_rows(torch.from_numpy(X), mult),
+                _pad_rows(torch.from_numpy(H), mult))[:k].cpu().numpy()
 
 
-def detect_and_verify(image, model, module: VerifierCNN, params: Dict
-                      ) -> Boxes:
+def detect_and_verify(image, model, module: VerifierCNN, params: Dict,
+                      mesh=None) -> Boxes:
     """The model's surviving windows of ``image`` re-scored by the
-    verifier on the model's device: Boxes with ``scores`` (verified) and
-    ``cascade_scores``, rows in canvas order.  The windows are cropped
-    from the scan's canvas on the device; only the scores come back."""
+    verifier on the model's device (with ``mesh``, over its devices):
+    Boxes with ``scores`` (verified) and ``cascade_scores``, rows in
+    canvas order.  The windows are cropped from the scan's canvas on the
+    device; only the scores come back."""
     scan = model.scan_packed(image)
     if scan is None or scan[2].size == 0:
         return Boxes(np.empty((0, 4), np.float32),
@@ -303,8 +339,10 @@ def detect_and_verify(image, model, module: VerifierCNN, params: Dict
     canvas, packed, rs, cs, hs = scan
     crops, _ = model.gather_windows_device(canvas, rs, cs, is_canvas=True,
                                            as_device=True)
-    prog = get_verifier_program(module, params, canvas.device)
-    verified = prog(crops, torch.from_numpy(np.asarray(hs, np.float32)))
+    prog = get_verifier_program(module, params, canvas.device, mesh)
+    mult = 1 if mesh is None else mesh.size
+    verified = prog(_pad_rows(crops, mult), _pad_rows(
+        torch.from_numpy(np.asarray(hs, np.float32)), mult))[:len(hs)]
     level_id, inv_scales = packed.level_maps(model.shape[:2])
     out = model._boxes_from_canvas_origins(rs, cs, verified.cpu().numpy(),
                                            packed, level_id, inv_scales)
