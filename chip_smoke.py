@@ -14,11 +14,12 @@ grad_mag, plain torch), CNN-verified detection, verifier training, the
 command-line tools (train, detect) with the native loader,
 single-scale serving (BASELINE config 1, n_scales), and all of it over
 several devices and processes (meshes, tile sharding, two ranks over
-torch.distributed), and checks and times
-its nine CUDA kernels
+torch.distributed), two-phase and row-wise batched serving, and checks
+and times its eleven CUDA kernels
 (planes B1,
 grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
-B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
+B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d,
+cascade_suffix S1, compact S2):
 
  1. prints torch/CUDA versions and the card's name and power limit;
  2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
@@ -299,10 +300,35 @@ B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d):
         equal to tests/data/torch_port_mesh_golden.npz; its wall time;
     and sharded VGA MP/s (k=128, noise) at 1 shard, 4 shards on one card
     (overhead, not scaling) and each real-card mesh;
- 9. prints the per-kernel JSON summary (launches from the Model-API path,
+ 9. two-phase and row-wise batched serving (kernels S1, S2):
+    9a. make_batched_detector_boxes on the flagship's VGA batch of
+        tests/data/torch_port_twophase_golden.npz (3 seeded noise frames,
+        the 3 golden scenes; scripts/make_torch_twophase_golden.py):
+        two_phase=True at JAX's defaults and at an overflowing prefix 2,
+        capacity 512, then extractor="rowwise" (k_row 16, NMS 0.5), each
+        path from counters set to 0 (two-phase: B1, B2, B4, S1, S2, no
+        B3; row-wise: B1, B2, B4, no S1 or S2), all five outputs whole and
+        bitwise the golden; then S2 (compact_survivors) and S1
+        (cascade_suffix_sparse) bitwise their plain versions on the card
+        on the inputs the two-phase path gives them: VGA noise and scenes,
+        scenes overflowing (S2's route for more survivors than the
+        capacity), the bfloat16 canvas of fast mode, the 40-stage depth-5
+        model (GENERAL records), and config 5 (fpga_4k_synth_64, 4K noise
+        batch 8), also overflowing;
+    9b. S1 and S2 per call beside their plain versions (CUDA events, in
+        turns) at VGA scenes and 4K noise, S2 (with its compacted sort)
+        beside torch.sort(stable=True) of the whole map, the bounds; then
+        two-phase against dense make_batched_detector_boxes end to end
+        (MP/s, p50, p80; dense, two-phase, two-phase, dense) at VGA noise
+        k=128, VGA scenes k=1024 (NMS 0.5) and config 5 k=128;
+    9c. the two-phase detector over a mesh of the card repeated four
+        times (and 2 and 4 real cards where present), 8 scenes a shard:
+        bitwise the unsharded detector, each kernel once a shard;
+10. prints the per-kernel JSON summary (launches from the Model-API path,
     B5's from the config-5 path, B2f's and B3f's from the fast path, B2d's
-    from the exact float path,
-    max_abs_err, ms, plain_ms, bound_ms from this run's shapes), then the
+    from the exact float path, S1's and S2's from the two-phase path,
+    max_abs_err, ms, plain_ms, bound_ms from this run's shapes, library_ms
+    where a PyTorch call computes the same: S2's torch.sort), then the
     final ok line.
 
 Before the summary it prints its own wall time.  Any failed phase raises
@@ -312,6 +338,8 @@ It never falls back to the CPU.
 Usage: python chip_smoke.py [--trace-dir DIR]   (DIR keeps the traces)
        python chip_smoke.py --mesh-only   (build, then phases 8a-8f alone,
                                            no summary)
+       python chip_smoke.py --twophase-only  (build, then phases 9a-9c
+                                              alone, no summary)
 """
 
 import argparse
@@ -329,6 +357,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VGA = (480, 640)
 HD = (1080, 1920)  # BASELINE config 3's frames
+HW4K = (2160, 3840)  # BASELINE config 5's frames
 BATCH = 8
 MODEL_NAMES = ("flagship_synth_64", "flagship_hard_64", "flagship_hard_256")
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_vga_golden.npz")
@@ -375,6 +404,17 @@ KERNELS = {
                         "waldboost_tpu_torch/csrc/grad_hist_float.cu",
                         "waldboost_tpu/ops/channels_pallas.py:405 (float_dd, "
                         ":373)"),
+    # S1 and S2 replace XLA operations of two-phase serving, not a
+    # pallas_call
+    "cascade_suffix": ("waldboost_tpu_torch.ops.cascade",
+                       "cascade_suffix_launches",
+                       "waldboost_tpu_torch/csrc/cascade.cu",
+                       "replaces the XLA op waldboost_tpu/ops/cascade.py:476 "
+                       "(cascade_suffix_sparse)"),
+    "compact": ("waldboost_tpu_torch.ops.nms", "compact_launches",
+                "waldboost_tpu_torch/csrc/compact.cu",
+                "replaces the XLA op waldboost_tpu/parallel/detect.py:759 "
+                "(approx_max_k, recall_target=1.0)"),
 }
 #: the fast serving mode's golden (scripts/make_torch_fast_golden.py)
 FAST_GOLDEN = os.path.join(ROOT, "tests", "data",
@@ -461,6 +501,23 @@ B3F_EDGES = (((8, 8), 1, (3, 50), 3, 0), ((8, 8), 1, (40, 205), 1, 1),
              ((12, 12), 4, (37, 140), 3, 0), ((12, 12), 4, (37, 140), 3, 1),
              ((24, 24), 4, (9, 61), 1, 0), ((24, 24), 4, (45, 176), 3, 0),
              ((12, 12), 5, (21, 130), 1, 0), ((12, 12), 5, (50, 148), 3, 1))
+
+
+def deep_model(wt, synth, dev, drng=None):
+    """The seeded 40-stage model of depth-5 trees (GENERAL node records)
+    with the flagship's window and channel options, on ``dev``, drawn
+    from ``drng`` (``RandomState(1)`` when None; advanced)."""
+    if drng is None:
+        drng = np.random.RandomState(1)
+    deep_stages, deep_theta = [], []
+    for t in range(40):
+        s = random_deep_stage(drng, (12, 12), 4, depth=5)
+        s["threshold"] = drng.uniform(0, 300, len(s["threshold"])) \
+            .astype(np.float32)
+        deep_stages.append(s)
+        deep_theta.append(-0.6 - 0.1 * t if t % 2 else -np.inf)
+    return wt.model_from_stages(synth.shape, synth.channel_opts, deep_stages,
+                                deep_theta, device=dev)
 
 
 def static_operands(casc_mod, stages, theta, window, n_channels, dev):
@@ -733,6 +790,45 @@ def trace_breakdown(trace, window):
     return {"window_ms": (w1 - w0) / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / (w1 - w0),
             "n_device_events": len(dev), "layers": per}
+
+
+def trace_workload(workload, fn, batches, n, metric, trace_dir=None):
+    """``n`` calls of ``fn`` on the batches in turn, each ending in a
+    synchronize, traced by torch.profiler in one ``smoke.window`` span:
+    prints the window, the device busy time and each ``wb.*`` span's host
+    and device time, and reports the device idle share (the trace kept
+    in ``trace_dir`` when given)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn(batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.window"):
+            for r in range(n):
+                fn(batches[r % len(batches)])
+                torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json", dir=trace_dir)
+    os.close(fd)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        bd = trace_breakdown(json.load(f), "smoke.window")
+    if trace_dir is None:
+        os.remove(path)
+    else:
+        os.replace(path, os.path.join(trace_dir, f"{workload}.json"))
+    print(f"trace {workload}: {n} batches in {bd['window_ms']:.3f} ms, "
+          f"device busy {bd['device_busy_ms']:.3f} ms "
+          f"({bd['n_device_events']} device events)")
+    for layer, t in bd["layers"].items():
+        print(f"  {layer}: host {t['host_ms']:.3f} ms, device "
+              f"{t['device_ms']:.3f} ms")
+    if bd["n_device_events"]:
+        metric(f"{workload}_device_idle_share", bd["device_idle_share"], "1")
+    else:
+        print(f"trace {workload}: the profiler recorded no device events; "
+              f"device idle share not measured")
+    return bd
 
 
 def stage_splits(trace, window):
@@ -2113,13 +2209,48 @@ def n_scales_golden_run(wt, dev, g):
 #: program over 8 devices, scripts/make_torch_mesh_golden.py), the frames
 #: a shard takes in 8a and 8b, and each launch counter's kernel function
 #: as a profiler trace names it (where a counter has its own function)
+TWOPHASE_GOLDEN = os.path.join(ROOT, "tests", "data",
+                               "torch_port_twophase_golden.npz")
+
+
+def twophase_golden_run(wt, dev, g, model, runs=None):
+    """The runs of tests/data/torch_port_twophase_golden.npz
+    (scripts/make_torch_twophase_golden.py; all, or those named in
+    ``runs``) on ``dev``: ``{run: list of the outputs that differ from the
+    golden}`` (every output whole, slot order included; tolerance 0) and
+    ``{run: the five outputs}``."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from make_torch_twophase_golden import (OUTPUTS, RUNS, frames_digest,
+                                            golden_frames)
+    frames = golden_frames()
+    require(frames_digest(frames) == str(g["frames_sha256"]),
+            "the two-phase golden's frames differ from its digest")
+    images = torch.from_numpy(frames).to(dev)
+    diffs, outs = {}, {}
+    for name, kw in RUNS.items():
+        if runs is not None and name not in runs:
+            continue
+        fn, _ = wt.make_batched_detector_boxes(model, frames.shape[1:],
+                                               device=dev, **kw)
+        res = [a.cpu().numpy() for a in fn(images)]
+        outs[name] = res
+        diffs[name] = [o for o, a in zip(OUTPUTS, res)
+                       if not (a.shape == g[f"{name}_{o}"].shape
+                               and np.array_equal(a, g[f"{name}_{o}"]))]
+    return diffs, outs
+
+
 MESH_GOLDEN = os.path.join(ROOT, "tests", "data",
                            "torch_port_mesh_golden.npz")
 MESH_SHARD_BATCH = 8
 TRACE_KERNELS = {"planes": "planes_kernel", "grad_hist": "grad_hist_kernel",
                  "cascade": "cascade_kernel", "fpga": "fpga_kernel",
                  "grad_hist_fast": "grad_hist_float_kernel",
-                 "cascade_fast": "cascade_fast_kernel"}
+                 "cascade_fast": "cascade_fast_kernel",
+                 "cascade_response": "cascade_kernel",
+                 "cascade_suffix": "suffix_kernel",
+                 "compact": "write_kernel"}
 #: the two-process run's own time limit (each rank)
 MP_TIMEOUT_S = 300
 
@@ -2601,6 +2732,258 @@ def mesh_phases(wt, dev, card, metric, zero, read, synth, scene_np, golden,
     return per_path
 
 
+#: phase 9: S1 and S2, and the two-phase path's kernels
+TP_KERNELS = ("cascade_suffix", "compact")
+TP_PATH = ("planes", "grad_hist", "cascade_response") + TP_KERNELS
+#: phase 9's overflowing two-phase setting
+TP_OVER = dict(prefix=2, capacity=512)
+
+
+class TpInputs:
+    """What a two-phase detector's ``finish`` gives S2 and S1 for a batch:
+    the canvas, the (B, GU * GV) masked prefix scores, the survivor
+    counts and the compacted (B, cap) lists; :meth:`calls` are S2's and
+    S1's calls and their plain versions on them."""
+
+    def __init__(self, det, images):
+        import torch
+        from waldboost_tpu_torch.ops.nms import compact_survivors
+        self.det = det
+        self.cv, hs1, alive1, _ = det.launch(images)
+        self.masked, self.count = det.prefix_survivors(hs1, alive1)
+        self.scores, self.idx = compact_survivors(self.masked, self.count,
+                                                  det.cap)
+        self.alive = torch.isfinite(self.scores)
+
+    def calls(self):
+        from waldboost_tpu_torch.ops import cascade as gen_mod
+        from waldboost_tpu_torch.ops import nms as nms_mod
+        d = self.det
+        args = (self.cv, d.prefix_step.ops, d.window, None, self.idx,
+                self.scores, self.alive, d.prefix)
+        return {
+            "compact": (
+                lambda: nms_mod.compact_survivors(self.masked, self.count,
+                                                  d.cap),
+                lambda: nms_mod.compact_survivors_plain(self.masked,
+                                                        self.count, d.cap)),
+            "cascade_suffix": (
+                lambda: gen_mod.cascade_suffix_sparse(*args),
+                lambda: gen_mod.cascade_suffix_sparse_plain(*args)),
+        }
+
+    def bounds(self, n_weak):
+        """``{kernel: (ms, bound_by)}``: S2 reads the map once and writes
+        the (B, cap) scores and int64 indices once; S1 reads and writes
+        the lists once (index, score, flag in; score, flag out), reads
+        three canvas values for each stage an entry enters (this run's
+        ``n_weak`` of the suffix) and the records once."""
+        B, cap = self.scores.shape
+        rec = self.det.prefix_step.ops.records(tuple(self.cv.shape[1:]))
+        return {"compact": bound(nbytes(self.masked) + B * cap * 12),
+                "cascade_suffix": bound(B * cap * 18 + n_weak * 3
+                                        * self.cv.element_size()
+                                        + nbytes(rec.data))}
+
+
+def batch_rate(fn, batches, reps):
+    """``(MP/s, p50 ms, p80 ms)`` of ``fn`` over the batches in turn: the
+    host clock around each call, each ending in a synchronize."""
+    import torch
+    for b in batches[:2]:
+        fn(b)
+    torch.cuda.synchronize()
+    ms, pixels = [], 0
+    for r in range(reps):
+        images = batches[r % len(batches)]
+        t = time.perf_counter()
+        fn(images)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        pixels += images.numel()
+    p50, p80 = np.percentile(ms, [50, 80])
+    return pixels / sum(ms) / 1e3, float(p50), float(p80)
+
+
+def twophase_mesh_run(wt, dev, mesh, label, synth, scene_np, zero, read):
+    """Phase 9c on ``mesh``: the VGA two-phase detector (k=1024, NMS 0.5)
+    over ``MESH_SHARD_BATCH`` scene frames a shard, bitwise the unsharded
+    detector's, its kernels launched once a shard, on the shard's card."""
+    from waldboost_tpu_torch.parallel.mesh import shard_array
+    import torch
+    n = mesh.size
+    kw = dict(k=1024, nms_iou=0.5, two_phase=True)
+    fs, _ = wt.make_batched_detector_boxes(synth, VGA, mesh=mesh, **kw)
+    fu, _ = wt.make_batched_detector_boxes(synth, VGA, device=dev, **kw)
+    shards = shard_array(np.concatenate([scene_np] * n), mesh)
+    what = f"phase 9c ({label})"
+    outs, got = mesh_launches(zero, read, lambda: fs(shards), TP_PATH, n,
+                              what)
+    mesh_blocks_equal(outs, fu(torch.from_numpy(scene_np).to(dev)), mesh,
+                      dev, what)
+    if any(d.index != dev.index for d in mesh.local_devices):
+        _, seen = kernel_devices(lambda: fs(shards))
+        require_on_devices(seen, TP_PATH, mesh, what)
+    print(f"{what}: {n} shards of {MESH_SHARD_BATCH} VGA scenes, two-phase "
+          f"bitwise the unsharded path; launches {got}")
+
+
+def twophase_phases(wt, dev, card, metric, zero, read, synth, noise, scene,
+                    scene_np):
+    """Phases 9a-9c: two-phase and row-wise batched serving and kernels
+    S1 and S2.  Returns the two-phase path's launches and, per kernel, its
+    largest error against its plain version over every check, ``(ms,
+    plain ms, library ms)`` and ``(bound ms, bound by)`` at VGA scenes
+    (``timing[k]``, ``bounds[k]``; 4K rows printed beside them)."""
+    import torch
+    t0 = time.perf_counter()
+    g = np.load(TWOPHASE_GOLDEN)
+
+    # -- 9a: the golden, every output whole and bitwise; each path's
+    # launches from counters set to 0 just before it
+    launches = {}
+    for path, runs in (("two-phase", ("tp", "tpo")), ("row-wise", ("row",))):
+        zero()
+        diffs, outs = twophase_golden_run(wt, dev, g, synth, runs)
+        torch.cuda.synchronize()
+        launches[path] = read()
+        bad = {k: v for k, v in diffs.items() if v}
+        require(not bad, f"phase 9a: {path} outputs differ from the golden: "
+                f"{bad}")
+        print(f"phase 9a: {path} {list(runs)} bitwise the golden (counts "
+              f"{[outs[r][3].tolist() for r in runs]}); launches "
+              f"{launches[path]}")
+    tp, row = launches["two-phase"], launches["row-wise"]
+    require(all(tp[k] > 0 for k in TP_PATH) and tp["cascade"] == 0,
+            f"phase 9a: the two-phase path launched {tp}")
+    require(all(row[k] > 0 for k in TP_PATH[:3])
+            and not any(row[k] for k in TP_KERNELS + ("cascade",)),
+            f"phase 9a: the row-wise path launched {row}")
+
+    # S1 and S2 against their plain versions on the card, bitwise, on the
+    # inputs the two-phase path gives them
+    fpga = wt.load(os.path.join(ROOT, "models", FPGA_MODELS[0] + ".pb"),
+                   device=dev)
+    hw4k = HW4K
+    gen = torch.Generator(device=dev).manual_seed(9)
+    noise4k = [torch.randint(0, 256, (BATCH,) + hw4k, generator=gen,
+                             dtype=torch.uint8, device=dev)
+               for _ in range(2)]
+    build = lambda m, hw, **kw: wt.make_batched_detector_boxes(
+        m, hw, device=dev, two_phase=True, **kw)[0]
+    dets = {"vga": build(synth, VGA), "vga128": build(synth, VGA, k=128),
+            "4k": build(fpga, hw4k, k=128, nms_iou=0.5)}
+    cases = {
+        "VGA noise": (dets["vga128"], noise[0]),
+        "VGA scenes": (dets["vga"], scene),
+        "VGA scenes overflow": (build(synth, VGA, **TP_OVER), scene),
+        "VGA scenes bf16 canvas": (build(synth, VGA, fast=True), scene),
+        "VGA scenes, deep40 (GENERAL records)": (
+            build(deep_model(wt, synth, dev), VGA), scene),
+        "4K noise": (dets["4k"], noise4k[0]),
+        "4K noise overflow": (build(fpga, hw4k, k=128, **TP_OVER),
+                              noise4k[0]),
+    }
+    errs = {k: 0.0 for k in TP_KERNELS}
+    timed = {}
+    for label, (det, images) in cases.items():
+        inp = TpInputs(det, images)
+        calls = inp.calls()
+        for kname, (call, plain) in calls.items():
+            got, want = call(), plain()
+            bad = sum(int((a != b).sum()) for a, b in zip(got, want))
+            errs[kname] = max([errs[kname]] + [max_abs_err(a, b) for a, b
+                                               in zip(got, want)])
+            print(f"phase 9a: {kname} {label}: {bad} mismatching elements "
+                  f"of {sum(a.numel() for a in want)}")
+            require(bad == 0, f"phase 9a: {kname} {label} differs from its "
+                    f"plain version")
+        suffix = calls["cascade_suffix"][0]()
+        print(f"phase 9a: {label}: cap {det.cap}, prefix survivors "
+              f"{inp.count.tolist()}, suffix survivors "
+              f"{suffix[1].sum(dim=1).tolist()}, suffix n_weak "
+              f"{suffix[2].tolist()}")
+        if label in ("VGA scenes", "4K noise"):
+            timed[label] = (inp, calls, int(suffix[2].sum()))
+        else:
+            del inp, calls, suffix
+
+    # -- 9b: each kernel beside its plain version and the library call
+    # (S2: one stable sort of the whole map), CUDA events, in turns
+    timing, bounds = {}, {}
+    for label, (inp, calls, n_weak) in timed.items():
+        b = inp.bounds(n_weak)
+        for kname, (call, plain) in calls.items():
+            ms = [cuda_ms(call, 20)]
+            plain_ms = cuda_ms(plain, 3)
+            lib = (lambda: torch.sort(inp.masked, dim=1, descending=True,
+                                      stable=True)) \
+                if kname == "compact" else None
+            lib_ms = cuda_ms(lib, 10) if lib else None
+            ms.append(cuda_ms(call, 20))
+            row = (float(np.mean(ms)), plain_ms, lib_ms)
+            if label == "VGA scenes":
+                timing[kname], bounds[kname] = row, b[kname]
+            lib_txt = "" if lib_ms is None else \
+                f", torch.sort of the map {lib_ms:.4f} ms"
+            print(f"phase 9b: {kname} {label} batch {BATCH}: {row[0]:.4f} "
+                  f"ms ({ms[0]:.4f}, {ms[1]:.4f}), plain {plain_ms:.4f} ms"
+                  f"{lib_txt}, bound {b[kname][0]:.5f} ms "
+                  f"({b[kname][1]}) ({card})")
+            tag = f"{kname}_{label.split()[0].lower()}"
+            metric(f"{tag}_ms", row[0], "ms")
+            if lib_ms is not None:
+                metric(f"{tag}_library_ms", lib_ms, "ms")
+        del calls
+    del timed
+
+    # two-phase against dense end to end, in turns: dense, two-phase,
+    # two-phase, dense
+    flips = [scene, torch.flip(scene, dims=[2])]
+    e2e = {
+        "vga_noise_k128": (build(synth, VGA, k=128, nms_iou=0.5),
+                           wt.make_batched_detector_boxes(
+                               synth, VGA, k=128, nms_iou=0.5,
+                               device=dev)[0], noise, 30),
+        "vga_scene_k1024": (build(synth, VGA, k=1024, nms_iou=0.5),
+                            wt.make_batched_detector_boxes(
+                                synth, VGA, k=1024, nms_iou=0.5,
+                                device=dev)[0], flips, 30),
+        "fpga_4k_quantized_k128": (dets["4k"], wt.make_batched_detector_boxes(
+            fpga, hw4k, k=128, nms_iou=0.5, device=dev)[0], noise4k, 10),
+    }
+    for workload, (two, dense, batches, reps) in e2e.items():
+        res = {"dense": [], "two_phase": []}
+        for which in ("dense", "two_phase", "two_phase", "dense"):
+            res[which].append(batch_rate(
+                two if which == "two_phase" else dense, batches, reps))
+        for which, runs in res.items():
+            mps = float(np.mean([r[0] for r in runs]))
+            metric(f"{workload}_{which}_mp_per_s", mps, "MP/s")
+            print(f"phase 9b: {workload} {which}: "
+                  + "; ".join(f"{r[0]:.1f} MP/s, p50 {r[1]:.3f} ms, p80 "
+                              f"{r[2]:.3f} ms" for r in runs)
+                  + f" ({card})")
+        for which, fn in (("dense", dense), ("two_phase", two)):
+            trace_workload(f"{workload}_{which}", fn, batches,
+                           3 if workload.startswith("fpga") else 10, metric)
+    del e2e, dets, cases, noise4k
+
+    # -- 9c: two-phase over the mesh: the card repeated, real cards too
+    meshes = [("4 shards on one card", wt.parallel.mesh.make_mesh(
+        devices=[dev] * 4))]
+    n = torch.cuda.device_count()
+    meshes += [(f"{k} cards", wt.parallel.mesh.make_mesh(n_devices=k))
+               for k in sorted({2, min(4, n)} if n >= 2 else ())]
+    for label, mesh in meshes:
+        twophase_mesh_run(wt, dev, mesh, label, synth, scene_np, zero, read)
+    if n < 2:
+        print(f"phase 9c: one card visible ({n}): the real-card meshes need "
+              f"two or more")
+    print(f"phases 9a-9c: {time.perf_counter() - t0:.1f} s")
+    return launches["two-phase"], errs, timing, bounds
+
+
 def main():
     import importlib
 
@@ -2611,6 +2994,8 @@ def main():
                     help="keep the profiler traces (Chrome JSON) here")
     ap.add_argument("--mesh-only", action="store_true",
                     help="build, then run phases 8a-8f alone (no summary)")
+    ap.add_argument("--twophase-only", action="store_true",
+                    help="build, then run phases 9a-9c alone (no summary)")
     args = ap.parse_args()
     started = time.perf_counter()
 
@@ -2691,6 +3076,14 @@ def main():
                           "device": device_name,
                           "power_limit": power_limit}))
 
+    if args.twophase_only:
+        twophase_phases(wt, dev, card, metric, zero_counters, read_counters,
+                        synth, noise, scene, scene_np)
+        print(f"chip_smoke --twophase-only wall time: "
+              f"{time.perf_counter() - started:.1f} s ({card}); phases 1 "
+              f"and 9a-9c passed, the others were not run")
+        return
+
     if args.mesh_only:
         mesh_phases(wt, dev, card, metric, zero_counters, read_counters,
                     synth, scene_np, golden, np.load(FAST_GOLDEN))
@@ -2752,15 +3145,7 @@ def main():
                 print(f"  alive {got[1].sum(dim=(1, 2)).tolist()}, n_weak "
                       f"{got[2].tolist()}")
     drng = np.random.RandomState(1)
-    deep_stages, deep_theta = [], []
-    for t in range(40):
-        s = random_deep_stage(drng, (12, 12), 4, depth=5)
-        s["threshold"] = drng.uniform(0, 300, len(s["threshold"])) \
-            .astype(np.float32)
-        deep_stages.append(s)
-        deep_theta.append(-0.6 - 0.1 * t if t % 2 else -np.inf)
-    deep = wt.model_from_stages(synth.shape, synth.channel_opts, deep_stages,
-                                deep_theta, device=dev)
+    deep = deep_model(wt, synth, dev, drng)
     tables = {"flagship_synth_64": synth._get_cascade(),
               "flagship_hard_256": hard256._get_cascade(),
               "deep40": deep._get_cascade()}
@@ -3146,7 +3531,7 @@ def main():
     print(f"Model-API path launches: {path_launches}")
     require(all(v > 0 for k, v in path_launches.items()
                 if k not in ("fpga", "grad_hist_fast", "cascade_fast",
-                             "grad_hist_float")),
+                             "grad_hist_float") + TP_KERNELS),
             "a kernel of the Model-API path was not launched")
 
     for name, (per, scan, scan_n_weak) in api.items():
@@ -4077,21 +4462,10 @@ def main():
 
     def e2e(workload, fn_, batches, reps=60):
         """Host clock per batch call, each ending in a synchronize."""
-        for b in batches[:2]:
-            fn_(b)
-        torch.cuda.synchronize()
-        ms, pixels = [], 0
-        for r in range(reps):
-            images = batches[r % len(batches)]
-            t = time.perf_counter()
-            fn_(images)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t) * 1e3)
-            pixels += images.numel()
-        med, p80 = np.percentile(ms, [50, 80])
-        metric(f"{workload}_mp_per_s", pixels / sum(ms) / 1e3, "MP/s")
-        metric(f"{workload}_batch_ms_p50", float(med), "ms")
-        metric(f"{workload}_batch_ms_p80", float(p80), "ms")
+        mps, med, p80 = batch_rate(fn_, batches, reps)
+        metric(f"{workload}_mp_per_s", mps, "MP/s")
+        metric(f"{workload}_batch_ms_p50", med, "ms")
+        metric(f"{workload}_batch_ms_p80", p80, "ms")
         print(f"{workload}: {reps} batches of {BATCH}")
 
     det128, _ = wt.make_batched_detector_boxes(synth, VGA, k=128,
@@ -4355,33 +4729,8 @@ def main():
     n_traced.update(dict.fromkeys(workloads5, 3))
     for workload, (fn_, batches) in {**workloads, **traced_fast,
                                      **workloads5}.items():
-        fn_(batches[0])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with record_function("smoke.window"):
-                for r in range(n_traced[workload]):
-                    fn_(batches[r % len(batches)])
-                    torch.cuda.synchronize()
-        path = os.path.join(trace_dir, f"{workload}.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            bd = trace_breakdown(json.load(f), "smoke.window")
-        if args.trace_dir is None:
-            os.remove(path)
-        print(f"trace {workload}: {n_traced[workload]} batches in "
-              f"{bd['window_ms']:.3f} ms, "
-              f"device busy {bd['device_busy_ms']:.3f} ms "
-              f"({bd['n_device_events']} device events)")
-        for layer, t in bd["layers"].items():
-            print(f"  {layer}: host {t['host_ms']:.3f} ms, device "
-                  f"{t['device_ms']:.3f} ms")
-        if bd["n_device_events"]:
-            metric(f"{workload}_device_idle_share", bd["device_idle_share"],
-                   "1")
-        else:
-            print(f"trace {workload}: the profiler recorded no device "
-                  f"events; device idle share not measured")
+        trace_workload(workload, fn_, batches, n_traced[workload], metric,
+                       trace_dir if args.trace_dir else None)
     # config 4: 6 more stages traced in one train call; a callback closes
     # each stage's span at the stage's end and opens the next one
     stage_span = []
@@ -4476,6 +4825,14 @@ def main():
     print(f"mesh path launches (4 shards on one card): "
           f"{json.dumps(mesh_path_launches)}")
 
+    # -- phases 9a-9c: two-phase and row-wise serving, S1 and S2 ------------
+    tp_launches, tp_errs, tp_timing, tp_bounds = twophase_phases(
+        wt, dev, card, metric, zero_counters, read_counters, synth, noise,
+        scene, scene_np)
+    errs.update(tp_errs)
+    timing.update(tp_timing)
+    bounds.update(tp_bounds)
+
     print(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s "
           f"({card})")
     # launches: the Model-API path's, B5's from the config-5 path, B2f's
@@ -4483,13 +4840,15 @@ def main():
     launches = dict(path_launches, fpga=fpga_launches["fpga"],
                     grad_hist_fast=fast_launches["grad_hist_fast"],
                     cascade_fast=fast_launches["cascade_fast"],
-                    grad_hist_float=float_launches["grad_hist_float"])
+                    grad_hist_float=float_launches["grad_hist_float"],
+                    cascade_suffix=tp_launches["cascade_suffix"],
+                    compact=tp_launches["compact"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": timing[name][0], "plain_ms": timing[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None}
+         "library_ms": timing[name][2] if len(timing[name]) > 2 else None}
         for name, (_, _, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

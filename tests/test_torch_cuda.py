@@ -829,3 +829,37 @@ def test_mesh_on_card(cuda):
         trained, _ = device_train_golden_run(
             wt, dev, np.load(DEVICE_TRAIN_GOLDEN), mesh=mesh)
         assert len(trained) == 6
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_compact_and_suffix_match_plain_on_card(cuda, overflow):
+    """Kernels S2 (compact_survivors) and S1 (cascade_suffix_sparse) on the
+    card, bitwise their plain versions on the same CUDA tensors, on the
+    inputs the flagship's two-phase detector gives them (VGA scenes), with
+    a capacity the prefix survivors fit and one they overflow; S1 also
+    over the bfloat16 canvas of fast mode."""
+    from chip_smoke import TpInputs, scene_batch
+    model = wt.load(FLAGSHIP)
+    scene = scene_batch(4).to(cuda)
+    kw = dict(prefix=2, capacity=512) if overflow else {}
+    for fast in (False, True):
+        det, _ = wt.make_batched_detector_boxes(model, (480, 640),
+                                                device=cuda, two_phase=True,
+                                                fast=fast, **kw)
+        inp = TpInputs(det, scene)
+        if overflow:
+            assert bool((inp.count > det.cap).any())
+        for kernel, (call, plain) in inp.calls().items():
+            for got, want in zip(call(), plain()):
+                assert got.device == want.device == inp.cv.device
+                assert torch.equal(got, want), kernel
+
+
+def test_twophase_golden_on_card(cuda):
+    """Two-phase (JAX's defaults and an overflowing setting) and row-wise
+    serving on the flagship's VGA batch: every output bitwise the JAX
+    golden (tests/data/torch_port_twophase_golden.npz)."""
+    from chip_smoke import TWOPHASE_GOLDEN, twophase_golden_run
+    diffs, _ = twophase_golden_run(wt, cuda, np.load(TWOPHASE_GOLDEN),
+                                   wt.load(FLAGSHIP))
+    assert not any(diffs.values()), diffs

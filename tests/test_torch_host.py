@@ -187,9 +187,17 @@ def test_port_import_leaves_jax_out():
 
 def test_unported_options_raise():
     _, tm = make_model_pair(n_stages=2)
-    with pytest.raises(NotImplementedError, match="A13"):
-        wt.make_batched_detector_boxes(tm, (48, 64), device="cpu",
-                                       two_phase=True)
+    # JAX's two_phase values all build now (A13's serving options)
+    from waldboost_tpu_torch.parallel.detect import (BatchedDetector,
+                                                     TwoPhaseDetector)
+    for two_phase, kind in (("auto", BatchedDetector),
+                            (False, BatchedDetector),
+                            (True, TwoPhaseDetector)):
+        fn, _ = wt.make_batched_detector_boxes(tm, (48, 64), device="cpu",
+                                               two_phase=two_phase)
+        assert isinstance(fn, kind)
+        assert fn(torch.zeros((1, 48, 64), dtype=torch.uint8))[3].shape \
+            == (1,)
     with pytest.raises(ValueError):
         wt.make_batched_detector_boxes(tm, (48, 64), n_scales=0,
                                        device="cpu")

@@ -24,7 +24,10 @@ The detection paths:
   because the TPU's gathers and device-to-host link are slow (ROADMAP
   A13); it returns the same survivors, scores and n_weak whenever it does
   not overflow, and falls back to the dense path when it does.  The port
-  runs the dense path always.
+  runs the dense path always (``TWO_PHASE_PREFIX`` and
+  ``TWO_PHASE_CAPACITY`` are JAX's constants of that path, kept for its
+  callers; batched two-phase serving is
+  ``make_batched_detector_boxes(two_phase=True)``).
 * ``scan_packed``, ``scan_packed_batch``, ``predict_on_image`` and
   ``scan_channels`` (per level, over ``channels``' pyramid): kernel B6
   over the padded runtime tables of :meth:`Model._get_cascade`;
@@ -59,7 +62,13 @@ from .ops.cascade_static import (CascadeOperands, StaticCascade,
 from .ops.nms import nms_device, topk_detections
 from .packing import PackedPyramidPlan, _packed_plan_cached
 
-__all__ = ["Model", "load", "detect_multi", "shared_plan"]
+__all__ = ["Model", "load", "detect_multi", "shared_plan",
+           "TWO_PHASE_PREFIX", "TWO_PHASE_CAPACITY"]
+
+#: JAX's two-phase ``Model.detect``: the prefix's stages and the survivor
+#: capacity (the port's ``detect`` is dense; see the module docstring)
+TWO_PHASE_PREFIX = 12
+TWO_PHASE_CAPACITY = 4096
 
 
 def stage_from_fields(tree: Dict) -> Dict[str, np.ndarray]:
@@ -217,13 +226,13 @@ class Model:
     def __iter__(self):
         yield from zip(self.stages, self.theta)
 
-    def append(self, stage, theta: float) -> None:
-        """Add a stage: a stage dict or a weak learner with
+    def append(self, weak, theta: float) -> None:
+        """Add a stage: ``weak`` is a stage dict or a weak learner with
         ``to_stage_dict()`` (a :class:`~waldboost_tpu_torch.training.DTree`).
         ``theta`` is kept as its float32 value, which the cascades compare
         against (JAX keeps the float64 value and compares in float32)."""
-        if hasattr(stage, "to_stage_dict"):
-            stage = stage.to_stage_dict()
+        stage = weak.to_stage_dict() if hasattr(weak, "to_stage_dict") \
+            else weak
         self.stages.append({
             "feature": np.asarray(stage["feature"], np.int32).reshape(-1, 3),
             "threshold": np.asarray(stage["threshold"], np.float32),

@@ -20,10 +20,18 @@ stage in order: ``n_weak`` counts the stage if it is active, the tree
 walk adds the leaf to ``hs`` in f32 from 0, and the window dies when
 ``hs >= theta`` fails.  A dead window keeps the ``hs`` of the stage it died
 in; an origin outside the mask keeps 0.
+
+:func:`cascade_suffix_sparse` (two-phase serving's suffix, the
+counterpart of JAX's XLA function of that name) walks stages ``[start,
+T)`` over a list of window origins from their prefix scores: kernel S1
+(``csrc/cascade.cu``, ``wb_cascade_suffix``) on a CUDA tensor,
+:func:`cascade_suffix_sparse_plain` on a CPU tensor; both read the
+tables of :func:`node_records`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -31,6 +39,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .._build import check, load_library
 from ..device import resolve_device
 
 __all__ = ["Cascade", "CascadeMeta", "NEG_INF", "MAX_COMPLETE_DEPTH",
@@ -41,10 +50,14 @@ __all__ = ["Cascade", "CascadeMeta", "NEG_INF", "MAX_COMPLETE_DEPTH",
            "front_footprint", "FrontRecords", "front_records",
            "stack_node_table", "cascade_from_stages", "lockstep",
            "cascade_response_grid", "cascade_response_grid_plain",
-           "cascade_survivor_counts", "cascade_predict_samples"]
+           "cascade_survivor_counts", "cascade_predict_samples",
+           "slice_cascade", "cascade_suffix_sparse",
+           "cascade_suffix_sparse_plain"]
 
 #: kernel launches made by :func:`cascade_response_grid`
 cascade_generic_launches = 0
+#: kernel launches made by :func:`cascade_suffix_sparse` (S1)
+cascade_suffix_launches = 0
 
 NEG_INF = np.float32(-np.inf)
 
@@ -590,6 +603,176 @@ def cascade_response_grid_plain(canvas: torch.Tensor, casc: Cascade,
     """Plain-torch version of :func:`cascade_response_grid` (kernel B6)."""
     batched, cv, valid = _grid_args(canvas, casc, window, valid)
     return _unbatch(batched, *_plain(cv, casc, valid))
+
+
+# ---------------------------------------------------------------------------
+# two-phase serving's suffix: kernel S1
+# ---------------------------------------------------------------------------
+
+def slice_cascade(casc: Cascade, start: int, stop: int) -> Cascade:
+    """Stages ``[start, stop)`` of a cascade (views of its tables)."""
+    return Cascade(*(getattr(casc, f.name)[start:stop]
+                     for f in dataclasses.fields(casc)))
+
+
+def _suffix_tables(casc, shape):
+    """``(tab, theta, counts, records)`` of a :class:`Cascade` (stages
+    counted where ``active``) or of a ``cascade_static.CascadeOperands``
+    (every stage counted, theta -inf where not finite) for a (C, H, W)
+    canvas."""
+    if isinstance(casc, Cascade):
+        h = casc.host
+        return h, h["theta"], h["active"], casc.records(shape)
+    return (vars(casc.sc), casc.theta, np.ones(casc.sc.n_stages, bool),
+            casc.records(shape))
+
+
+def _suffix_args(chns, casc, window, idx, scores, alive, start, content_hw):
+    if chns.dtype not in (torch.float32, torch.bfloat16) \
+            or chns.dim() not in (3, 4):
+        raise ValueError("cascade_suffix_sparse: canvas must be (C, H, W) "
+                         "or (B, C, H, W) float32 or bfloat16")
+    batched = chns.dim() == 4
+    cv = chns if batched else chns.unsqueeze(0)
+    if not cv.is_contiguous():
+        raise ValueError("cascade_suffix_sparse: canvas must be contiguous")
+    lists = [x if batched else x.unsqueeze(0) for x in (idx, scores, alive)]
+    B = cv.shape[0]
+    S = lists[0].shape[-1]
+    if any(tuple(x.shape) != (B, S) for x in lists):
+        raise ValueError(f"cascade_suffix_sparse: idx, scores and alive must "
+                         f"be ({B}, S) lists")
+    if any(x.device != cv.device for x in lists):
+        raise ValueError("cascade_suffix_sparse: canvas and lists on "
+                         "different devices")
+    if int(start) < 0:
+        raise ValueError(f"start must be >= 0, got {start}")
+    m, n = window
+    gv = (content_hw[1] if content_hw is not None else cv.shape[3]) - n
+    if gv <= 0:
+        raise ValueError("cascade_suffix_sparse: the window is wider than "
+                         "the canvas")
+    idx, scores, alive = (lists[0].to(torch.int64).contiguous(),
+                          lists[1].to(torch.float32).contiguous(),
+                          lists[2].to(torch.bool).contiguous())
+    return batched, cv, idx, scores, alive, gv
+
+
+def _unbatch_list(batched, H, alive, n_weak):
+    return (H, alive, n_weak) if batched else (H[0], alive[0], n_weak[0])
+
+
+def cascade_suffix_sparse(chns: torch.Tensor, casc, window: Tuple[int, int],
+                          meta, idx: torch.Tensor, scores: torch.Tensor,
+                          alive: torch.Tensor, start: int,
+                          content_hw: Optional[Tuple[int, int]] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stages ``[start, T)`` of ``casc`` over a list of window origins.
+
+    ``chns`` is a (C, H, W) canvas or a (B, C, H, W) batch, float32 or
+    bfloat16 (each value widened to f32 at its read); ``idx`` (S,) or
+    (B, S) flat origin indices ``r * gv + c`` into the window grid, whose
+    width ``gv`` is ``W - n`` (``content_hw[1] - n`` when given: the
+    canvas is then an allocation whose top-left block is the content);
+    ``scores`` the entries' scores after the first ``start`` stages and
+    ``alive`` their flags.  ``casc`` is a :class:`Cascade` (n_weak counts
+    the stages whose ``active`` flag is set) or a frozen cascade's
+    ``CascadeOperands`` (every stage counts).  ``meta`` is JAX's
+    :class:`CascadeMeta`; the records carry the tree layout, so it is not
+    read.
+
+    Returns ``(H, alive, n_weak)``: each entry's score after stage T - 1
+    (a rejected entry keeps the score of the stage it died in, a dead one
+    its input score), its flag, and the int32 count of stages entries
+    entered alive (per image for a batch).  Kernel S1 on a CUDA tensor,
+    :func:`cascade_suffix_sparse_plain` on a CPU tensor."""
+    batched, cv, idx, scores, alive, gv = _suffix_args(
+        chns, casc, window, idx, scores, alive, start, content_hw)
+    if cv.device.type == "cpu":
+        return _unbatch_list(batched, *_suffix_plain(cv, casc, idx, scores,
+                                                     alive, start, gv))
+    if cv.device.type != "cuda":
+        raise ValueError(f"cascade: unsupported device {cv.device}")
+    global cascade_suffix_launches
+    _, _, _, rec = _suffix_tables(casc, tuple(cv.shape[1:]))
+    if rec.data.device != cv.device:
+        raise ValueError("cascade_suffix_sparse: canvas and tables on "
+                         "different devices")
+    B, C, H, W = cv.shape
+    S = idx.shape[1]
+    T, NN = _n_stages_nodes(casc)
+    h_out = torch.empty((B, S), dtype=torch.float32, device=cv.device)
+    a_out = torch.empty((B, S), dtype=torch.bool, device=cv.device)
+    n_weak = torch.zeros(B, dtype=torch.int32, device=cv.device)
+    fn = _suffix_entry()
+    with torch.cuda.device(cv.device):
+        err = fn(cv.data_ptr(), cv.element_size(), B, C, H, W, gv,
+                 idx.data_ptr(), scores.data_ptr(), alive.data_ptr(), S,
+                 rec.data.data_ptr(), rec.layout, T, int(start), NN,
+                 h_out.data_ptr(), a_out.data_ptr(), n_weak.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+    check(err, "wb_cascade_suffix kernel")
+    cascade_suffix_launches += 1
+    return _unbatch_list(batched, h_out, a_out, n_weak)
+
+
+def _n_stages_nodes(casc) -> Tuple[int, int]:
+    sc = casc if isinstance(casc, Cascade) else casc.sc
+    return int(sc.fr.shape[0]), int(sc.fr.shape[1])
+
+
+def _suffix_entry():
+    fn = load_library("cascade").wb_cascade_suffix
+    if fn.argtypes is None:
+        # canvas, element bytes, B, C, H, W, gv, idx, h_in, alive_in, S,
+        # records, layout, T, start, NN, h_out, alive_out, n_weak, stream
+        _VP, _CI = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [_VP] + [_CI] * 6 + [_VP] * 3 + [_CI, _VP] + \
+            [_CI] * 4 + [_VP] * 4
+        fn.restype = _CI
+    return fn
+
+
+def cascade_suffix_sparse_plain(chns: torch.Tensor, casc,
+                                window: Tuple[int, int], meta,
+                                idx: torch.Tensor, scores: torch.Tensor,
+                                alive: torch.Tensor, start: int,
+                                content_hw: Optional[Tuple[int, int]] = None):
+    """Plain-torch version of :func:`cascade_suffix_sparse` (kernel S1)."""
+    batched, cv, idx, scores, alive, gv = _suffix_args(
+        chns, casc, window, idx, scores, alive, start, content_hw)
+    return _unbatch_list(batched, *_suffix_plain(cv, casc, idx, scores,
+                                                 alive, start, gv))
+
+
+def _suffix_plain(cv, casc, idx, scores, alive, start, gv):
+    """Every entry through stages [start, T) in lockstep: per stage the
+    tree routed its depth in steps (a leaf routes to itself) over gathered
+    canvas values, then JAX's adds and compares."""
+    B, C, H, W = cv.shape
+    tab, theta, counts, _ = _suffix_tables(casc, (C, H, W))
+    flat = cv.reshape(B, -1).float()
+    base = torch.div(idx, gv, rounding_mode="floor") * W + idx % gv
+    off = torch.as_tensor((tab["fch"].astype(np.int64) * H + tab["fr"]) * W
+                          + tab["fc"], device=cv.device)
+    t_ = lambda k: torch.as_tensor(tab[k], device=cv.device)
+    thr, pred = t_("thr"), t_("pred")
+    left, right = t_("left").long(), t_("right").long()
+    Hs, alive = scores.clone(), alive.clone()
+    n_weak = torch.zeros(B, dtype=torch.int64, device=cv.device)
+    zero = torch.zeros((), dtype=torch.float32, device=cv.device)
+    for t in range(int(start), len(theta)):
+        node = torch.zeros_like(idx)
+        for _ in range(tree_depth(tab["left"][t], tab["right"][t])):
+            v = torch.gather(flat, 1, base + off[t][node])
+            nxt = torch.where(v <= thr[t][node], left[t][node],
+                              right[t][node])
+            node = torch.where(left[t][node] >= 0, nxt, node)
+        if counts[t]:
+            n_weak += alive.sum(dim=1)
+        Hs = Hs + torch.where(alive, pred[t][node], zero)
+        alive = alive & (Hs >= float(theta[t]))
+    return Hs, alive, n_weak.to(torch.int32)
 
 
 def cascade_survivor_counts(canvas: torch.Tensor, casc: Cascade,

@@ -1,8 +1,12 @@
-"""Survivor extraction and greedy NMS on the device (plain torch).
+"""Survivor extraction, compaction and greedy NMS on the device.
 
 Counterparts of ``waldboost_tpu/ops/nms.py::extract_detections_masked``,
-``topk_detections`` and ``nms_device``; the JAX package has no Pallas
-kernel here.
+``extract_detections_rowwise``, ``topk_detections`` and ``nms_device``
+(plain torch; the JAX package has no Pallas kernel here), and of the
+exact ``jax.lax.approx_max_k(masked, cap, recall_target=1.0)`` of
+two-phase serving (``waldboost_tpu/parallel/detect.py:759``):
+:func:`compact_survivors`, kernel S2 (``csrc/compact.cu``) on a CUDA
+tensor, its plain version on a CPU tensor.
 
 Extraction is an exact top-k: candidates are ordered by score descending,
 then by flat window-origin index ascending (a stable sort), so ``count ==
@@ -13,11 +17,21 @@ remaining candidate with ``iou > thr``.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
-__all__ = ["extract_detections", "topk_detections", "nms", "nms_device"]
+from .._build import check, load_library
+
+__all__ = ["extract_detections", "extract_detections_rowwise",
+           "compact_survivors", "compact_survivors_plain", "origin_boxes",
+           "topk_detections", "nms", "nms_device"]
+
+#: kernel launches made by :func:`compact_survivors` (S2)
+compact_launches = 0
+#: entries of one block of S2's count and write passes (csrc/compact.cu)
+COMPACT_TILE = 4096
 
 
 def extract_detections(masked: torch.Tensor, count: torch.Tensor,
@@ -44,16 +58,143 @@ def extract_detections(masked: torch.Tensor, count: torch.Tensor,
     count = torch.where(count <= k_eff, count, torch.full_like(count, -1))
     rs = torch.div(idx, gv, rounding_mode="floor")
     cs = idx % gv
+    rects = origin_boxes(rs, cs, valid, level_id, offsets, inv_scales, window)
+    if with_coords:
+        return rects, scores, valid, count, rs, cs
+    return rects, scores, valid, count
+
+
+def origin_boxes(rs, cs, valid, level_id, offsets, inv_scales, window):
+    """(..., 4) image-space XYXY float32 boxes of canvas origins ``rs``,
+    ``cs`` through the level maps; zeros where not ``valid``."""
     lid = torch.clamp(level_id[rs, cs], min=0)
     x1 = (cs - offsets[lid, 1]).to(torch.float32)
     y1 = (rs - offsets[lid, 0]).to(torch.float32)
     m, n = float(window[0]), float(window[1])
-    rects = torch.stack([x1, y1, x1 + n, y1 + m], dim=2)
-    rects = rects * inv_scales[lid].unsqueeze(2)
-    rects = torch.where(valid.unsqueeze(2), rects, torch.zeros_like(rects))
-    if with_coords:
-        return rects, scores, valid, count, rs, cs
+    rects = torch.stack([x1, y1, x1 + n, y1 + m], dim=-1)
+    rects = rects * inv_scales[lid].unsqueeze(-1)
+    return torch.where(valid.unsqueeze(-1), rects, torch.zeros_like(rects))
+
+
+def extract_detections_rowwise(hs: torch.Tensor, alive: torch.Tensor,
+                               level_id: torch.Tensor, offsets: torch.Tensor,
+                               inv_scales: torch.Tensor,
+                               window: Tuple[int, int], k_row: int = 16,
+                               k: int = 1024) -> Tuple[torch.Tensor, ...]:
+    """Boxes of (B, GU, GV) ``hs`` where ``alive``: each grid row's best
+    ``k_row`` survivors, then the best ``k`` of those (plain torch).
+
+    Both selections are stable descending sorts, so equal scores keep
+    ``lax.top_k``'s order (the lower index first): the result is JAX's
+    ``extract_detections_rowwise``.  Returns ``rects (B, k', 4)``,
+    ``scores``, ``valid`` (B, k') with ``k' = min(k, GU * min(k_row,
+    GV))``, and ``count`` (B,) int32: the survivor count, or -1 when it
+    exceeds ``k`` or a row holds more than ``k_row`` survivors."""
+    B, gu, gv = hs.shape
+    neg_inf = torch.tensor(float("-inf"), device=hs.device)
+    masked = torch.where(alive, hs, neg_inf)
+    count = alive.sum(dim=(1, 2), dtype=torch.int32)
+    row_over = alive.sum(dim=2, dtype=torch.int32).amax(dim=1) if gu \
+        else torch.zeros_like(count)
+    count = torch.where((row_over <= k_row) & (count <= k), count,
+                        torch.full_like(count, -1))
+    kr = min(k_row, gv)
+    cand, cols = torch.sort(masked, dim=2, descending=True, stable=True)
+    cand, cols = cand[:, :, :kr].reshape(B, -1), cols[:, :, :kr].reshape(B, -1)
+    k_eff = min(k, cand.shape[1])
+    scores, sel = torch.sort(cand, dim=1, descending=True, stable=True)
+    scores, sel = scores[:, :k_eff], sel[:, :k_eff]
+    rs = torch.div(sel, kr, rounding_mode="floor")
+    cs = torch.gather(cols, 1, sel)
+    valid = torch.isfinite(scores)
+    rects = origin_boxes(rs, cs, valid, level_id, offsets, inv_scales, window)
     return rects, scores, valid, count
+
+
+def _flat(masked: torch.Tensor, cap: int):
+    if masked.dtype != torch.float32 or masked.dim() < 1:
+        raise ValueError("compact_survivors: masked must be a float32 map")
+    batched = masked.dim() > 1
+    flat = (masked.reshape(masked.shape[0], -1) if batched
+            else masked.reshape(1, -1)).contiguous()
+    if not 0 <= int(cap) <= flat.shape[1]:
+        raise ValueError(f"compact_survivors: cap {cap} outside [0, "
+                         f"{flat.shape[1]}]")
+    return batched, flat
+
+
+def compact_survivors(masked: torch.Tensor, count: torch.Tensor, cap: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(scores, idx)``: per image of a (B, ...) masked score map (finite
+    where a window survived, -inf elsewhere) the ``cap`` best entries of
+    the flattened map, by score descending, then flat index ascending:
+    the stable descending sort of the map cut to ``cap`` (JAX's exact
+    ``approx_max_k``), as (B, cap) float32 scores and int64 flat indices.
+    ``count`` (B,) is each image's survivor count (its finite entries).
+
+    On a CUDA tensor, kernel S2 (``csrc/compact.cu``) writes the finite
+    entries in index order, then the first non-finite ones, into ``cap``
+    slots, or, when an image has more than ``cap`` survivors, into as
+    many slots as the largest count; a stable sort of those slots then
+    orders them.  Choosing the slots reads the counts on the host (one
+    synchronization); a count that differs from the map's finite entries
+    raises."""
+    batched, flat = _flat(masked, cap)
+    if flat.device.type == "cpu":
+        return compact_survivors_plain(masked, count, cap)
+    if flat.device.type != "cuda":
+        raise ValueError(f"compact_survivors: unsupported device "
+                         f"{flat.device}")
+    global compact_launches
+    B, n = flat.shape
+    dev = flat.device
+    n_blocks = -(-n // COMPACT_TILE)
+    offsets = torch.empty((B, n_blocks), dtype=torch.int32, device=dev)
+    totals = torch.zeros(B, dtype=torch.int32, device=dev)
+    lib = load_library("compact")
+    _signature(lib)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        check(lib.wb_compact_count(flat.data_ptr(), B, n, n_blocks,
+                                   offsets.data_ptr(), totals.data_ptr(),
+                                   stream), "wb_compact_count kernel")
+        both = torch.stack([totals, count.reshape(-1).to(dev, torch.int32)
+                            ]).cpu()
+        if not torch.equal(both[0], both[1]):
+            raise ValueError(f"compact_survivors: counts {both[1].tolist()} "
+                             f"differ from the map's survivors "
+                             f"{both[0].tolist()}")
+        n_out = max(int(cap), int(both[0].max()) if B else 0)
+        scores = torch.empty((B, n_out), dtype=torch.float32, device=dev)
+        idx = torch.empty((B, n_out), dtype=torch.int64, device=dev)
+        check(lib.wb_compact_write(flat.data_ptr(), B, n, n_blocks,
+                                   offsets.data_ptr(), totals.data_ptr(),
+                                   n_out, scores.data_ptr(), idx.data_ptr(),
+                                   stream), "wb_compact_write kernel")
+    compact_launches += 1
+    scores, perm = torch.sort(scores, dim=1, descending=True, stable=True)
+    scores, idx = scores[:, :cap], torch.gather(idx, 1, perm[:, :cap])
+    return (scores, idx) if batched else (scores[0], idx[0])
+
+
+def _signature(lib) -> None:
+    _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if lib.wb_compact_count.argtypes is None:
+        lib.wb_compact_count.argtypes = [_VP, _CI, _CL, _CI, _VP, _VP, _VP]
+        lib.wb_compact_count.restype = _CI
+        lib.wb_compact_write.argtypes = [_VP, _CI, _CL, _CI, _VP, _VP, _CI,
+                                         _VP, _VP, _VP]
+        lib.wb_compact_write.restype = _CI
+
+
+def compact_survivors_plain(masked: torch.Tensor, count: torch.Tensor,
+                            cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch version of :func:`compact_survivors` (kernel S2): the
+    stable descending sort of the whole flattened map, cut to ``cap``."""
+    batched, flat = _flat(masked, cap)
+    scores, idx = torch.sort(flat, dim=1, descending=True, stable=True)
+    scores, idx = scores[:, :cap], idx[:, :cap]
+    return (scores, idx) if batched else (scores[0], idx[0])
 
 
 def topk_detections(hs: torch.Tensor, alive: torch.Tensor,

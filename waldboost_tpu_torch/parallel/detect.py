@@ -2,16 +2,24 @@
 
 Counterpart of ``waldboost_tpu/parallel/detect.py``:
 ``make_batched_detector`` (unmasked maps through kernel B4, with the
-two-phase ``n_stages_cap``), ``make_batched_detector_boxes`` (its
-one-program masked path), ``make_multi_detector_boxes`` and
-``detect_batch``; ``BucketedDetector`` and ``make_bucket_detector_boxes``
-(any frame size) come from :mod:`.bucket`.  The main path for a (B, H, W)
-uint8 batch:
+two-phase ``n_stages_cap``), ``make_batched_detector_boxes`` (its masked
+path, and its two-phase and row-wise options),
+``make_multi_detector_boxes`` and ``detect_batch``; ``BucketedDetector``
+and ``make_bucket_detector_boxes`` (any frame size) come from
+:mod:`.bucket`.  The main path for a (B, H, W) uint8 batch:
 
     canvas    octaves, planes (B1), channel canvas (B2 grad_hist, B5 FPGA)
               (canvas.py)
     cascade   frozen cascade, masked score map (kernel B3, ops/cascade_static.py)
     extract   exact top-k boxes and greedy NMS     (ops/nms.py, plain torch)
+
+With ``two_phase=True`` (:class:`TwoPhaseDetector`) the cascade step is
+kernel B4 over the first ``prefix`` stages, the exact compaction of its
+survivors (kernel S2, ``ops/nms.py::compact_survivors``) and the walk of
+the remaining stages over them (kernel S1, ``ops/cascade.py::
+cascade_suffix_sparse``); with an ``extractor`` other than ``"approx"``
+(:class:`RowwiseDetector`) it is B4 over every stage and the row-wise
+extraction.
 
 Float32 frames take the f32 octave chain, the float64 plane build and
 kernel B2d in place of B1 and B2 (JAX's ``canvas_float_b``, exact float
@@ -48,12 +56,16 @@ from ..boxes import Boxes
 from ..canvas import (as_image, channel_canvas, is_image_space, serving_opts,
                       span, window_grid)
 from ..model import Model, shared_plan
+from ..ops.cascade import cascade_suffix_sparse
 from ..ops.cascade_static import cascade_masked, cascade_response
-from ..ops.nms import extract_detections, nms
+from ..ops.nms import (compact_survivors, extract_detections,
+                       extract_detections_rowwise, nms, origin_boxes)
 from ..packing import PackedPyramidPlan
 from .mesh import Mesh, as_shards, gather
 
-__all__ = ["BatchedDetector", "MeshDetector", "make_batched_detector",
+__all__ = ["BatchedDetector", "MeshDetector", "TwoPhaseDetector",
+           "RowwiseDetector", "TWO_PHASE_BATCH_PREFIX",
+           "TWO_PHASE_BATCH_CAPACITY", "make_batched_detector",
            "make_batched_detector_boxes", "make_multi_detector_boxes",
            "make_tile_sharded_detector", "detect_batch", "span",
            "BucketedDetector", "make_bucket_detector_boxes"]
@@ -261,14 +273,165 @@ def make_batched_detector(model: Model, image_shape: Tuple[int, int],
     return fn, packed
 
 
+#: two-phase batched serving's defaults (JAX's): the dense prefix's
+#: stages and the compaction's capacity
+TWO_PHASE_BATCH_PREFIX = 12
+TWO_PHASE_BATCH_CAPACITY = 8192
+
+
+class TwoPhaseDetector:
+    """Two-phase batched detection on one device; built by
+    :func:`make_batched_detector_boxes` with ``two_phase=True``.
+
+    :meth:`launch` queues the canvas and kernel B4 over the first
+    ``prefix`` stages; :meth:`finish` compacts each image's prefix
+    survivors to ``cap`` entries (kernel S2, which reads the survivor
+    counts on the host), walks the remaining stages over them (kernel S1)
+    and extracts the best ``k_out`` by final score, then by position in
+    the compacted list (``lax.top_k``'s order), as JAX's
+    ``_make_two_phase_detector_boxes`` does."""
+
+    def __init__(self, model: Model, packed: PackedPyramidPlan, image_shape,
+                 k: int, nms_iou: Optional[float], prefix: int,
+                 capacity: int, device, fast: bool, fast_float: str):
+        _, _, smooth, cf = serving_opts(model.channel_opts, model.shape[2])
+        self.prefix_step = ResponseDetector(model, packed, image_shape,
+                                            smooth, cf, device, prefix, fast,
+                                            fast_float)
+        self.device = device
+        self.grid = self.prefix_step.grid
+        self.window = model.shape[:2]
+        self.prefix = int(prefix)
+        self.nms_iou = nms_iou
+        gu, gv = self.grid.valid.shape
+        self.cap = min(int(capacity), max(gu * gv, 1))
+        self.k_out = min(int(k), self.cap)
+
+    def launch(self, images: torch.Tensor):
+        """The canvas and the prefix walk, queued; what :meth:`finish`
+        takes."""
+        B = _check_images(images, self.prefix_step.image_shape, self.device)
+        if not self.prefix_step.packed.levels:
+            return B
+        cv = self.prefix_step.canvas(images)
+        with span("wb.cascade"):
+            return (cv,) + cascade_response(cv, self.grid.valid,
+                                            self.prefix_step.ops, self.prefix)
+
+    @staticmethod
+    def prefix_survivors(hs1: torch.Tensor, alive1: torch.Tensor):
+        """``(masked, count)``: the prefix scores where alive, -inf
+        elsewhere, as a (B, GU * GV) map, and the (B,) int32 survivor
+        counts: what the compaction takes."""
+        masked = torch.where(alive1, hs1, torch.tensor(
+            float("-inf"), device=hs1.device)).reshape(hs1.shape[0], -1)
+        return masked, alive1.sum(dim=(1, 2), dtype=torch.int32)
+
+    def finish(self, launched):
+        """``(rects, scores, valid, count, n_weak)`` of a launched batch."""
+        if isinstance(launched, int):
+            return self._empty(launched)
+        cv, hs1, alive1, nw1 = launched
+        gv = hs1.shape[2]
+        neg_inf = torch.tensor(float("-inf"), device=self.device)
+        with span("wb.compact"):
+            masked, count1 = self.prefix_survivors(hs1, alive1)
+            scores_k, idx = compact_survivors(masked, count1, self.cap)
+            alive_k = torch.isfinite(scores_k)
+            complete = (count1 <= self.cap) & (
+                alive_k.sum(dim=1, dtype=torch.int32) == count1)
+        with span("wb.suffix"):
+            H, alive_s, nw2 = cascade_suffix_sparse(
+                cv, self.prefix_step.ops, self.window, None, idx, scores_k,
+                alive_k, self.prefix)
+        with span("wb.extract"):
+            n_surv = alive_s.sum(dim=1, dtype=torch.int32)
+            scores, sel = torch.sort(torch.where(alive_s, H, neg_inf), dim=1,
+                                     descending=True, stable=True)
+            scores, sel = scores[:, :self.k_out], sel[:, :self.k_out]
+            valid = torch.isfinite(scores)
+            at = torch.gather(idx, 1, sel)
+            g = self.grid
+            rects = origin_boxes(torch.div(at, gv, rounding_mode="floor"),
+                                 at % gv, valid, g.level_id, g.offsets,
+                                 g.inv_scales, self.window)
+            count = torch.where(complete & (n_surv <= self.k_out), n_surv,
+                                torch.full_like(n_surv, -1))
+        if self.nms_iou is not None:
+            with span("wb.nms"):
+                valid = valid & nms(rects, scores, valid,
+                                    float(self.nms_iou))
+        return rects, scores, valid, count, nw1 + nw2
+
+    def _empty(self, B: int):
+        """The outputs for frames too small for any level: ``k_out`` empty
+        slots a frame."""
+        z = lambda *s, dt: torch.zeros(s, dtype=dt, device=self.device)
+        return (z(B, self.k_out, 4, dt=torch.float32),
+                torch.full((B, self.k_out), float("-inf"),
+                           device=self.device),
+                z(B, self.k_out, dt=torch.bool), z(B, dt=torch.int32),
+                z(B, dt=torch.int32))
+
+    def __call__(self, images: torch.Tensor):
+        return self.finish(self.launch(images))
+
+
+class RowwiseDetector:
+    """Kernel B4 over every stage, then the row-wise extraction
+    (``ops/nms.py::extract_detections_rowwise``) and NMS, on one device;
+    built by :func:`make_batched_detector_boxes` with an ``extractor``
+    other than ``"approx"``.  Like JAX's, it returns n_weak whatever
+    ``with_n_weak`` says."""
+
+    def __init__(self, model: Model, packed: PackedPyramidPlan, image_shape,
+                 k: int, k_row: int, nms_iou: Optional[float], device,
+                 fast: bool, fast_float: str):
+        _, _, smooth, cf = serving_opts(model.channel_opts, model.shape[2])
+        self.walk = ResponseDetector(model, packed, image_shape, smooth, cf,
+                                     device, None, fast, fast_float)
+        self.device = device
+        self.window = model.shape[:2]
+        self.k, self.k_row = int(k), int(k_row)
+        self.nms_iou = nms_iou
+
+    def launch(self, images: torch.Tensor):
+        return self.walk.launch(images)
+
+    def finish(self, launched):
+        hs, alive, n_weak = launched
+        g = self.walk.grid
+        with span("wb.extract"):
+            rects, scores, valid, count = extract_detections_rowwise(
+                hs, alive, g.level_id, g.offsets, g.inv_scales, self.window,
+                self.k_row, self.k)
+        if self.nms_iou is not None:
+            with span("wb.nms"):
+                valid = valid & nms(rects, scores, valid,
+                                    float(self.nms_iou))
+        return rects, scores, valid, count, n_weak
+
+    def __call__(self, images: torch.Tensor):
+        return self.finish(self.launch(images))
+
+
+def _positive(name: str, value) -> int:
+    if isinstance(value, bool) or int(value) != value or int(value) < 1:
+        raise ValueError(f"{name} must be a positive int, got {value!r}")
+    return int(value)
+
+
 def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
                                 k: int = 1024,
                                 nms_iou: Optional[float] = None,
                                 with_n_weak: bool = True,
                                 device=None, mesh: Optional[Mesh] = None,
-                                two_phase: bool = False,
+                                two_phase="auto",
                                 n_scales: Optional[int] = None,
-                                fast: bool = False, fast_float: str = "f32"):
+                                fast: bool = False, fast_float: str = "f32",
+                                k_row: int = 16, extractor: str = "approx",
+                                prefix: int = TWO_PHASE_BATCH_PREFIX,
+                                capacity: int = TWO_PHASE_BATCH_CAPACITY):
     """Build a batched detector for ``model`` on ``image_shape`` frames.
 
     Returns ``(fn, packed)``; ``fn(images)`` takes a (B, H, W) uint8 or
@@ -293,21 +456,57 @@ def make_batched_detector_boxes(model: Model, image_shape: Tuple[int, int],
     ``n_scales`` serves only the pyramid's first ``n_scales`` levels (the
     single-scale workload at 1): their packed plan runs through the same
     canvas step, walk, extraction and NMS.
+
+    JAX's serving options, with JAX's defaults and outputs:
+
+    * ``two_phase``: ``True`` builds a :class:`TwoPhaseDetector`: B4 over
+      the first ``prefix`` stages, the exact compaction of each image's
+      prefix survivors to ``cap = min(capacity, GU * GV)`` entries (S2),
+      the remaining stages over them (S1), then the best ``min(k, cap)``.
+      ``count`` is -1 when the prefix survivors exceed ``cap`` (the
+      ``cap`` best of them are walked and returned) or the final ones
+      ``min(k, cap)``; ``n_weak`` is always counted (the prefix's plus the
+      walked entries'), and ``n_scales`` is not read (as in JAX).
+      ``"auto"`` and ``False`` build the dense path.
+    * ``extractor``: ``"approx"`` is the masked path above (JAX's
+      approximate extraction equals it whenever it is complete); any other
+      value builds a :class:`RowwiseDetector` (B4 over every stage, each
+      grid row's best ``k_row``, then the best ``k``; ``count`` -1 also
+      when a row holds more than ``k_row`` survivors; ``n_weak`` always
+      counted), which takes no ``n_scales``.
     """
-    if two_phase:
-        raise NotImplementedError("two-phase serving is not ported yet "
-                                  "(ROADMAP item A13)")
-    if n_scales is not None and (isinstance(n_scales, bool) or not
-                                 isinstance(n_scales, int) or n_scales < 1):
-        raise ValueError(f"n_scales must be a positive int, got "
-                         f"{n_scales!r}")
-    if int(k) < 1:
-        raise ValueError(f"k must be positive, got {k}")
+    if two_phase not in (True, False, "auto"):
+        raise ValueError(f"two_phase must be True, False or 'auto', got "
+                         f"{two_phase!r}")
+    if n_scales is not None:
+        _positive("n_scales", n_scales)
+    _positive("k", k)
     h, w = (int(s) for s in image_shape)
+    dev = None if mesh else model._device_for(device)
+    if two_phase is True:
+        prefix = int(prefix)
+        if prefix < 0:
+            raise ValueError(f"prefix must be >= 0, got {prefix}")
+        _positive("capacity", capacity)
+        packed, _, _ = model._plan((h, w))
+        fn = _on_mesh(mesh, lambda d: TwoPhaseDetector(
+            model, packed, (h, w), int(k), nms_iou, prefix, int(capacity), d,
+            fast, fast_float), dev)
+        return fn, packed
+    if extractor != "approx":
+        if n_scales is not None:
+            raise ValueError("n_scales requires the masked serving path "
+                             "(extractor='approx')")
+        _positive("k_row", k_row)
+        packed, _, _ = model._plan((h, w))
+        fn = _on_mesh(mesh, lambda d: RowwiseDetector(
+            model, packed, (h, w), int(k), int(k_row), nms_iou, d, fast,
+            fast_float), dev)
+        return fn, packed
     packed, _, _ = model._plan((h, w), n_scales)
     fn = _on_mesh(mesh, lambda d: BatchedDetector(
         model, packed, (h, w), int(k), nms_iou, with_n_weak, d, fast,
-        fast_float), None if mesh else model._device_for(device))
+        fast_float), dev)
     return fn, packed
 
 
@@ -500,15 +699,16 @@ def make_tile_sharded_detector(model: Model, image_shape: Tuple[int, int],
     return fn, fn.packed
 
 
-def detect_batch(model: Model, images, k: int = 4096, mesh=None
-                 ) -> List[Boxes]:
+def detect_batch(model: Model, images, k: int = 4096, mesh=None,
+                 k_row: int = 64) -> List[Boxes]:
     """Batched detection with extraction on the model's device (or over
     ``mesh``): one :class:`Boxes` per image (before NMS), the same
     survivor set as ``Model.detect``.  An image with more than ``k``
-    survivors falls back to ``Model.detect``."""
+    survivors falls back to ``Model.detect``.  ``k_row`` is passed on as
+    JAX passes it; the default extractor does not read it."""
     images = as_image(images, ndim=3)
     fn, _ = make_batched_detector_boxes(model, images.shape[1:], k=k,
-                                        mesh=mesh)
+                                        mesh=mesh, k_row=k_row)
     if mesh is None:
         outs = fn(torch.from_numpy(images).to(fn.device))
     else:

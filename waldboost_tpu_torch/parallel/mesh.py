@@ -44,6 +44,8 @@ class Mesh:
     devices: Tuple[torch.device, ...]
     rank: int = 0
     world: int = 1
+    #: the name of the one data axis (JAX's mesh axis name)
+    axis_name: str = DATA_AXIS
 
     @property
     def size(self) -> int:
@@ -69,12 +71,16 @@ def is_multiprocess(mesh: Optional[Mesh]) -> bool:
 
 
 def make_mesh(n_devices: Optional[int] = None,
-              devices: Optional[Sequence] = None) -> Mesh:
+              devices: Optional[Sequence] = None,
+              axis_name: str = DATA_AXIS) -> Mesh:
     """A mesh over this process's ``devices`` (the first ``n_devices`` of
     them), by default the visible CUDA devices, or the current one when a
     process group is initialized (one card per rank).  With a process
     group, every rank must call this with as many devices, and the mesh
-    spans all ranks in rank order."""
+    spans all ranks in rank order.  ``axis_name`` names its one axis, as
+    in JAX (:func:`shard_array` checks it)."""
+    if not isinstance(axis_name, str):
+        raise TypeError(f"axis_name must be a str, got {axis_name!r}")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass the mesh's devices, "
@@ -93,7 +99,7 @@ def make_mesh(n_devices: Optional[int] = None,
     if not devices:
         raise ValueError("a mesh needs at least one device")
     if not dist.is_initialized():
-        return Mesh(tuple(devices))
+        return Mesh(tuple(devices), axis_name=axis_name)
     world, rank = dist.get_world_size(), dist.get_rank()
     every = [None] * world
     dist.all_gather_object(every, [str(d) for d in devices])
@@ -101,7 +107,7 @@ def make_mesh(n_devices: Optional[int] = None,
         raise ValueError(f"every rank needs as many mesh devices; got "
                          f"{[len(ds) for ds in every]}")
     return Mesh(tuple(torch.device(d) for ds in every for d in ds), rank,
-                world)
+                world, axis_name)
 
 
 def _device(d) -> torch.device:
@@ -111,11 +117,16 @@ def _device(d) -> torch.device:
     return d
 
 
-def shard_array(x, mesh: Mesh) -> List[torch.Tensor]:
+def shard_array(x, mesh: Mesh, axis_name: str = DATA_AXIS
+                ) -> List[torch.Tensor]:
     """This process's shards of the full value ``x`` (numpy or a tensor):
     the leading dimension split into ``mesh.size`` equal blocks, each
     copied to its device (a shard never shares memory with ``x``).  Every
-    process passes the same ``x``."""
+    process passes the same ``x``.  ``axis_name`` must name the mesh's
+    axis (JAX rejects a name its mesh does not have)."""
+    if axis_name != mesh.axis_name:
+        raise ValueError(f"the mesh has no axis {axis_name!r} (its axis is "
+                         f"{mesh.axis_name!r})")
     x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                         else x)
     if x.dim() == 0 or x.shape[0] % mesh.size:
@@ -138,7 +149,7 @@ def as_shards(x, mesh: Mesh) -> List[torch.Tensor]:
                 raise ValueError(f"a shard on {s.device}, its mesh device "
                                  f"is {d}")
         return list(x)
-    return shard_array(x, mesh)
+    return shard_array(x, mesh, mesh.axis_name)
 
 
 def gather(shards: Sequence[torch.Tensor], mesh: Mesh,

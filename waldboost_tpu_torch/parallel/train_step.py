@@ -170,7 +170,8 @@ def make_train_step(alpha: float = 0.1, max_depth: int = 2, n_bins: int = 256,
         pools = [gather(as_shards(a, mesh), mesh)
                  for a in (x0, H0, v0, x1, H1, v1)]
         res = body(*pools, *args)
-        return res._replace(**{f: shard_array(getattr(res, f), mesh)
-                               for f in ("H0", "H1", "v0", "v1")})
+        return res._replace(**{
+            f: shard_array(getattr(res, f), mesh, mesh.axis_name)
+            for f in ("H0", "H1", "v0", "v1")})
 
     return step

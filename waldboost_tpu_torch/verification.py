@@ -274,7 +274,8 @@ class VerifierProgram:
             # imported here: the parallel package imports this module
             from .parallel.mesh import gather, shard_array
             return gather([self._run(x.device, x, h) for x, h in zip(
-                shard_array(X, self.mesh), shard_array(H, self.mesh))],
+                shard_array(X, self.mesh, self.mesh.axis_name),
+                shard_array(H, self.mesh, self.mesh.axis_name))],
                 self.mesh)
 
     def _run(self, device, X, H):
@@ -309,11 +310,13 @@ def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
 
 
 def verify_scores(module: VerifierCNN, params: Dict, X, H,
-                  device=None, mesh=None) -> np.ndarray:
+                  device=None, mesh=None, batch_size: int = 256
+                  ) -> np.ndarray:
     """``cnn(X) + H`` of (K, m, n, C) windows and (K,) scores (numpy) on
     ``device`` (the card when None), as a (K,) float32 numpy array; with
     ``mesh`` over its devices, the windows padded to a multiple of its
-    size (as the JAX package pads them)."""
+    size (as the JAX package pads them).  ``batch_size`` is accepted for
+    JAX's signature and, as there, not read: the windows go in one call."""
     X = np.asarray(X, np.float32)
     H = np.asarray(H, np.float32).ravel()
     k = X.shape[0]
