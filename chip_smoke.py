@@ -14,7 +14,8 @@ grad_mag, plain torch), CNN-verified detection, verifier training, the
 command-line tools (train, detect) with the native loader,
 single-scale serving (BASELINE config 1, n_scales), and all of it over
 several devices and processes (meshes, tile sharding, two ranks over
-torch.distributed), two-phase and row-wise batched serving, and checks
+torch.distributed), two-phase and row-wise batched serving, channel
+functions a user registers (the per-level canvas), and checks
 and times its eleven CUDA kernels
 (planes B1,
 grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
@@ -324,7 +325,27 @@ cascade_suffix S1, compact S2):
     9c. the two-phase detector over a mesh of the card repeated four
         times (and 2 and 4 real cards where present), 8 scenes a shard:
         bitwise the unsharded detector, each kernel once a shard;
-10. prints the per-kernel JSON summary (launches from the Model-API path,
+10. user channel functions through the per-level canvas (no kernel of
+    its own: plain torch, then B3):
+    10a. the flagship's 64 stages over "user_grad_hist", a registered
+        ChannelFunction whose fn is the port's grad_hist fn (no canvas
+        form), through make_batched_detector_boxes(k=1024, nms_iou=0.5) on
+        the VGA scene batch and a noise batch, the counters set to 0
+        first: all five outputs and the canvas inside the levels
+        (level_interior_mask) against the built-in kernel canvas's path,
+        every difference counted and printed; B3 launched, no channel
+        kernel (B1, B2, B2d, B2f, B5);
+    10b. the JAX-trained (12, 12, 2) model over "user_grad" (the image and
+        |gx|, chip_smoke.user_grad) of tests/data/
+        torch_port_custom_channels_golden.npz (scripts/
+        make_torch_custom_channels_golden.py) on its 8 VGA scenes of
+        scene_generator(seed=100), k 4096, no NMS: counts, validity, boxes
+        and scores bitwise;
+    10c. compute_pyramid on a VGA scene: the kernel canvas's levels, the
+        per-level route's and channel_pyramid's, bitwise;
+    10d. the VGA batch-8 canvas and whole detector call (k=1024, NMS 0.5)
+        of the per-level and the kernel canvas, in turns (CUDA events);
+11. prints the per-kernel JSON summary (launches from the Model-API path,
     B5's from the config-5 path, B2f's and B3f's from the fast path, B2d's
     from the exact float path, S1's and S2's from the two-phase path,
     max_abs_err, ms, plain_ms, bound_ms from this run's shapes, library_ms
@@ -339,6 +360,8 @@ Usage: python chip_smoke.py [--trace-dir DIR]   (DIR keeps the traces)
        python chip_smoke.py --mesh-only   (build, then phases 8a-8f alone,
                                            no summary)
        python chip_smoke.py --twophase-only  (build, then phases 9a-9c
+                                              alone, no summary)
+       python chip_smoke.py --channels-only  (build, then phases 10a-10d
                                               alone, no summary)
 """
 
@@ -570,6 +593,18 @@ def scene_batch(n, hw=VGA, seed=100):
     from waldboost_tpu_torch.utils import scene_generator
     gen = scene_generator(seed=seed, hw=hw)
     return torch.from_numpy(np.stack([next(gen)["image"] for _ in range(n)]))
+
+
+def user_grad(image):
+    """Phase 10's user channel function (torch): the image and ``|gx|`` of
+    ``ops.image.gradients`` as two float32 channels, registered as
+    ``"user_grad"``, as ``scripts/make_torch_custom_channels_golden.py``
+    registers its JAX twin."""
+    import torch
+    from waldboost_tpu_torch.ops.image import gradients
+    im = image.to(torch.float32)
+    gx, _ = gradients(im)
+    return torch.stack([im, gx.abs()])
 
 
 def previous_b3f(casc_mod, canvas, valid, ops):
@@ -2984,6 +3019,149 @@ def twophase_phases(wt, dev, card, metric, zero, read, synth, noise, scene,
     return launches["two-phase"], errs, timing, bounds
 
 
+#: phase 10: a JAX-trained model over the user channel function
+#: ``user_grad`` and its VGA golden (scripts/
+#: make_torch_custom_channels_golden.py)
+CUSTOM_GOLDEN = os.path.join(ROOT, "tests", "data",
+                             "torch_port_custom_channels_golden.npz")
+#: the per-level path runs B3 and no channel kernel
+PER_LEVEL_PATH = ("cascade",)
+CHANNEL_KERNELS = ("planes", "grad_hist", "grad_hist_float",
+                   "grad_hist_fast", "fpga")
+
+
+def custom_golden_run(wt, dev, g, tmp):
+    """The golden's ``user_grad`` model (its file bytes, loaded on the
+    card) over the golden's VGA scenes, ``make_batched_detector_boxes(k)``
+    (every survivor, no NMS): ``(diffs, count)`` with ``diffs`` the
+    mismatching elements of each output."""
+    import hashlib
+    import torch
+    path = os.path.join(tmp, "user_grad.pb")
+    with open(path, "wb") as f:
+        f.write(g["model"].tobytes())
+    model = wt.load(path, device=dev)
+    require(model.channel_opts["channels"].name == "user_grad",
+            "phase 10b: the golden model is not over user_grad")
+    frames = scene_batch(len(g["count"]), hw=VGA, seed=100)
+    require(hashlib.sha256(frames.numpy().tobytes()).hexdigest()
+            == str(g["frames_sha256"]), "phase 10b: the frames differ from "
+            "the golden's")
+    fn, _ = wt.make_batched_detector_boxes(model, VGA,
+                                           k=g["rects"].shape[1], device=dev)
+    rects, scores, valid, count, _ = (a.cpu().numpy()
+                                      for a in fn(frames.to(dev)))
+    torch.cuda.synchronize()
+    v = g["valid"]
+    diffs = {"count": int((count != g["count"]).sum()),
+             "valid": int((valid != v).sum()),
+             "rects": int((rects[v] != g["rects"][v]).sum()),
+             "scores": int((scores[v] != g["scores"][v]).sum())}
+    return diffs, count
+
+
+def channel_phases(wt, dev, card, metric, zero, read, synth, noise, scene):
+    """Phases 10a-10d: channel functions a user registers, served through
+    the per-level canvas.  Returns the per-level path's launches."""
+    import torch
+    from waldboost_tpu_torch.channels import (ChannelFunction,
+                                              channel_pyramid,
+                                              compute_pyramid, grad_hist,
+                                              register_channel_function)
+    t0 = time.perf_counter()
+    # -- 10a: the flagship over a user function computing grad_hist: every
+    # output and the canvas inside the levels against the kernel canvas's
+    register_channel_function(ChannelFunction("user_grad_hist",
+                                              grad_hist.fn, 4))
+    register_channel_function(ChannelFunction("user_grad", user_grad, 2))
+    user = wt.model_from_stages(
+        synth.shape, dict(synth.channel_opts, channels="user_grad_hist"),
+        synth.stages, synth.theta, device=dev)
+    kw = dict(k=1024, nms_iou=0.5)
+    det_k, packed = wt.make_batched_detector_boxes(synth, VGA, device=dev,
+                                                   **kw)
+    det_u, packed_u = wt.make_batched_detector_boxes(user, VGA, device=dev,
+                                                     **kw)
+    require(det_u.canvas.per_level and not det_k.canvas.per_level,
+            "phase 10a: the user model did not take the per-level canvas")
+    require(packed_u == packed, "phase 10a: the two plans differ")
+    inside = torch.as_tensor(packed.level_interior_mask(), device=dev)
+    names = ("rects", "scores", "valid", "count", "n_weak")
+    for label, batch in (("scenes", scene), ("noise", noise[0])):
+        zero()
+        got = det_u(batch)
+        torch.cuda.synchronize()
+        launches = read()
+        want = det_k(batch)
+        cu, ck = det_u.canvas(batch), det_k.canvas(batch)
+        Hc, Wc = cu.shape[-2:]
+        canvas_bad = int((cu[..., inside]
+                          != ck[..., :Hc, :Wc][..., inside]).sum())
+        bad = {n: int((a != b).sum()) for n, a, b in zip(names, got, want)}
+        print(f"phase 10a: {label}: per-level canvas against the kernel "
+              f"canvas inside the levels: {canvas_bad} of "
+              f"{int(inside.sum()) * cu.shape[0] * cu.shape[1]} values "
+              f"differ; outputs {bad} mismatching elements (counts "
+              f"{got[3].tolist()}); launches {launches}")
+        require(canvas_bad == 0 and not any(bad.values()),
+                f"phase 10a: {label}: the per-level path differs from the "
+                f"kernel canvas's")
+        require(all(launches[k] > 0 for k in PER_LEVEL_PATH)
+                and not any(launches[k] for k in CHANNEL_KERNELS),
+                f"phase 10a: the per-level path launched {launches}")
+    path_launches = launches
+
+    # -- 10b: the JAX-trained user_grad model against its golden
+    g = np.load(CUSTOM_GOLDEN)
+    with tempfile.TemporaryDirectory() as tmp:
+        diffs, count = custom_golden_run(wt, dev, g, tmp)
+    require(not any(diffs.values()), f"phase 10b: user_grad serving differs "
+            f"from the JAX golden: {diffs}")
+    print(f"phase 10b: user_grad ({len(g['count'])} VGA scenes, k "
+          f"{g['rects'].shape[1]}) bitwise the JAX golden (counts "
+          f"{count.tolist()})")
+
+    # -- 10c: compute_pyramid on a VGA frame: the kernel canvas's levels,
+    # the per-level route's and channel_pyramid's
+    frame = scene[0]
+    cut = compute_pyramid(frame, synth.channel_opts, device=dev)
+    lev = compute_pyramid(frame, user.channel_opts, device=dev)
+    hwc = list(channel_pyramid(frame.cpu().numpy(), synth.channel_opts,
+                               device=dev))
+    require(len(cut) == len(lev) == len(hwc) > 0,
+            "phase 10c: level counts differ")
+    n_bad = sum(int((a != b).sum()) for (a, _), (b, _) in zip(cut, lev))
+    n_bad += sum(int((a.permute(1, 2, 0).cpu() != torch.from_numpy(c))
+                     .sum()) for (a, _), (c, _) in zip(cut, hwc))
+    require(n_bad == 0 and all(sa == sb for (_, sa), (_, sb)
+                               in zip(cut, lev)),
+            f"phase 10c: compute_pyramid's routes differ ({n_bad} values)")
+    print(f"phase 10c: compute_pyramid on a VGA scene: {len(cut)} levels, "
+          f"the kernel canvas's cut, the per-level route and "
+          f"channel_pyramid bitwise")
+
+    # -- 10d: batch times, per-level against the kernel canvas, in turns
+    rows = {}
+    for which in ("kernel", "per-level", "per-level", "kernel"):
+        det = det_k if which == "kernel" else det_u
+        iters = 20 if which == "kernel" else 5
+        rows.setdefault(which, []).append(
+            (cuda_ms(lambda: det.canvas(scene), iters),
+             cuda_ms(lambda: det(scene), iters)))
+    for which, vals in rows.items():
+        canvas_ms = [v[0] for v in vals]
+        batch_ms = [v[1] for v in vals]
+        metric(f"vga_{which.replace('-', '_')}_canvas_ms", min(canvas_ms),
+               "ms")
+        metric(f"vga_{which.replace('-', '_')}_batch_ms", min(batch_ms),
+               "ms")
+        print(f"phase 10d: {which} canvas, VGA scenes batch {BATCH} "
+              f"({card}): canvas {canvas_ms} ms, whole detector call "
+              f"(k=1024, NMS 0.5) {batch_ms} ms (CUDA events)")
+    print(f"phases 10a-10d: {time.perf_counter() - t0:.1f} s")
+    return path_launches
+
+
 def main():
     import importlib
 
@@ -2996,6 +3174,9 @@ def main():
                     help="build, then run phases 8a-8f alone (no summary)")
     ap.add_argument("--twophase-only", action="store_true",
                     help="build, then run phases 9a-9c alone (no summary)")
+    ap.add_argument("--channels-only", action="store_true",
+                    help="build, then run phases 10a-10d alone (no "
+                    "summary)")
     args = ap.parse_args()
     started = time.perf_counter()
 
@@ -3082,6 +3263,14 @@ def main():
         print(f"chip_smoke --twophase-only wall time: "
               f"{time.perf_counter() - started:.1f} s ({card}); phases 1 "
               f"and 9a-9c passed, the others were not run")
+        return
+
+    if args.channels_only:
+        channel_phases(wt, dev, card, metric, zero_counters, read_counters,
+                       synth, noise, scene)
+        print(f"chip_smoke --channels-only wall time: "
+              f"{time.perf_counter() - started:.1f} s ({card}); phases 1 "
+              f"and 10a-10d passed, the others were not run")
         return
 
     if args.mesh_only:
@@ -4832,6 +5021,13 @@ def main():
     errs.update(tp_errs)
     timing.update(tp_timing)
     bounds.update(tp_bounds)
+
+    # -- phases 10a-10d: user channel functions, the per-level canvas -----
+    per_level_launches = channel_phases(wt, dev, card, metric,
+                                        zero_counters, read_counters, synth,
+                                        noise, scene)
+    print(f"per-level path launches (VGA noise batch): "
+          f"{json.dumps(per_level_launches)}")
 
     print(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s "
           f"({card})")

@@ -119,3 +119,187 @@ def test_port_accepts_jax_parameter_names(key):
 def test_exceptions_name_shared_definitions():
     for key, (names, why) in EXCEPTIONS.items():
         assert key in SHARED and names and why, key
+
+
+# ---------------------------------------------------------------------------
+# completeness: every public name of the JAX package exists in the port
+# ---------------------------------------------------------------------------
+
+#: public names of the JAX package the port does not define, with why:
+#: (module, name) -> reason; name "*" stands for the whole module, and a
+#: class's entry covers its members
+MISSING = {
+    ("ops.plane_pallas", "*"): "Pallas kernel B1 and its plans (queue B: "
+    "csrc/planes.cu)",
+    ("ops.channels_pallas", "*"): "Pallas kernels B2, B2d, B2f and B5 and "
+    "their plans (queue B: csrc/grad_hist*.cu, csrc/fpga.cu)",
+    ("ops.cascade_pallas", "*"): "Pallas kernel B6 (queue B: "
+    "csrc/cascade.cu)",
+    ("ops.cascade_static", "cascade_grid"): "the Pallas walk's grid plan",
+    ("ops.cascade_static", "BLOCK"): "the Pallas walk's block of origins",
+    ("ops.cascade_static", "cascade_masked_grid_static"): "Pallas kernel B3 "
+    "(queue B: csrc/cascade.cu, csrc/cascade_fast.cu)",
+    ("ops.cascade_static", "cascade_response_grid_static"): "Pallas kernel "
+    "B4 (queue B: csrc/cascade.cu)",
+    ("ops.dd", "*"): "double-float emulation of f64; the H100 has native "
+    "f64",
+    ("ops.warp", "*"): "the MXU selector-matmul resize and its halos; the "
+    "port gathers its taps",
+    ("ops.exact", "ProjectionPlan"): "f32 projection plans exact on the "
+    "TPU; the port projects in native f64",
+    ("ops.exact", "projection_plan"): "as ProjectionPlan",
+    ("ops.exact", "project_bins"): "as ProjectionPlan",
+    ("ops.exact", "combine4_exact"): "f32 emulation of an exact floor "
+    "division; the port divides int64",
+    ("ops.exact", "combine_kind"): "as combine4_exact",
+    ("ops.exact", "floor_colstage"): "as combine4_exact",
+    ("ops.exact", "floordiv_exact"): "as combine4_exact",
+    ("ops.exact", "floordiv_exact_rt"): "as combine4_exact",
+    ("ops.exact", "resize_exact_matmul"): "the MXU matmul resize",
+    ("ops.exact", "resize_exact_matmul_rt"): "the MXU matmul resize",
+    ("ops.exact", "resize_lerp_rt"): "the MXU matmul resize",
+    ("ops.image", "avg_pool_2_u8_matmul"): "the MXU form of avg_pool_2",
+    ("ops.image", "avg_pool_2_u8values_f32"): "the MXU form of avg_pool_2",
+    ("model", "DEEP_STATIC_MAX"): "the static Pallas walk's stage limit",
+    ("channels", "ChannelFunction.canvas_fn"): "an XLA callable; the port "
+    "has ChannelFunction.canvas",
+    ("channels", "ChannelFunction.canvas_fn_poly"): "an XLA callable",
+    ("channels", "ChannelFunction.poly_kernel"): "a Pallas callable",
+    ("channels", "ChannelFunction.poly_kernel_mask"): "a Pallas callable's "
+    "operand",
+    ("channels", "ChannelFunction.poly_kernel_smooth"): "a Pallas "
+    "callable's option",
+    ("channels", "CanvasCtx"): "internal to the XLA canvas callables",
+    ("parallel.mesh", "data_sharding"): "returns an XLA NamedSharding",
+    ("parallel.mesh", "replicated"): "returns an XLA NamedSharding",
+    ("proto", "*"): "protobuf; the port writes the same bytes "
+    "(model_io.py)",
+    ("proto.model_pb2", "*"): "protobuf, as proto",
+    ("polyphase_fused", "*"): "the TPU's fused selector-einsum plane build",
+    ("model", "set_channel_backend"): "A13's remainder: a switch among "
+    "JAX's TPU and XLA versions",
+    ("model", "set_cascade_backend"): "A13's remainder, as "
+    "set_channel_backend",
+    ("ops.fit", "hist_mode_from_env"): "A13's remainder, as "
+    "set_channel_backend",
+    ("model", "Model.as_proto"): "A13's remainder: protobuf objects",
+    ("model", "Model.from_proto"): "A13's remainder: protobuf objects",
+    ("mining", "prewarm_mining_buckets"): "A13's remainder: XLA compile "
+    "warm-up",
+    ("mining", "prewarm_next_mining_bucket"): "A13's remainder, as "
+    "prewarm_mining_buckets",
+    ("mining", "join_prewarm_threads"): "A13's remainder, as "
+    "prewarm_mining_buckets",
+    ("ops.nms", "extract_detections_approx"): "A13's remainder: the port's "
+    "exact extraction equals it whenever it is complete",
+}
+
+
+def package_modules(package):
+    """``module -> AST`` of a package (a subpackage under its own name)."""
+    out = {}
+    base = os.path.join(ROOT, package)
+    for dirpath, _, files in os.walk(base):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                mod = os.path.relpath(path, base)[:-3].replace(os.sep, ".")
+                if mod.endswith(".__init__"):
+                    mod = mod[:-len(".__init__")]
+                with open(path) as f:
+                    out[mod] = ast.parse(f.read())
+    return out
+
+
+def _targets(node):
+    ts = node.targets if isinstance(node, ast.Assign) else \
+        [node.target] if isinstance(node, ast.AnnAssign) else []
+    return [t.id for t in ts if isinstance(t, ast.Name)]
+
+
+def public_names(tree, defined_only):
+    """A module's public names: its top-level defs, classes and
+    assignments, its ``__all__``, and its public classes' public methods
+    and ``__call__``, class-level aliases (``a = b``) and annotated fields.
+    Without ``defined_only`` (the port's side) imported names and every
+    class-level assignment count as present too."""
+    out = set()
+    for node in tree.body:
+        out.update(_targets(node))
+        if isinstance(node, ast.Assign) and "__all__" in _targets(node):
+            out.update(e.value for e in node.value.elts)
+        if isinstance(node, (ast.Import, ast.ImportFrom)) \
+                and not defined_only:
+            out.update((a.asname or a.name).split(".")[0]
+                       for a in node.names)
+        if not isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            continue
+        out.add(node.name)
+        if not isinstance(node, ast.ClassDef) or node.name.startswith("_"):
+            continue
+        for sub in node.body:
+            if isinstance(sub, ast.FunctionDef):
+                if not sub.name.startswith("_") or sub.name == "__call__":
+                    out.add(f"{node.name}.{sub.name}")
+            elif isinstance(sub, ast.AnnAssign) or not defined_only or (
+                    isinstance(sub, ast.Assign)
+                    and isinstance(sub.value, ast.Name)):
+                out.update(f"{node.name}.{t}" for t in _targets(sub))
+    return {n for n in out
+            if not n.split(".")[-1].startswith("_") or n.endswith(".__call__")}
+
+
+JAX_MODULES = package_modules("waldboost_tpu")
+PORT_MODULES = package_modules("waldboost_tpu_torch")
+
+
+def missing_from_port():
+    """``(module, name)`` of every public JAX name the port lacks; a
+    missing module is ``(module, "*")``."""
+    out = set()
+    for mod, tree in JAX_MODULES.items():
+        if mod not in PORT_MODULES:
+            out.add((mod, "*"))
+            continue
+        have = public_names(PORT_MODULES[mod], defined_only=False)
+        out.update((mod, n) for n in public_names(tree, defined_only=True)
+                   - have)
+    return out
+
+
+def _excepted(key):
+    mod, name = key
+    return (mod, "*") in MISSING or (mod, name.split(".")[0]) in MISSING \
+        or key in MISSING
+
+
+def test_port_defines_every_public_jax_name():
+    """Every public def, class-level alias, dataclass field and ``__all__``
+    name of the JAX package exists at the same module path in the port,
+    save MISSING's exceptions; an exception that no longer applies
+    fails."""
+    missing = missing_from_port()
+    assert sorted(k for k in missing if not _excepted(k)) == []
+    used = {k for k in MISSING if k in missing
+            or any(m[0] == k[0] and m[1].split(".")[0] == k[1]
+                   for m in missing)}
+    assert sorted(set(MISSING) - used) == [], "exceptions that no longer " \
+        "apply"
+
+
+def test_completeness_check_sees_what_it_must():
+    """The walk finds the names it is meant to hold: functions, methods,
+    ``__call__``, class aliases, dataclass fields, constants, ``__all__``
+    entries; a name dropped from the port would show."""
+    names = public_names(JAX_MODULES["channels"], defined_only=True)
+    for n in ("compute_pyramid", "default_channel_opts",
+              "ChannelFunction.fn", "ChannelFunction.__call__",
+              "ChannelFunction.n_channels", "Level.scale"):
+        assert n in names, n
+    assert "Boxes.add_field" in public_names(JAX_MODULES["boxes"],
+                                             defined_only=True)
+    assert "PackedPyramidPlan.level_interior_mask" in public_names(
+        JAX_MODULES["packing"], defined_only=True)
+    port = public_names(PORT_MODULES["channels"], defined_only=False)
+    assert "ChannelFunction.fn" in port and "compute_pyramid" in port
+    assert ("ops.image", "*") not in missing_from_port()

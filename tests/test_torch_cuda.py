@@ -863,3 +863,30 @@ def test_twophase_golden_on_card(cuda):
     diffs, _ = twophase_golden_run(wt, cuda, np.load(TWOPHASE_GOLDEN),
                                    wt.load(FLAGSHIP))
     assert not any(diffs.values()), diffs
+
+
+def test_per_level_canvas_on_card(cuda, tmp_path):
+    """A user channel function's per-level canvas and compute_pyramid on
+    the card equal the CPU's bitwise (plain torch, no fused operation),
+    uint8 and float32 frames; the JAX-trained user_grad model serves its
+    golden (tests/data/torch_port_custom_channels_golden.npz) bitwise."""
+    from chip_smoke import CUSTOM_GOLDEN, custom_golden_run, user_grad
+    tch.register_channel_function(tch.ChannelFunction("user_grad",
+                                                      user_grad, 2))
+    cf = tch.resolve_channel_function("user_grad")
+    hw = (97, 131)
+    packed = packing._packed_plan_cached(*hw, 2, 3, (8, 8), halo=cf.halo)
+    imgs = _frames(2, hw, seed=31).numpy()
+    for x in (imgs, imgs.astype(np.float32) + 0.25):
+        got = channel_canvas(packed, hw, 1, cf, cuda)(
+            torch.from_numpy(x).to(cuda)).cpu()
+        want = channel_canvas(packed, hw, 1, cf, torch.device("cpu"))(
+            torch.from_numpy(x))
+        assert torch.equal(got, want)
+        opts = dict(shrink=2, n_per_oct=3, smooth=1, channels="user_grad")
+        for (a, sa), (b, sb) in zip(tch.compute_pyramid(x[0], opts, cuda),
+                                    tch.compute_pyramid(x[0], opts, "cpu")):
+            assert sa == sb and torch.equal(a.cpu(), b)
+    diffs, _ = custom_golden_run(wt, cuda, np.load(CUSTOM_GOLDEN),
+                                 str(tmp_path))
+    assert not any(diffs.values()), diffs

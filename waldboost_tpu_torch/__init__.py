@@ -32,7 +32,7 @@ import numpy as np
 from . import boxes as bbx  # noqa: F401  (host box lists)
 from . import fpga, groundtruth, testing, utils, verification  # noqa: F401
 from .boxes import Boxes
-from .channels import _normalize_opts, channel_pyramid
+from .channels import _normalize_opts, channel_pyramid, default_channel_opts
 from .convert import model_from_stages
 from .model import Model, detect_multi, load
 from .parallel.detect import (detect_batch, make_batched_detector,
@@ -45,7 +45,8 @@ __all__ = ["Boxes", "Model", "load", "load_model", "save", "save_model",
            "detect", "detect_multi", "detect_batch", "make_batched_detector",
            "make_batched_detector_boxes", "make_multi_detector_boxes",
            "model_from_stages", "train", "train_softcascade", "SamplePool",
-           "Learner", "DTree", "BasicRejectionSchedule"]
+           "Learner", "DTree", "BasicRejectionSchedule",
+           "default_channel_opts"]
 
 load_model = load
 

@@ -22,6 +22,13 @@ and its composites), the canvas is the JAX package's image-space one
 resized into one image-space canvas with reflected halos, the channel
 function over it, then the pool (shrink 2), the smooth and the mask.
 
+A channel function without a canvas form (``cf.canvas`` False: one a
+user registers, or a composite with such a part) takes the per-level
+canvas (:func:`per_level_canvas`, the JAX package's
+``_channel_canvas_per_level``): each level's channels computed on its own
+from ``cf.fn`` (``channels.py::level_channels``, plain torch), cast to
+float32 and written at the level's place, zero elsewhere.
+
 In fast serving mode (``fast=True``, JAX's ``WB_SERVING_MODE=fast``)
 grad_hist takes kernel B2f and the canvas is bfloat16; float32 frames are
 served too: f32 octave chain, float planes (``ops/planes.py::
@@ -50,8 +57,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .channels import (ChannelFunction, _normalize_opts, octave_chain,
-                       octave_chain_f32)
+from .channels import (ChannelFunction, _normalize_opts, level_channels,
+                       level_octaves, octave_chain, octave_chain_f32)
 from .fpga.channels import fpga_kernel_masks
 from .ops.channels import grad_hist, grad_hist_fast, grad_hist_float
 from .ops.fpga import fpga_channels, fpga_channels_float
@@ -66,7 +73,8 @@ from .polyphase import float_plane_tables, plane_tables
 FAST_FLOAT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 __all__ = ["ChannelCanvas", "WindowGrid", "channel_canvas", "window_grid",
-           "serving_opts", "as_image", "span"]
+           "serving_opts", "as_image", "span", "per_level_canvas",
+           "is_kernel_canvas"]
 
 
 def span(name: str):
@@ -110,8 +118,34 @@ def as_image(image, ndim: int = 2) -> np.ndarray:
 
 def is_image_space(packed: PackedPyramidPlan, cf: ChannelFunction) -> bool:
     """Whether the canvas is built in image space: shrink 1, or a channel
-    function with no polyphase form."""
-    return packed.shrink == 1 or not cf.poly
+    function with no polyphase form (among those with a canvas form)."""
+    return cf.canvas and (packed.shrink == 1 or not cf.poly)
+
+
+def is_kernel_canvas(packed: PackedPyramidPlan, cf: ChannelFunction) -> bool:
+    """Whether the canvas comes from the polyphase kernels (B1 with B2,
+    B2d, B2f or B5), not from the image-space or the per-level canvas."""
+    return cf.canvas and not is_image_space(packed, cf)
+
+
+def per_level_canvas(images: torch.Tensor, packed: PackedPyramidPlan,
+                     smooth: int, cf: ChannelFunction) -> torch.Tensor:
+    """(B, C, Hc, Wc) float32 canvas of a (B, H, W) batch of any frame
+    type: each level of ``packed`` computed on its own
+    (:func:`~.channels.level_channels` of the octave chain), cast to
+    float32 and written at its ``(y, x)``; zero elsewhere."""
+    B = images.shape[0]
+    canvas = torch.zeros((B, cf.n_channels, packed.canvas_h, packed.canvas_w),
+                         dtype=torch.float32, device=images.device)
+    if not packed.levels:
+        return canvas
+    octaves = level_octaves(images, max(pl.level.octave
+                                        for pl in packed.levels) + 1)
+    for pl in packed.levels:
+        lv = pl.level
+        canvas[:, :, pl.y:pl.y + lv.out_height, pl.x:pl.x + lv.out_width] = \
+            level_channels(octaves[lv.octave], lv, packed.shrink, smooth, cf)
+    return canvas
 
 
 class ChannelCanvas:
@@ -127,7 +161,11 @@ class ChannelCanvas:
     smooth (:meth:`channels`), plain torch; with ``fast`` the exact canvas
     rounded to bfloat16, as the JAX package's batched detector walks it
     when it does not count n_weak (``parallel/detect.py::
-    serving_canvas``)."""
+    serving_canvas``).
+
+    ``per_level`` (a function without a canvas form): :func:`per_level_canvas`
+    in one call (:meth:`__call__` only), bfloat16 with ``fast`` as the
+    image-space canvas is."""
 
     def __init__(self, packed: PackedPyramidPlan, image_shape: Tuple[int, int],
                  smooth: int, cf: ChannelFunction, device: torch.device,
@@ -149,7 +187,10 @@ class ChannelCanvas:
         self.n_octaves = max((pl.level.octave for pl in packed.levels),
                              default=-1) + 1
         self.image_space = is_image_space(packed, cf)
-        if self.image_space:
+        self.per_level = not cf.canvas
+        if self.per_level:
+            ring = interior = None
+        elif self.image_space:
             # image-space masks: the stencil border (FPGA kinds) and the
             # smooth interior, bool
             ring = packed.stencil_border_mask() \
@@ -243,6 +284,11 @@ class ChannelCanvas:
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
         """(B, C, Hc, Wc) canvas of a (B, H, W) uint8 or float32 batch:
         float32, bfloat16 in fast mode (grad_hist)."""
+        if self.per_level:
+            with span("wb.channels"):
+                chns = per_level_canvas(images, self.packed, self.smooth,
+                                        self.cf)
+            return chns.to(torch.bfloat16) if self.fast else chns
         with span("wb.octaves"):
             octs = self.octaves(images)
         with span("wb.planes"):

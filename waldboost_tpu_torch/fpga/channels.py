@@ -10,34 +10,49 @@ under the JAX package's names and aliases, the reference's
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..channels import ChannelFunction, register_channel_function
+from ..ops.image_canvas import fpga_responses, sobel
 from ..packing import PackedPyramidPlan
 
 __all__ = ["grad_hist_4_u1", "grad_mag_u1", "fpga_kernel_masks"]
 
 
+def _fpga_fn(kind: str, image: torch.Tensor) -> torch.Tensor:
+    """(..., C, H, W) uint8 channels of an FPGA ``kind`` of (..., H, W)
+    images: the int32 Sobel with zero borders, ``min(|r| // 4, 255)``
+    (``waldboost_tpu/fpga/channels.py::_grad_hist_4_u1_fn``,
+    ``_grad_mag_u1_fn``)."""
+    return fpga_responses(kind, *sobel(image)).to(torch.uint8)
+
+
 grad_hist_4_u1 = register_channel_function(ChannelFunction(
     name="waldboost_tpu.fpga.channels.grad_hist_4_u1",
+    fn=functools.partial(_fpga_fn, "grad_hist_4_u1"),
     n_channels=4,
     aliases=("grad_hist_4_u1", "waldboost.fpga.channels.grad_hist_4_u1",
              "waldboost.fpga.nb_channels.grad_hist_4_u1"),
     halo=0,
     boundary="stencil_zero",
     fused_kind="grad_hist_4_u1",
+    canvas=True,
 ))
 
 grad_mag_u1 = register_channel_function(ChannelFunction(
     name="waldboost_tpu.fpga.channels.grad_mag_u1",
+    fn=functools.partial(_fpga_fn, "grad_mag_u1"),
     n_channels=1,
     aliases=("grad_mag_u1", "waldboost.fpga.channels.grad_mag_u1",
              "waldboost.fpga.nb_channels.grad_mag_u1"),
     halo=0,
     boundary="stencil_zero",
     fused_kind="grad_mag_u1",
+    canvas=True,
 ))
 
 

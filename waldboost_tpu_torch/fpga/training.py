@@ -22,6 +22,10 @@ from .banks import BankScheduler, PixelBanks
 
 __all__ = ["DTree", "train"]
 
+#: this module's logger, as in the JAX package (``train`` logs to
+#: ``logger_`` or ``"WaldBoost/FPGA"``)
+logger = logging.getLogger(__name__)
+
 
 class DTree:
     """FPGA weak-learner fit: depth-restricted features, integer thresholds,

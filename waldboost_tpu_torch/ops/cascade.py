@@ -51,6 +51,7 @@ __all__ = ["Cascade", "CascadeMeta", "NEG_INF", "MAX_COMPLETE_DEPTH",
            "stack_node_table", "cascade_from_stages", "lockstep",
            "cascade_response_grid", "cascade_response_grid_plain",
            "cascade_survivor_counts", "cascade_predict_samples",
+           "cascade_stage_responses",
            "slice_cascade", "cascade_suffix_sparse",
            "cascade_suffix_sparse_plain"]
 
@@ -490,6 +491,27 @@ def _stage_response(canvas: torch.Tensor, tab: dict, t: int, gu: int,
                            resp(int(right[node])))
 
     return resp(0)
+
+
+def cascade_stage_responses(chns: torch.Tensor, casc: Cascade,
+                            window: Tuple[int, int], meta) -> torch.Tensor:
+    """Per-stage weak responses of every window origin of a (C, U, V)
+    channel tensor: (T, GU, GV) float32 with ``(GU, GV) = (U - m, V - n)``,
+    each stage's tree walked at every origin regardless of rejection (a
+    stage's response depends only on the channels), for offline threshold
+    calibration; padding stages give 0.  Plain torch on the tables'
+    device.  ``meta`` (a :class:`CascadeMeta` or a depth) is JAX's; the
+    walk follows each tree's own children, complete heaps and general
+    tables alike."""
+    C, U, V = chns.shape
+    m, n = window
+    gu, gv = max(U - m, 0), max(V - n, 0)
+    canvas = chns.to(casc.device, torch.float32)[None]
+    tab = casc.host
+    return torch.stack([
+        _stage_response(canvas, tab, t, gu, gv).expand(1, gu, gv)[0]
+        for t in range(casc.n_stages)]) if casc.n_stages else \
+        torch.zeros((0, gu, gv), dtype=torch.float32, device=casc.device)
 
 
 def lockstep(canvas: torch.Tensor, valid: torch.Tensor, tab: dict,

@@ -34,8 +34,9 @@ import torch
 
 from .._build import check, load_library
 
-__all__ = ["N_BINS", "grad_hist", "grad_hist_plain", "grad_hist_float",
-           "grad_hist_float_plain", "grad_hist_fast", "grad_hist_fast_plain"]
+__all__ = ["N_BINS", "project_bins", "grad_hist", "grad_hist_plain",
+           "grad_hist_float", "grad_hist_float_plain", "grad_hist_fast",
+           "grad_hist_fast_plain"]
 
 N_BINS = 4
 _THETA = np.linspace(0, np.pi, N_BINS + 1)[:-1]
@@ -79,6 +80,14 @@ def _check(planes: torch.Tensor, mask: Optional[torch.Tensor],
                              "devices")
     if planes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"grad_hist: unsupported device {planes.device}")
+
+
+def project_bins(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """grad_hist's (..., 4, H, W) float32 bins of (..., H, W) gradients:
+    ``abs(f32(f64(gx)*cos - f64(gy)*sin))`` per bin."""
+    gx, gy = gx.double(), gy.double()
+    return torch.stack([(gx * COS[k] - gy * SIN[k]).to(torch.float32).abs()
+                        for k in range(N_BINS)], dim=-3)
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int

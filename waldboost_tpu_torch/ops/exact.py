@@ -1,6 +1,8 @@
 """Exact rational taps of the uint8 bilinear resize (host side).
 
-Counterpart of ``waldboost_tpu/ops/exact.py:axis_taps_exact``.  On the GPU
+Counterpart of ``waldboost_tpu/ops/exact.py:axis_taps_exact`` and of
+``waldboost_tpu/ops/warp.py::resize_taps64`` (the float64 taps of float
+frames).  On the GPU
 the exact floor of the 4-corner combine is plain integer arithmetic,
 ``floor(N / (den_r * den_c))`` on an int32 numerator (ops/planes.py), so
 none of the JAX package's f32 emulation cases are needed.
@@ -13,7 +15,7 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["axis_taps_exact"]
+__all__ = ["axis_taps_exact", "resize_taps64"]
 
 
 def axis_taps_exact(n_in: int, n_out: int
@@ -49,3 +51,15 @@ def axis_taps_exact(n_in: int, n_out: int
         raise ValueError(f"resize {n_in}->{n_out}: denominator {den} "
                          "exceeds 2**15")
     return i0.astype(np.int32), fnum.astype(np.int32), int(den)
+
+
+def resize_taps64(n_in: int, n_out: int):
+    """``(i0 int32 (n_out,), frac float64 (n_out,))``: output row r of a
+    half-pixel-centre bilinear resize with edge clamping blends input rows
+    ``i0[r]`` and ``min(i0[r] + 1, n_in - 1)`` with weight ``frac[r]``
+    (``waldboost_tpu/ops/warp.py::resize_taps64``)."""
+    coords = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    coords = np.clip(coords, 0.0, n_in - 1.0)
+    i0 = np.floor(coords).astype(np.int64)
+    i0 = np.minimum(i0, max(n_in - 2, 0))
+    return i0.astype(np.int32), coords - i0

@@ -53,11 +53,13 @@ import torch
 from ..channels import ChannelFunction, resolve_channel_function
 from ..packing import PackedPyramidPlan
 from ..polyphase import _octave_layout, resize_taps64
-from .channels import COS, N_BINS, SIN
+from .channels import project_bins
+from .image import (avg_pool_2, gradients, pad_reflect, smooth_3x3, taps,
+                    triangle_kernel)
 
 __all__ = ["ImageCanvasTables", "image_canvas_tables", "reflect_map",
            "ImageCanvasOperands", "resize_image", "image_channels",
-           "pool_smooth", "triangle_kernel"]
+           "pool_smooth", "sobel", "fpga_responses"]
 
 #: canonical names of the float family's single functions
 GRAD_HIST = "waldboost_tpu.channels.grad_hist"
@@ -242,51 +244,6 @@ def resize_image(octs: torch.Tensor, ops: ImageCanvasOperands
     return out.view((B,) + tuple(ops.host.canvas_hw))
 
 
-def _pad_sym(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
-    """Symmetric padding ``d c b a | a b c d`` by ``n`` along ``dim``."""
-    size = x.shape[dim]
-    head = x.narrow(dim, 0, n).flip(dim)
-    tail = x.narrow(dim, size - n, n).flip(dim)
-    return torch.cat([head, x, tail], dim)
-
-
-def _taps(x: torch.Tensor, dim: int, lo: int, hi: int):
-    """``x`` along ``dim`` from ``lo`` to ``size - hi``: the window of a
-    padded array's tap at offset ``lo``."""
-    return x.narrow(dim, lo, x.shape[dim] - lo - hi)
-
-
-def _prefilter(x: torch.Tensor, dim: int, wide: bool) -> torch.Tensor:
-    """[1, 2, 1] along ``dim`` of a 1-padded float32 array: ``wide``,
-    summed in float64 as scipy's symmetric correlation, ``2*b + (a + c)``,
-    and rounded to float32 once; else ``(a + 2b) + c`` in float32."""
-    a, b, c = _taps(x, dim, 0, 2), _taps(x, dim, 1, 1), _taps(x, dim, 2, 0)
-    if not wide:
-        return a + 2.0 * b + c
-    return (b.double() * 2.0 + (a.double() + c.double())).to(torch.float32)
-
-
-def gradients(x: torch.Tensor, wide: bool
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(gx, gy)`` of (..., H, W) float32 images, symmetric-reflect edges
-    (``waldboost_tpu/ops/image.py::gradients``; ``wide`` its ``float_dd``
-    prefilter)."""
-    t = _prefilter(_pad_sym(x, 1, -1), -1, wide)
-    t = _pad_sym(t, 1, -2)
-    gy = t[..., :-2, :] - t[..., 2:, :]
-    s = _prefilter(_pad_sym(x, 1, -2), -2, wide)
-    s = _pad_sym(s, 1, -1)
-    gx = s[..., :, :-2] - s[..., :, 2:]
-    return gx, gy
-
-
-def triangle_kernel(n: int) -> np.ndarray:
-    """The normalised float32 triangle kernel of radius ``n``."""
-    H = (np.concatenate([np.arange(n + 1), np.arange(n - 1, -1, -1)])
-         + 1).astype(np.float32)
-    return H / H.sum()
-
-
 #: grad_mag's normalisation: triangle radius and epsilon
 NORM, EPS = 5, 1e-3
 
@@ -296,18 +253,12 @@ def _triangle(x: torch.Tensor, dim: int) -> torch.Tensor:
     edges, summed in float64 as scipy's symmetric correlation (centre tap,
     then ``(x[i-j] + x[i+j]) * w[j]`` for j = 5 .. 1) and rounded once."""
     w = [float(v) for v in triangle_kernel(NORM)[NORM:]]  # centre outwards
-    xp = _pad_sym(x, NORM, dim).double()
-    tap = lambda j: _taps(xp, dim, NORM + j, NORM - j)
+    xp = pad_reflect(x, NORM, dim).double()
+    tap = lambda j: taps(xp, dim, NORM + j, NORM - j)
     out = tap(0) * w[0]
     for j in range(NORM, 0, -1):
         out = out + (tap(-j) + tap(j)) * w[j]
     return out.to(torch.float32)
-
-
-def _grad_hist(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
-    gx, gy = gx.double(), gy.double()
-    return torch.stack([(gx * COS[k] - gy * SIN[k]).to(torch.float32).abs()
-                        for k in range(N_BINS)], dim=1)
 
 
 def _grad_mag(gx: torch.Tensor, gy: torch.Tensor,
@@ -321,9 +272,9 @@ def _grad_mag(gx: torch.Tensor, gy: torch.Tensor,
     return (mag / (nrm + EPS))[:, None]
 
 
-def _sobel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """int32 (dx, dy) of (B, H, W) canvases truncated to int32, zero on the
-    canvas border (``waldboost_tpu/fpga/channels.py::_sobel_int32``)."""
+def sobel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int32 (dx, dy) of (..., H, W) images truncated to int32, zero on the
+    border (``waldboost_tpu/fpga/channels.py::_sobel_int32``)."""
     xi = x.to(torch.int32)
     dxr = xi[..., :, 2:] - xi[..., :, :-2]
     dx = dxr[..., :-2, :] + 2 * dxr[..., 1:-1, :] + dxr[..., 2:, :]
@@ -333,11 +284,11 @@ def _sobel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return pad(dx), pad(dy)
 
 
-def _fpga(kind: str, dx: torch.Tensor, dy: torch.Tensor,
-          border: torch.Tensor) -> torch.Tensor:
-    """``min(|r| // 4, 255)`` of each response of an FPGA kind, 0 off the
-    stencil border mask; the half-integer orientations truncate toward
-    zero."""
+def fpga_responses(kind: str, dx: torch.Tensor, dy: torch.Tensor
+                   ) -> torch.Tensor:
+    """(..., C, H, W) int32 ``min(|r| // 4, 255)`` of each response of an
+    FPGA kind to :func:`sobel`'s gradients; the half-integer orientations
+    truncate toward zero."""
     if kind == "grad_hist_4_u1":
         rs = [dx, torch.div(dx - dy, 2, rounding_mode="trunc"), dy,
               torch.div(dx + dy, 2, rounding_mode="trunc")]
@@ -345,9 +296,8 @@ def _fpga(kind: str, dx: torch.Tensor, dy: torch.Tensor,
         rs = [torch.maximum(dx.abs(), dy.abs())]
     else:
         raise ValueError(f"unknown FPGA kind {kind!r}")
-    q = torch.stack([torch.clamp(r.abs() // 4, max=255) for r in rs], dim=1)
-    return torch.where(border, q, torch.zeros((), dtype=q.dtype,
-                                              device=q.device))
+    return torch.stack([torch.clamp(r.abs() // 4, max=255) for r in rs],
+                       dim=-3)
 
 
 def image_channels(x: torch.Tensor, cf: ChannelFunction,
@@ -357,17 +307,19 @@ def image_channels(x: torch.Tensor, cf: ChannelFunction,
     ``cf``'s single functions in channel order, float32 (the FPGA kinds
     integer-valued).  ``rmap`` is the device :func:`reflect_map` (grad_mag),
     ``border`` the (H, W) bool stencil border mask (FPGA kinds)."""
-    sobel = None
+    grads = None
     outs = []
     for name in cf.leaves():
         kind = resolve_channel_function(name).fused_kind
         if kind is not None:
-            sobel = sobel or _sobel(x)
-            outs.append(_fpga(kind, *sobel, border).to(torch.float32))
+            grads = grads or sobel(x)
+            q = fpga_responses(kind, *grads)
+            outs.append(torch.where(border, q, torch.zeros_like(q))
+                        .to(torch.float32))
         elif name == GRAD_HIST:
-            outs.append(_grad_hist(*gradients(x, wide=True)))
+            outs.append(project_bins(*gradients(x, float_dd=True)))
         elif name == GRAD_MAG:
-            outs.append(_grad_mag(*gradients(x, wide=False), rmap))
+            outs.append(_grad_mag(*gradients(x), rmap))
         else:
             raise ValueError(f"no image-space canvas for {name!r}")
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
@@ -381,20 +333,11 @@ def pool_smooth(chns: torch.Tensor, shrink: int, smooth: int,
     (``integer``: truncated, as the reference's uint8 channels are), 0 off
     the ``interior`` mask, of (B, C, H, W) float32 channels."""
     if shrink == 2:
-        h, w = chns.shape[-2] // 2 * 2, chns.shape[-1] // 2 * 2
-        x = chns[..., :h, :w]
-        chns = (((x[..., 0::2, 0::2] + x[..., 1::2, 0::2])
-                 + x[..., 0::2, 1::2]) + x[..., 1::2, 1::2]) / 4
+        chns = avg_pool_2(chns)
     if smooth == 1:
-        at = lambda dr, dc: chns[..., 1 + dr:chns.shape[-2] - 1 + dr,
-                                 1 + dc:chns.shape[-1] - 1 + dc]
-        v = at(-1, -1) + 2.0 * at(-1, 0) + at(-1, 1) \
-            + 2.0 * at(0, -1) + 4.0 * at(0, 0) + 2.0 * at(0, 1) \
-            + at(1, -1) + 2.0 * at(1, 0) + at(1, 1)
-        v = v / 16.0
+        v = smooth_3x3(chns)
         if integer:
             v = torch.floor(v)
-        v = torch.nn.functional.pad(v, (1, 1, 1, 1))
         chns = torch.where(interior, v, torch.zeros((), dtype=v.dtype,
                                                     device=v.device))
     return chns.contiguous()

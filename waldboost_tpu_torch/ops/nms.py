@@ -1,7 +1,8 @@
 """Survivor extraction, compaction and greedy NMS on the device.
 
 Counterparts of ``waldboost_tpu/ops/nms.py::extract_detections_masked``,
-``extract_detections_rowwise``, ``topk_detections`` and ``nms_device``
+``extract_detections_rowwise``, ``topk_detections``, ``iou_matrix_device``
+and ``nms_device``
 (plain torch; the JAX package has no Pallas kernel here), and of the
 exact ``jax.lax.approx_max_k(masked, cap, recall_target=1.0)`` of
 two-phase serving (``waldboost_tpu/parallel/detect.py:759``):
@@ -24,9 +25,10 @@ import torch
 
 from .._build import check, load_library
 
-__all__ = ["extract_detections", "extract_detections_rowwise",
-           "compact_survivors", "compact_survivors_plain", "origin_boxes",
-           "topk_detections", "nms", "nms_device"]
+__all__ = ["extract_detections", "extract_detections_masked",
+           "extract_detections_rowwise", "compact_survivors",
+           "compact_survivors_plain", "origin_boxes", "topk_detections",
+           "iou_matrix_device", "nms", "nms_device"]
 
 #: kernel launches made by :func:`compact_survivors` (S2)
 compact_launches = 0
@@ -62,6 +64,35 @@ def extract_detections(masked: torch.Tensor, count: torch.Tensor,
     if with_coords:
         return rects, scores, valid, count, rs, cs
     return rects, scores, valid, count
+
+
+def extract_detections_masked(masked: torch.Tensor, count,
+                              level_id: torch.Tensor, offsets: torch.Tensor,
+                              inv_scales: torch.Tensor, window, k: int = 256,
+                              with_coords: bool = False
+                              ) -> Tuple[torch.Tensor, ...]:
+    """:func:`extract_detections` under the JAX package's name and
+    parameters: ``masked`` one (GU, GV) map (or a (B, GU, GV) batch),
+    ``count`` its survivor count, ``window`` the (m, n) pair (a tensor or
+    a sequence).  ``count`` comes back as -1 when it exceeds ``k`` or
+    differs from the extracted finite entries; ``with_coords`` adds the
+    int32 canvas origins ``rs``, ``cs``."""
+    batched = masked.dim() == 3
+    mk = masked if batched else masked[None]
+    cnt = torch.as_tensor(count, device=mk.device).reshape(-1).to(
+        torch.int32)
+    if isinstance(window, torch.Tensor):
+        window = window.tolist()
+    window = tuple(int(v) for v in window)
+    rects, scores, valid, cnt, rs, cs = extract_detections(
+        mk, cnt, level_id.long(), offsets.long(), inv_scales, window, k,
+        with_coords=True)
+    got = valid.sum(dim=1, dtype=torch.int32)
+    cnt = torch.where(got == cnt, cnt, torch.full_like(cnt, -1))
+    out = (rects, scores, valid, cnt)
+    if with_coords:
+        out += (rs.to(torch.int32), cs.to(torch.int32))
+    return out if batched else tuple(o[0] for o in out)
 
 
 def origin_boxes(rs, cs, valid, level_id, offsets, inv_scales, window):
@@ -213,6 +244,20 @@ def topk_detections(hs: torch.Tensor, alive: torch.Tensor,
     return rects, scores, valid
 
 
+def iou_matrix_device(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, M) float32 IoU of (N, 4) and (M, 4) XYXY rects, 0 where the
+    union is empty."""
+    x1 = torch.maximum(a[:, None, 0], b[None, :, 0])
+    y1 = torch.maximum(a[:, None, 1], b[None, :, 1])
+    x2 = torch.minimum(a[:, None, 2], b[None, :, 2])
+    y2 = torch.minimum(a[:, None, 3], b[None, :, 3])
+    inter = torch.clamp(x2 - x1, min=0) * torch.clamp(y2 - y1, min=0)
+    area = lambda r: torch.clamp(r[:, 2] - r[:, 0], min=0) \
+        * torch.clamp(r[:, 3] - r[:, 1], min=0)
+    union = area(a)[:, None] + area(b)[None, :] - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
 def _iou_with(rects: torch.Tensor, area: torch.Tensor,
               i: torch.Tensor) -> torch.Tensor:
     """(B, K) IoU of box ``i[b]`` with every box of image b, float32."""
@@ -247,5 +292,14 @@ def nms(rects: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-#: the JAX package's name for :func:`nms`
-nms_device = nms
+def nms_device(rects: torch.Tensor, scores: torch.Tensor,
+               valid: torch.Tensor, iou_threshold: float = 0.5
+               ) -> torch.Tensor:
+    """:func:`nms` under the JAX package's name and parameters: one (K,)
+    candidate set (rects (K, 4)) or a (B, K) batch; returns keep of the
+    same shape.  A box at an IoU of exactly the threshold with a kept one
+    is not suppressed, as in the host NMS."""
+    if scores.dim() == 1:
+        return nms(rects[None], scores[None], valid[None],
+                   float(iou_threshold))[0]
+    return nms(rects, scores, valid, float(iou_threshold))

@@ -228,6 +228,14 @@ class PackedPyramidPlan:
                 mask[pl.y + 1:pl.y + h - 1, pl.x + 1:pl.x + w - 1] = True
         return mask
 
+    def level_interior_mask(self) -> np.ndarray:
+        """Channel-space bool mask: True inside each level's channel rect."""
+        mask = np.zeros((self.canvas_h, self.canvas_w), bool)
+        for pl in self.levels:
+            mask[pl.y:pl.y + pl.level.out_height,
+                 pl.x:pl.x + pl.level.out_width] = True
+        return mask
+
     def valid_mask(self, window: Tuple[int, int]) -> np.ndarray:
         """Bool mask over canvas window origins: True where the origin
         belongs to some level's origin grid."""

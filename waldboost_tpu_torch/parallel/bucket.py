@@ -24,6 +24,11 @@ JAX package's bucket: uint8 frames take B2's exact canvas rounded to
 bfloat16 and walked by B3f, float frames the float-fast planes, B2f and
 B3f; the FPGA family ignores it.
 
+A channel function without a canvas form (one a user registers) has no
+bucket program, as in the JAX package (``parallel/bucket.py``:
+``make_bucket_detector_boxes`` returns None): ``BucketedDetector`` serves
+each of its frames with ``Model.detect`` at the true size, then NMS.
+
 Shrink 1 and channel functions without a polyphase form (grad_mag) take
 the image-space canvas (``ops/image_canvas.py``) of the same packed plan;
 its reflect halos, masks and the magnitude's second reflection follow
@@ -239,9 +244,12 @@ def make_bucket_detector_boxes(model: Model, bucket_hw: Tuple[int, int],
     fall back to the per-size path).  ``fast`` and ``fast_float`` are the
     serving mode, fixed at build time; ``verifier=(module, params)`` fuses
     the CNN rescoring in; runs on ``device`` (the model's when None), or
-    with ``mesh`` on each mesh device (a :class:`MeshBucketProgram`)."""
+    with ``mesh`` on each mesh device (a :class:`MeshBucketProgram`).
+    None when the model's channel function has no canvas form."""
     if int(k) < 1:
         raise ValueError(f"k must be positive, got {k}")
+    if not serving_opts(model.channel_opts, model.shape[2])[3].canvas:
+        return None
     build = lambda d: BucketProgram(model, bucket_hw, k, nms_iou,
                                     with_n_weak, d, fast, fast_float,
                                     verifier)
@@ -262,8 +270,9 @@ class BucketedDetector:
     ``MAX_SIZES``.  ``detect(image)`` equals ``Model.detect(image)`` (then
     NMS with ``nms_iou``) at every size, boxes and scores bitwise; an
     image with more than ``k`` survivors falls back to ``Model.detect`` on
-    the same device.  ``detect_many`` groups images by (bucket, size,
-    frame type) and runs each group in batches of ``max_batch``.  With
+    the same device, as does every image of a channel function without a
+    canvas form.  ``detect_many`` groups images by (bucket, size, frame
+    type) and runs each group in batches of ``max_batch``.  With
     ``track_cost`` each image's weak evaluations and scanned windows are
     folded into the model's cost counters, as ``Model.detect`` folds them.
     ``fast`` / ``fast_float``: fast serving mode (see
@@ -308,13 +317,14 @@ class BucketedDetector:
         m, n, _ = self.model.shape
         return max(-(-h // b) * b, m * 2), max(-(-w // b) * b, n * 2)
 
-    def _program(self, bucket_hw) -> BucketProgram:
+    def _program(self, bucket_hw) -> Optional[BucketProgram]:
         if bucket_hw not in self._programs:
-            self._programs[bucket_hw] = make_bucket_detector_boxes(
+            built = make_bucket_detector_boxes(
                 self.model, bucket_hw, k=self.k, nms_iou=self.nms_iou,
                 mesh=self.mesh, with_n_weak=self.track_cost,
                 verifier=self.verifier, device=self.device, fast=self.fast,
-                fast_float=self.fast_float)[0]
+                fast_float=self.fast_float)
+            self._programs[bucket_hw] = None if built is None else built[0]
             self._sizes[bucket_hw] = collections.OrderedDict()
             self.compiles += 1
         return self._programs[bucket_hw]
@@ -330,7 +340,8 @@ class BucketedDetector:
         return sizes[real_hw]
 
     def _fallback_detect(self, image) -> Boxes:
-        """The per-size path (more than ``k`` survivors), then NMS."""
+        """The per-size path (more than ``k`` survivors, or no canvas
+        form), then NMS."""
         if self.verifier is not None:
             bx = detect_and_verify(image, self.model, *self.verifier)
         else:
@@ -341,6 +352,10 @@ class BucketedDetector:
 
     def _run_group(self, bucket_hw, real_hw, images):
         fn = self._program(bucket_hw)
+        if fn is None:
+            # no canvas form: no bucket program (Model.detect tracks the
+            # cost itself)
+            return [self._fallback_detect(im) for im in images]
         geom = self._geometry(bucket_hw, real_hw)
         H, W = bucket_hw
         out = []

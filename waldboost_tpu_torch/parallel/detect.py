@@ -53,7 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from ..boxes import Boxes
-from ..canvas import (as_image, channel_canvas, is_image_space, serving_opts,
+from ..canvas import (as_image, channel_canvas, is_kernel_canvas, serving_opts,
                       span, window_grid)
 from ..model import Model, shared_plan
 from ..ops.cascade import cascade_suffix_sparse
@@ -172,14 +172,15 @@ class BatchedDetector:
 
 def serving_canvas(packed, image_shape, smooth, cf, device, fast: bool,
                    fast_float: str, counts: bool):
-    """The canvas step of a serving walk.  In fast mode an image-space
-    canvas (shrink 1, grad_mag) is the exact one, rounded to bfloat16 only
-    for a masked walk that does not count n_weak (``counts``): the JAX
-    package's walk drops ``fast`` when it counts
-    (``cascade_masked_grid_static``), and its response walk has none."""
+    """The canvas step of a serving walk.  In fast mode an image-space or
+    per-level canvas (shrink 1, grad_mag, a function without a canvas
+    form) is the exact one, rounded to bfloat16 only for a masked walk
+    that does not count n_weak (``counts``): the JAX package's walk drops
+    ``fast`` when it counts (``cascade_masked_grid_static``), and its
+    response walk has none."""
     return channel_canvas(packed, image_shape, smooth, cf, device,
-                          fast and not (is_image_space(packed, cf) and counts),
-                          fast_float)
+                          fast and (is_kernel_canvas(packed, cf)
+                                    or not counts), fast_float)
 
 
 class MeshDetector:

@@ -16,7 +16,7 @@ from typing import Tuple
 
 import numpy as np
 
-from .ops.exact import axis_taps_exact
+from .ops.exact import axis_taps_exact, resize_taps64
 from .packing import PackedPyramidPlan, _band_rows
 
 __all__ = ["PlaneTables", "plane_tables", "FloatPlaneTables",
@@ -30,18 +30,6 @@ def _ext_pm_taps(R, size, halo):
         R = np.concatenate([R[halo - 1::-1], R,
                             R[size - 1:size - halo - 1:-1]])
     return np.concatenate([R[halo % 2::2], R[(1 + halo) % 2::2]])
-
-
-def resize_taps64(n_in: int, n_out: int):
-    """``(i0 int32 (n_out,), frac float64 (n_out,))``: output row r of a
-    half-pixel-centre bilinear resize with edge clamping blends input rows
-    ``i0[r]`` and ``min(i0[r] + 1, n_in - 1)`` with weight ``frac[r]``
-    (``waldboost_tpu/ops/warp.py::resize_taps64``)."""
-    coords = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
-    coords = np.clip(coords, 0.0, n_in - 1.0)
-    i0 = np.floor(coords).astype(np.int64)
-    i0 = np.minimum(i0, max(n_in - 2, 0))
-    return i0.astype(np.int32), coords - i0
 
 
 def _octave_layout(image_hw: Tuple[int, int], n_oct: int):
