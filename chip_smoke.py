@@ -24,8 +24,9 @@ cascade_suffix S1, compact S2):
 
  1. prints torch/CUDA versions and the card's name and power limit;
  2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
-    all at once, the previous B2d/B2f design among them; B3f's previous
-    design is csrc/cascade.cu's walk, built for B3) and prints ptxas's
+    all at once, the previous B2d/B2f and S1 designs among them; B3f's
+    previous design is csrc/cascade.cu's walk, built for B3) and prints
+    ptxas's
     register / shared-memory / spill report;
  3. runs each kernel at the VGA batch-8 shapes against its plain-torch
     version on the card, bitwise (tolerance 0), mismatches printed per
@@ -307,24 +308,43 @@ cascade_suffix S1, compact S2):
         the 3 golden scenes; scripts/make_torch_twophase_golden.py):
         two_phase=True at JAX's defaults and at an overflowing prefix 2,
         capacity 512, then extractor="rowwise" (k_row 16, NMS 0.5), each
-        path from counters set to 0 (two-phase: B1, B2, B4, S1, S2, no
-        B3; row-wise: B1, B2, B4, no S1 or S2), all five outputs whole and
-        bitwise the golden; then S2 (compact_survivors) and S1
-        (cascade_suffix_sparse) bitwise their plain versions on the card
-        on the inputs the two-phase path gives them: VGA noise and scenes,
+        path from counters set to 0 (two-phase: B1, B2, B4, S1, S2 twice
+        a batch, no B3; row-wise: B1, B2, B4, no S1 or S2), all five
+        outputs whole and bitwise the golden; then S2 (topk_masked over
+        B4's hs and alive) and S1 (cascade_suffix_sparse) bitwise their
+        plain versions on the card on the inputs the two-phase path gives
+        them: VGA noise and scenes,
         scenes overflowing (S2's route for more survivors than the
         capacity), the bfloat16 canvas of fast mode, the 40-stage depth-5
         model (GENERAL records), and config 5 (fpga_4k_synth_64, 4K noise
         batch 8), also overflowing;
-    9b. S1 and S2 per call beside their plain versions (CUDA events, in
-        turns) at VGA scenes and 4K noise, S2 (with its compacted sort)
-        beside torch.sort(stable=True) of the whole map, the bounds; then
+    9b. S1 and S2 per call beside their plain versions, in turns, on the
+        device (torch.profiler: the kernels' own time) and with the
+        wrapper (CUDA events around back-to-back calls) at VGA scenes and
+        4K noise, S1 also beside its previous design (csrc/baseline/
+        suffix_per_entry.cu, bitwise checked first), S2 beside torch.sort(
+        stable=True) of the whole masked map, the bounds; then
         two-phase against dense make_batched_detector_boxes end to end
         (MP/s, p50, p80; dense, two-phase, two-phase, dense) at VGA noise
         k=128, VGA scenes k=1024 (NMS 0.5) and config 5 k=128;
+    9d. S2 (ops/nms.py::topk_masked, csrc/compact.cu) bitwise its plain
+        version on the maps of chip_smoke.topk_maps (ties, all -inf, all
+        finite, counts k - 1, k, k + 1 and far above k, +0 and -0 tied
+        with NaN and +-inf) at the VGA and 4K grid sizes, batch 8, in both
+        input forms (masked map; hs and alive), k = 1, the paths' k, 8192
+        and the whole map, and k = 65536 at 4K (runs sorted by several
+        blocks, then merged); the dense extraction (k 1024 at VGA scenes,
+        128 at 4K noise) launching S2 once a batch, bitwise its plain
+        version on B3's map and timed beside it and torch.sort(stable=True)
+        of the map, in turns; then the dense extraction and two-phase's
+        finish (compaction, suffix, final top k) at VGA and 4K, JAX's
+        defaults and the overflowing setting, nms_iou=None, under
+        torch.cuda.set_sync_debug_mode("error") with torch.sort replaced by
+        a probe: no host sync and no sort on the card;
     9c. the two-phase detector over a mesh of the card repeated four
         times (and 2 and 4 real cards where present), 8 scenes a shard:
-        bitwise the unsharded detector, each kernel once a shard;
+        bitwise the unsharded detector, each kernel once a shard (S2
+        twice);
 10. user channel functions through the per-level canvas (no kernel of
     its own: plain torch, then B3):
     10a. the flagship's 64 stages over "user_grad_hist", a registered
@@ -346,11 +366,12 @@ cascade_suffix S1, compact S2):
     10d. the VGA batch-8 canvas and whole detector call (k=1024, NMS 0.5)
         of the per-level and the kernel canvas, in turns (CUDA events);
 11. prints the per-kernel JSON summary (launches from the Model-API path,
-    B5's from the config-5 path, B2f's and B3f's from the fast path, B2d's
-    from the exact float path, S1's and S2's from the two-phase path,
-    max_abs_err, ms, plain_ms, bound_ms from this run's shapes, library_ms
-    where a PyTorch call computes the same: S2's torch.sort), then the
-    final ok line.
+    S2's among them, B5's from the config-5 path, B2f's and B3f's from the
+    fast path, B2d's from the exact float path, S1's from the two-phase
+    path, max_abs_err, ms (S1's and S2's, and their plain_ms and
+    library_ms, the device time from the profiler at VGA scenes),
+    plain_ms, bound_ms from this run's shapes, library_ms where a PyTorch
+    call computes the same: S2's torch.sort), then the final ok line.
 
 Before the summary it prints its own wall time.  Any failed phase raises
 and the script exits nonzero without the ok line.
@@ -359,7 +380,7 @@ It never falls back to the CPU.
 Usage: python chip_smoke.py [--trace-dir DIR]   (DIR keeps the traces)
        python chip_smoke.py --mesh-only   (build, then phases 8a-8f alone,
                                            no summary)
-       python chip_smoke.py --twophase-only  (build, then phases 9a-9c
+       python chip_smoke.py --twophase-only  (build, then phases 9a-9d
                                               alone, no summary)
        python chip_smoke.py --channels-only  (build, then phases 10a-10d
                                               alone, no summary)
@@ -436,8 +457,9 @@ KERNELS = {
                        "(cascade_suffix_sparse)"),
     "compact": ("waldboost_tpu_torch.ops.nms", "compact_launches",
                 "waldboost_tpu_torch/csrc/compact.cu",
-                "replaces the XLA op waldboost_tpu/parallel/detect.py:759 "
-                "(approx_max_k, recall_target=1.0)"),
+                "replaces the XLA ops waldboost_tpu/parallel/detect.py:759 "
+                "(approx_max_k, recall_target=1.0) and :767 (lax.top_k), "
+                "and the extraction's top-k, waldboost_tpu/ops/nms.py:154"),
 }
 #: the fast serving mode's golden (scripts/make_torch_fast_golden.py)
 FAST_GOLDEN = os.path.join(ROOT, "tests", "data",
@@ -470,6 +492,8 @@ CONV_S = 132 * 16 * 1.98e9
 #: the previous design of B2d and B2f, built beside the package's sources
 #: and timed against them (its B2 is the committed one's)
 PREVIOUS_GRAD_HIST = "baseline/grad_hist_pr10"
+#: S1's previous design (an entry a thread), timed beside it in phase 9b
+PREVIOUS_SUFFIX = "baseline/suffix_per_entry"
 #: tiling edges of B2d and B2f (h, w, batch): widths off the 128-column
 #: tile, float32 widths no multiple of 4 (5, 45, 257), a multiple of 4
 #: but not of 8 (132) and of 16 (256); each also one element off its
@@ -678,6 +702,25 @@ def cuda_ms(fn, iters, warmup=2):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(fn, iters=20):
+    """Device milliseconds per call of ``fn``: the kernels, copies and
+    memsets its calls put on the card, summed from a torch.profiler trace
+    of ``iters`` calls (no host time, where CUDA events around
+    back-to-back calls measure the wrapper's host time when it is the
+    longer); None when the profiler saw no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0.0)
+                for e in prof.key_averages())
+    return total / 1e3 / iters if total > 0 else None
 
 
 def graph_ms(fn, iters, replays=3):
@@ -2285,7 +2328,7 @@ TRACE_KERNELS = {"planes": "planes_kernel", "grad_hist": "grad_hist_kernel",
                  "cascade_fast": "cascade_fast_kernel",
                  "cascade_response": "cascade_kernel",
                  "cascade_suffix": "suffix_kernel",
-                 "compact": "write_kernel"}
+                 "compact": "topk_kernel"}
 #: the two-process run's own time limit (each rank)
 MP_TIMEOUT_S = 300
 
@@ -2351,14 +2394,15 @@ def require_on_devices(seen, kernels, mesh, what):
 
 def mesh_launches(zero, read, fn, kernels, n, what):
     """``fn()`` with the launch counters set to 0 first; each of
-    ``kernels`` launched ``n`` times, once a shard.  Returns the output
-    and the counts."""
+    ``kernels`` launched ``n`` times, once a shard (``kernels`` a dict:
+    that many times a shard).  Returns the output and the counts."""
     zero()
     out = fn()
     sync_all()
     got = read()
-    require(all(got[k] == n for k in kernels),
-            f"{what}: launches {got}, {n} of each of {kernels} expected")
+    per = kernels if isinstance(kernels, dict) else dict.fromkeys(kernels, 1)
+    require(all(got[k] == c * n for k, c in per.items()),
+            f"{what}: launches {got}, {n} shards of {per} expected")
     return out, got
 
 
@@ -2767,27 +2811,33 @@ def mesh_phases(wt, dev, card, metric, zero, read, synth, scene_np, golden,
     return per_path
 
 
-#: phase 9: S1 and S2, and the two-phase path's kernels
+#: phase 9: S1 and S2, and the two-phase path's kernels with their
+#: launches a batch (S2 compacts the prefix and takes the final top k)
 TP_KERNELS = ("cascade_suffix", "compact")
 TP_PATH = ("planes", "grad_hist", "cascade_response") + TP_KERNELS
+TP_LAUNCHES = (("planes", 1), ("grad_hist", 1), ("cascade_response", 1),
+               ("cascade_suffix", 1), ("compact", 2))
 #: phase 9's overflowing two-phase setting
 TP_OVER = dict(prefix=2, capacity=512)
 
 
 class TpInputs:
     """What a two-phase detector's ``finish`` gives S2 and S1 for a batch:
-    the canvas, the (B, GU * GV) masked prefix scores, the survivor
-    counts and the compacted (B, cap) lists; :meth:`calls` are S2's and
-    S1's calls and their plain versions on them."""
+    the canvas, B4's (B, GU * GV) prefix scores and alive flags (S2's
+    masked form of them for the library's sort), the survivor counts and
+    the compacted (B, cap) lists; :meth:`calls` are S2's and S1's calls
+    and their plain versions on them."""
 
     def __init__(self, det, images):
         import torch
-        from waldboost_tpu_torch.ops.nms import compact_survivors
+        from waldboost_tpu_torch.ops.nms import topk_masked
         self.det = det
         self.cv, hs1, alive1, _ = det.launch(images)
-        self.masked, self.count = det.prefix_survivors(hs1, alive1)
-        self.scores, self.idx = compact_survivors(self.masked, self.count,
-                                                  det.cap)
+        B = hs1.shape[0]
+        self.hs, self.al = hs1.reshape(B, -1), alive1.reshape(B, -1)
+        self.masked = torch.where(self.al, self.hs, float("-inf"))
+        self.scores, self.idx, self.count = topk_masked(self.hs, det.cap,
+                                                        alive=self.al)
         self.alive = torch.isfinite(self.scores)
 
     def calls(self):
@@ -2798,27 +2848,91 @@ class TpInputs:
                 self.scores, self.alive, d.prefix)
         return {
             "compact": (
-                lambda: nms_mod.compact_survivors(self.masked, self.count,
-                                                  d.cap),
-                lambda: nms_mod.compact_survivors_plain(self.masked,
-                                                        self.count, d.cap)),
+                lambda: nms_mod.topk_masked(self.hs, d.cap, alive=self.al),
+                lambda: nms_mod.topk_masked_plain(self.hs, d.cap,
+                                                  alive=self.al)),
             "cascade_suffix": (
                 lambda: gen_mod.cascade_suffix_sparse(*args),
                 lambda: gen_mod.cascade_suffix_sparse_plain(*args)),
         }
 
     def bounds(self, n_weak):
-        """``{kernel: (ms, bound_by)}``: S2 reads the map once and writes
-        the (B, cap) scores and int64 indices once; S1 reads and writes
-        the lists once (index, score, flag in; score, flag out), reads
-        three canvas values for each stage an entry enters (this run's
-        ``n_weak`` of the suffix) and the records once."""
+        """``{kernel: (ms, bound_by)}``: S2 reads the prefix scores and
+        flags once and writes the (B, cap) scores, int64 indices and the
+        counts once; S1 reads and writes the lists once (index, score,
+        flag in; score, flag out), reads three canvas values for each
+        stage an entry enters (this run's ``n_weak`` of the suffix) and
+        the records once."""
         B, cap = self.scores.shape
         rec = self.det.prefix_step.ops.records(tuple(self.cv.shape[1:]))
-        return {"compact": bound(nbytes(self.masked) + B * cap * 12),
+        return {"compact": bound(nbytes(self.hs, self.al) + B * cap * 12
+                                 + B * 4),
                 "cascade_suffix": bound(B * cap * 18 + n_weak * 3
                                         * self.cv.element_size()
                                         + nbytes(rec.data))}
+
+
+def timed_in_turns(call, plain, lib=None, previous=None):
+    """``((ms, plain ms, library ms), (events ms, events ms), previous
+    ms)`` of a kernel's wrapper ``call``, its plain version, the library
+    call ``lib`` and the kernel's ``previous`` design (None: none), in
+    turns (call, previous, plain, library, previous, call): device ms
+    from the profiler (:func:`device_ms`; the previous design's the mean
+    of its two runs), the call's also from CUDA events around
+    back-to-back calls (host time included where the wrapper's is the
+    longer)."""
+    mean = lambda v: float(np.mean(v)) if v else None
+    ev = [cuda_ms(call, 20)]
+    ms = [device_ms(call)]
+    prev = [device_ms(previous)] if previous is not None else []
+    plain_ms = device_ms(plain, 3)
+    lib_ms = device_ms(lib, 10) if lib is not None else None
+    if previous is not None:
+        prev.append(device_ms(previous))
+    ms.append(device_ms(call))
+    ev.append(cuda_ms(call, 20))
+    return ((mean([m for m in ms if m is not None]), plain_ms, lib_ms), ev,
+            mean([m for m in prev if m is not None]))
+
+
+def previous_suffix(cv, ops, window, idx, scores, alive, start):
+    """``(H, alive, n_weak)`` of S1's previous design
+    (csrc/baseline/suffix_per_entry.cu: an entry a thread) on the arguments of
+    ``cascade_suffix_sparse`` (batched, ``meta`` left out)."""
+    import ctypes
+    import torch
+    from waldboost_tpu_torch import _build
+    from waldboost_tpu_torch.ops import cascade as gen_mod
+    _, cv, idx, scores, alive, gv = gen_mod._suffix_args(
+        cv, ops, window, idx, scores, alive, start, None)
+    rec = gen_mod._suffix_tables(ops, tuple(cv.shape[1:]))[3]
+    B, C, H, W = cv.shape
+    S = idx.shape[1]
+    T, NN = gen_mod._n_stages_nodes(ops)
+    h_out = torch.empty((B, S), dtype=torch.float32, device=cv.device)
+    a_out = torch.empty((B, S), dtype=torch.bool, device=cv.device)
+    n_weak = torch.zeros(B, dtype=torch.int32, device=cv.device)
+    fn = _build.load_library(PREVIOUS_SUFFIX).wb_cascade_suffix_previous
+    _VP, _CI = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [_VP] + [_CI] * 6 + [_VP] * 3 + [_CI, _VP] + [_CI] * 4 \
+        + [_VP] * 4
+    fn.restype = _CI
+    _build.check(fn(cv.data_ptr(), cv.element_size(), B, C, H, W, gv,
+                    idx.data_ptr(), scores.data_ptr(), alive.data_ptr(), S,
+                    rec.data.data_ptr(), rec.layout, T, int(start), NN,
+                    h_out.data_ptr(), a_out.data_ptr(), n_weak.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream),
+                 "wb_cascade_suffix_previous kernel")
+    return h_out, a_out, n_weak
+
+
+def timing_text(row, ev, lib_name):
+    """One line of :func:`timed_in_turns`'s numbers."""
+    f = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    lib = "" if row[2] is None and lib_name is None else \
+        f", {lib_name} {f(row[2])}"
+    return (f"{f(row[0])} on the device, {ev[0]:.4f} / {ev[1]:.4f} ms "
+            f"with the wrapper (events), plain {f(row[1])}{lib}")
 
 
 def batch_rate(fn, batches, reps):
@@ -2852,8 +2966,8 @@ def twophase_mesh_run(wt, dev, mesh, label, synth, scene_np, zero, read):
     fu, _ = wt.make_batched_detector_boxes(synth, VGA, device=dev, **kw)
     shards = shard_array(np.concatenate([scene_np] * n), mesh)
     what = f"phase 9c ({label})"
-    outs, got = mesh_launches(zero, read, lambda: fs(shards), TP_PATH, n,
-                              what)
+    outs, got = mesh_launches(zero, read, lambda: fs(shards),
+                              dict(TP_LAUNCHES), n, what)
     mesh_blocks_equal(outs, fu(torch.from_numpy(scene_np).to(dev)), mesh,
                       dev, what)
     if any(d.index != dev.index for d in mesh.local_devices):
@@ -2865,7 +2979,7 @@ def twophase_mesh_run(wt, dev, mesh, label, synth, scene_np, zero, read):
 
 def twophase_phases(wt, dev, card, metric, zero, read, synth, noise, scene,
                     scene_np):
-    """Phases 9a-9c: two-phase and row-wise batched serving and kernels
+    """Phases 9a-9d: two-phase and row-wise batched serving and kernels
     S1 and S2.  Returns the two-phase path's launches and, per kernel, its
     largest error against its plain version over every check, ``(ms,
     plain ms, library ms)`` and ``(bound ms, bound by)`` at VGA scenes
@@ -2889,7 +3003,8 @@ def twophase_phases(wt, dev, card, metric, zero, read, synth, noise, scene,
               f"{[outs[r][3].tolist() for r in runs]}); launches "
               f"{launches[path]}")
     tp, row = launches["two-phase"], launches["row-wise"]
-    require(all(tp[k] > 0 for k in TP_PATH) and tp["cascade"] == 0,
+    require(all(tp[k] > 0 for k in TP_PATH) and tp["cascade"] == 0
+            and tp["compact"] == 2 * tp["cascade_suffix"],
             f"phase 9a: the two-phase path launched {tp}")
     require(all(row[k] > 0 for k in TP_PATH[:3])
             and not any(row[k] for k in TP_KERNELS + ("cascade",)),
@@ -2949,26 +3064,35 @@ def twophase_phases(wt, dev, card, metric, zero, read, synth, noise, scene,
     for label, (inp, calls, n_weak) in timed.items():
         b = inp.bounds(n_weak)
         for kname, (call, plain) in calls.items():
-            ms = [cuda_ms(call, 20)]
-            plain_ms = cuda_ms(plain, 3)
             lib = (lambda: torch.sort(inp.masked, dim=1, descending=True,
                                       stable=True)) \
                 if kname == "compact" else None
-            lib_ms = cuda_ms(lib, 10) if lib else None
-            ms.append(cuda_ms(call, 20))
-            row = (float(np.mean(ms)), plain_ms, lib_ms)
+            prev = None
+            if kname == "cascade_suffix":
+                d = inp.det
+                prev = lambda: previous_suffix(
+                    inp.cv, d.prefix_step.ops, d.window, inp.idx,
+                    inp.scores, inp.alive, d.prefix)
+                require(all(torch.equal(x, y) for x, y in
+                            zip(prev(), call())),
+                        f"phase 9b: S1's previous design differs at {label}")
+            row, ev, prev_ms = timed_in_turns(call, plain, lib, prev)
             if label == "VGA scenes":
                 timing[kname], bounds[kname] = row, b[kname]
-            lib_txt = "" if lib_ms is None else \
-                f", torch.sort of the map {lib_ms:.4f} ms"
-            print(f"phase 9b: {kname} {label} batch {BATCH}: {row[0]:.4f} "
-                  f"ms ({ms[0]:.4f}, {ms[1]:.4f}), plain {plain_ms:.4f} ms"
-                  f"{lib_txt}, bound {b[kname][0]:.5f} ms "
-                  f"({b[kname][1]}) ({card})")
+            prev_txt = "" if prev is None else \
+                f", previous design (an entry a thread) {prev_ms:.4f} ms"
+            print(f"phase 9b: {kname} {label} batch {BATCH}: "
+                  f"{timing_text(row, ev, lib and 'torch.sort of the map')}"
+                  f"{prev_txt}, bound "
+                  f"{b[kname][0]:.5f} ms ({b[kname][1]}) ({card})")
+            if prev is not None:
+                metric(f"cascade_suffix_{label.split()[0].lower()}_previous"
+                       f"_ms", prev_ms, "ms")
             tag = f"{kname}_{label.split()[0].lower()}"
             metric(f"{tag}_ms", row[0], "ms")
-            if lib_ms is not None:
-                metric(f"{tag}_library_ms", lib_ms, "ms")
+            metric(f"{tag}_events_ms", float(np.mean(ev)), "ms")
+            if lib is not None:
+                metric(f"{tag}_library_ms", row[2], "ms")
         del calls
     del timed
 
@@ -3002,6 +3126,12 @@ def twophase_phases(wt, dev, card, metric, zero, read, synth, noise, scene,
         for which, fn in (("dense", dense), ("two_phase", two)):
             trace_workload(f"{workload}_{which}", fn, batches,
                            3 if workload.startswith("fpga") else 10, metric)
+
+    # -- 9d: S2 on adversarial maps, the dense extraction, no host sync
+    err, dense_rows = topk_phase(wt, dev, card, metric, zero, read, synth,
+                                 fpga, scene, noise4k[0])
+    errs["compact"] = max(errs["compact"], err)
+
     del e2e, dets, cases, noise4k
 
     # -- 9c: two-phase over the mesh: the card repeated, real cards too
@@ -3015,8 +3145,214 @@ def twophase_phases(wt, dev, card, metric, zero, read, synth, noise, scene,
     if n < 2:
         print(f"phase 9c: one card visible ({n}): the real-card meshes need "
               f"two or more")
-    print(f"phases 9a-9c: {time.perf_counter() - t0:.1f} s")
+    print(f"phases 9a-9d: {time.perf_counter() - t0:.1f} s")
     return launches["two-phase"], errs, timing, bounds
+
+
+#: phase 9d: the kinds of map S2 is held to its plain version on
+#: (:func:`topk_maps`), the k of its multi-block sort, and its k values
+#: at each grid size (the last: the whole map)
+TOPK_KINDS = ("ties", "all_inf", "all_finite", "around_k", "far_above",
+              "signed_zeros_nonfinite")
+TOPK_BIG_K = 65536
+TOPK_KS = {"VGA": (1, 1024, 8192), "4K": (1, 128, 8192)}
+
+
+def topk_maps(kind, batch, n, k, seed):
+    """``(hs, alive)``: a seeded (batch, n) float32 score map and bool
+    mask of ``kind`` for a top ``k`` (its masked form: hs where alive, -inf
+    elsewhere; hs is finite where not alive, as B4 leaves it).  "ties":
+    rows of 0, 1, k - 1, k, k + 1 and 3k + 7 survivors on a grid of four
+    scores 0.5 apart; "all_inf": none alive; "all_finite": every entry
+    alive on a 0.25 grid; "around_k": rows of k - 1, k and k + 1
+    survivors; "far_above": about a third alive, scores rounded to 1/1024
+    (every digit pass of the select, ties at its threshold);
+    "signed_zeros_nonfinite": +0 and -0 tied, a tenth of the survivors NaN,
+    +inf or -inf (ranked as -inf)."""
+    rng = np.random.default_rng(seed)
+    hs = rng.standard_normal((batch, n), dtype=np.float32)
+    alive = np.zeros((batch, n), bool)
+
+    def pick(b, c):
+        at = rng.choice(n, int(min(max(c, 0), n)), replace=False)
+        alive[b, at] = True
+        return at
+
+    if kind == "ties":
+        for b in range(batch):
+            at = pick(b, (0, 1, k - 1, k, k + 1, 3 * k + 7)[b % 6])
+            hs[b, at] = rng.integers(0, 4, len(at)) * 0.5
+    elif kind == "all_finite":
+        alive[:] = True
+        hs = (rng.integers(-64, 64, (batch, n)) * 0.25).astype(np.float32)
+    elif kind == "around_k":
+        for b in range(batch):
+            pick(b, k - 1 + b % 3)
+    elif kind == "far_above":
+        alive = rng.random((batch, n)) < 1 / 3
+        hs = np.round(hs * 1024) / np.float32(1024)
+    elif kind == "signed_zeros_nonfinite":
+        for b in range(batch):
+            at = pick(b, (k + 1, k // 2, n // 5)[b % 3])
+            hs[b, at] = np.where(rng.random(len(at)) < 0.5, 0.0, -0.0)
+            odd = at[rng.random(len(at)) < 0.1]
+            hs[b, odd] = rng.choice(np.array([np.nan, np.inf, -np.inf],
+                                             np.float32), len(odd))
+    elif kind != "all_inf":
+        raise ValueError(f"unknown map kind {kind!r}")
+    return hs.astype(np.float32), alive
+
+
+def topk_mismatches(got, want):
+    """Elements of S2's outputs that differ from the plain version's,
+    scores compared by their bits (NaN and -0 included)."""
+    import torch
+    bad = 0
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        bad += int((a != b).sum()) if a.shape == b.shape else a.numel() + 1
+    return bad
+
+
+def topk_check(hs, alive, k):
+    """S2 against its plain version on one map in both input forms:
+    ``(mismatching elements, largest |score difference| where finite)``."""
+    import torch
+    from waldboost_tpu_torch.ops import nms as nms_mod
+    masked = torch.where(alive, hs, float("-inf"))
+    bad, err = 0, 0.0
+    for v, a in ((masked, None), (hs, alive)):
+        got = nms_mod.topk_masked(v, k, alive=a)
+        want = nms_mod.topk_masked_plain(v, k, alive=a)
+        bad += topk_mismatches(got, want)
+        fin = torch.isfinite(got[0]) & torch.isfinite(want[0])
+        if bool(fin.any()):
+            err = max(err, max_abs_err(got[0][fin], want[0][fin]))
+    return bad, err
+
+
+def no_sync_run(det, images):
+    """``det.finish`` of a launched batch with PyTorch's sync debug mode
+    set to "error" (a host synchronization raises) and ``torch.sort``
+    replaced by a probe: returns the CUDA tensors' sorts it saw."""
+    import torch
+    det.finish(det.launch(images))  # the first call builds cached tables
+    launched = det.launch(images)
+    torch.cuda.synchronize()
+    real_sort, seen = torch.sort, []
+
+    def probe(x, *a, **kw):
+        if x.is_cuda:
+            seen.append(tuple(x.shape))
+        return real_sort(x, *a, **kw)
+
+    torch.sort = probe
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        det.finish(launched)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.sort = real_sort
+    torch.cuda.synchronize()
+    return seen
+
+
+def topk_phase(wt, dev, card, metric, zero, read, synth, fpga, scene,
+               noise4k):
+    """Phase 9d: S2 (``ops/nms.py::topk_masked``) bitwise its plain
+    version on every kind of :func:`topk_maps` at the VGA and 4K grid
+    sizes, batch 8, both input forms, k = 1, the paths' k, 8192 and the
+    whole map, and k = 65536 at 4K (the multi-block sort); the dense
+    extraction launching S2 on B3's map, bitwise its plain version; the
+    dense extraction and two-phase's finish (compaction, suffix, final
+    top k) at VGA and 4K, the overflowing setting included, with
+    ``nms_iou=None`` under the sync debug mode "error", no torch.sort on
+    the card; S2 on the dense maps timed beside its plain version and
+    torch.sort(stable=True) of the map, in turns.  Returns S2's largest
+    error and ``{label: (ms, plain ms, library ms, bound)}``."""
+    import torch
+    from waldboost_tpu_torch.ops import nms as nms_mod
+    t0 = time.perf_counter()
+    make = lambda m, hw, **kw: wt.make_batched_detector_boxes(
+        m, hw, device=dev, **kw)[0]
+    dense = {"VGA": (make(synth, VGA, k=1024), scene),
+             "4K": (make(fpga, HW4K, k=128), noise4k)}
+    err, n_checks = 0.0, 0
+    for label, (det, _) in dense.items():
+        gu, gv = det.grid.valid.shape
+        n = gu * gv
+        for i, kind in enumerate(TOPK_KINDS):
+            for k in TOPK_KS[label] + (n,):
+                hs, alive = topk_maps(kind, BATCH, n, min(k, n), 17 + i)
+                bad, e = topk_check(torch.from_numpy(hs).to(dev),
+                                    torch.from_numpy(alive).to(dev), k)
+                err, n_checks = max(err, e), n_checks + 2
+                require(bad == 0, f"phase 9d: S2 {label} {kind} k={k}: "
+                        f"{bad} elements differ from its plain version")
+        print(f"phase 9d: S2 {label} grid {gu}x{gv} ({n} entries), batch "
+              f"{BATCH}: {len(TOPK_KINDS)} kinds x k {TOPK_KS[label] + (n,)}"
+              f" x 2 forms bitwise its plain version")
+    gu, gv = dense["4K"][0].grid.valid.shape
+    for kind in ("far_above", "ties"):
+        hs, alive = topk_maps(kind, BATCH, gu * gv, TOPK_BIG_K, 29)
+        bad, e = topk_check(torch.from_numpy(hs).to(dev),
+                            torch.from_numpy(alive).to(dev), TOPK_BIG_K)
+        err, n_checks = max(err, e), n_checks + 2
+        require(bad == 0, f"phase 9d: S2 4K {kind} k={TOPK_BIG_K}: {bad} "
+                f"elements differ from its plain version")
+    print(f"phase 9d: S2 4K k={TOPK_BIG_K} (runs of {nms_mod.TOPK_RUN}, "
+          f"merged) bitwise its plain version; {n_checks} checks, largest "
+          f"error {err}")
+
+    # the dense extraction launches S2 on B3's masked map
+    rows = {}
+    for label, (det, images) in dense.items():
+        zero()
+        det(images)
+        torch.cuda.synchronize()
+        got = read()
+        require(got["compact"] == 1 and got["cascade"] == 1,
+                f"phase 9d: the dense {label} path launched {got}")
+        masked, _, count = det.launch(images)
+        flat = masked.reshape(masked.shape[0], -1)
+        call = lambda: nms_mod.topk_masked(flat, det.k)
+        plain = lambda: nms_mod.topk_masked_plain(flat, det.k)
+        bad = topk_mismatches(call(), plain())
+        require(bad == 0, f"phase 9d: S2 on the dense {label} map differs "
+                f"from its plain version ({bad})")
+        lib = lambda: torch.sort(flat, dim=1, descending=True, stable=True)
+        row, ev, _ = timed_in_turns(call, plain, lib)
+        b = bound(nbytes(flat) + flat.shape[0] * det.k * 12
+                  + flat.shape[0] * 4)
+        rows[label] = row + (b,)
+        print(f"phase 9d: S2 on the dense {label} map (k={det.k}, counts "
+              f"{count.tolist()}): {timing_text(row, ev, 'torch.sort of the map')}"
+              f", bound {b[0]:.5f} ms ({b[1]}); launches {got['compact']} a "
+              f"batch ({card})")
+        metric(f"compact_dense_{label.lower()}_ms", row[0], "ms")
+        metric(f"compact_dense_{label.lower()}_events_ms",
+               float(np.mean(ev)), "ms")
+        metric(f"compact_dense_{label.lower()}_library_ms", row[2], "ms")
+
+    # no host sync and no torch.sort on the extraction paths
+    tp = lambda m, hw, **kw: make(m, hw, two_phase=True, **kw)
+    runs = {
+        "dense VGA": (dense["VGA"][0], scene),
+        "dense 4K": (dense["4K"][0], noise4k),
+        "two-phase VGA": (tp(synth, VGA), scene),
+        "two-phase VGA overflow": (tp(synth, VGA, **TP_OVER), scene),
+        "two-phase 4K": (tp(fpga, HW4K, k=128), noise4k),
+        "two-phase 4K overflow": (tp(fpga, HW4K, k=128, **TP_OVER), noise4k),
+    }
+    for label, (det, images) in runs.items():
+        seen = no_sync_run(det, images)
+        require(not seen, f"phase 9d: {label} sorted on the card: {seen}")
+    print(f"phase 9d: {list(runs)} finished under the sync debug mode "
+          f"'error' (nms_iou=None) without a host sync or a torch.sort on "
+          f"the card")
+    print(f"phase 9d: {time.perf_counter() - t0:.1f} s")
+    return err, rows
 
 
 #: phase 10: a JAX-trained model over the user channel function
@@ -3173,7 +3509,7 @@ def main():
     ap.add_argument("--mesh-only", action="store_true",
                     help="build, then run phases 8a-8f alone (no summary)")
     ap.add_argument("--twophase-only", action="store_true",
-                    help="build, then run phases 9a-9c alone (no summary)")
+                    help="build, then run phases 9a-9d alone (no summary)")
     ap.add_argument("--channels-only", action="store_true",
                     help="build, then run phases 10a-10d alone (no "
                     "summary)")
@@ -3225,7 +3561,7 @@ def main():
     t0 = time.time()
     sources = sorted({os.path.basename(src)[:-3]
                       for _, _, src, _ in KERNELS.values()})
-    _build.build(sources + [PREVIOUS_GRAD_HIST])
+    _build.build(sources + [PREVIOUS_GRAD_HIST, PREVIOUS_SUFFIX])
     for name in sources:
         for line in _build.build_log(name).splitlines():
             if "spill" in line or "ptxas" in line and (
@@ -3262,7 +3598,7 @@ def main():
                         synth, noise, scene, scene_np)
         print(f"chip_smoke --twophase-only wall time: "
               f"{time.perf_counter() - started:.1f} s ({card}); phases 1 "
-              f"and 9a-9c passed, the others were not run")
+              f"and 9a-9d passed, the others were not run")
         return
 
     if args.channels_only:
@@ -3597,7 +3933,7 @@ def main():
     serving_launches = read_counters()
     print(f"serving path launches: {serving_launches}")
     require(all(serving_launches[k] > 0
-                for k in ("planes", "grad_hist", "cascade")),
+                for k in ("planes", "grad_hist", "cascade", "compact")),
             "a kernel of the serving path was not launched")
     rects, scores = rects.cpu().numpy(), scores.cpu().numpy()
     valid, count = valid.cpu().numpy(), count.cpu().numpy()
@@ -3720,7 +4056,7 @@ def main():
     print(f"Model-API path launches: {path_launches}")
     require(all(v > 0 for k, v in path_launches.items()
                 if k not in ("fpga", "grad_hist_fast", "cascade_fast",
-                             "grad_hist_float") + TP_KERNELS),
+                             "grad_hist_float", "cascade_suffix")),
             "a kernel of the Model-API path was not launched")
 
     for name, (per, scan, scan_n_weak) in api.items():
@@ -5014,7 +5350,7 @@ def main():
     print(f"mesh path launches (4 shards on one card): "
           f"{json.dumps(mesh_path_launches)}")
 
-    # -- phases 9a-9c: two-phase and row-wise serving, S1 and S2 ------------
+    # -- phases 9a-9d: two-phase and row-wise serving, S1 and S2 ------------
     tp_launches, tp_errs, tp_timing, tp_bounds = twophase_phases(
         wt, dev, card, metric, zero_counters, read_counters, synth, noise,
         scene, scene_np)
@@ -5031,14 +5367,14 @@ def main():
 
     print(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s "
           f"({card})")
-    # launches: the Model-API path's, B5's from the config-5 path, B2f's
-    # and B3f's from the fast serving path
+    # launches: the Model-API path's (S2's among them: the dense
+    # extraction), B5's from the config-5 path, B2f's and B3f's from the
+    # fast serving path, S1's from the two-phase path
     launches = dict(path_launches, fpga=fpga_launches["fpga"],
                     grad_hist_fast=fast_launches["grad_hist_fast"],
                     cascade_fast=fast_launches["cascade_fast"],
                     grad_hist_float=float_launches["grad_hist_float"],
-                    cascade_suffix=tp_launches["cascade_suffix"],
-                    compact=tp_launches["compact"])
+                    cascade_suffix=tp_launches["cascade_suffix"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

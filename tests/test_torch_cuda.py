@@ -833,11 +833,12 @@ def test_mesh_on_card(cuda):
 
 @pytest.mark.parametrize("overflow", [False, True])
 def test_compact_and_suffix_match_plain_on_card(cuda, overflow):
-    """Kernels S2 (compact_survivors) and S1 (cascade_suffix_sparse) on the
-    card, bitwise their plain versions on the same CUDA tensors, on the
-    inputs the flagship's two-phase detector gives them (VGA scenes), with
-    a capacity the prefix survivors fit and one they overflow; S1 also
-    over the bfloat16 canvas of fast mode."""
+    """Kernels S2 (topk_masked over B4's hs and alive) and S1
+    (cascade_suffix_sparse) on the card, bitwise their plain versions on
+    the same CUDA tensors, on the inputs the flagship's two-phase detector
+    gives them (VGA scenes), with a capacity the prefix survivors fit and
+    one they overflow; S1 over the float32 and the bfloat16 canvas of
+    fast mode."""
     from chip_smoke import TpInputs, scene_batch
     model = wt.load(FLAGSHIP)
     scene = scene_batch(4).to(cuda)
@@ -890,3 +891,75 @@ def test_per_level_canvas_on_card(cuda, tmp_path):
     diffs, _ = custom_golden_run(wt, cuda, np.load(CUSTOM_GOLDEN),
                                  str(tmp_path))
     assert not any(diffs.values()), diffs
+
+
+def _grid_size(model, hw):
+    det, _ = wt.make_batched_detector_boxes(model, hw, device="cpu")
+    gu, gv = det.grid.valid.shape
+    return gu * gv
+
+
+@pytest.mark.parametrize("kind", ["ties", "all_inf", "all_finite",
+                                  "around_k", "far_above",
+                                  "signed_zeros_nonfinite"])
+@pytest.mark.parametrize("size", ["vga", "4k"])
+def test_topk_matches_plain_on_card(cuda, size, kind):
+    """Kernel S2 (ops/nms.py::topk_masked) bitwise its plain version on
+    the card in both input forms, batch 8, on chip_smoke.topk_maps at the
+    flagship's VGA grid and config 5's 4K grid: k = 1, the paths' k, 8192
+    and the whole map."""
+    from chip_smoke import HW4K, topk_check, topk_maps
+    model, hw, ks = ((wt.load(FLAGSHIP, device="cpu"), (480, 640),
+                      (1, 1024, 8192)) if size == "vga" else
+                     (wt.load(os.path.join(ROOT, "models",
+                                           "fpga_4k_synth_64.pb"),
+                              device="cpu"), HW4K, (1, 128, 8192)))
+    n = _grid_size(model, hw)
+    for k in ks + (n,):
+        hs, alive = topk_maps(kind, 8, n, k, 17)
+        bad, _ = topk_check(torch.from_numpy(hs).to(cuda),
+                            torch.from_numpy(alive).to(cuda), k)
+        assert bad == 0, (size, kind, k)
+
+
+@pytest.mark.parametrize("kind", ["far_above", "ties"])
+def test_topk_multi_block_sort_on_card(cuda, kind):
+    """S2 with k = 65536 on a 4K map, so that runs of TOPK_RUN keys are
+    sorted by several blocks and merged: bitwise its plain version."""
+    from chip_smoke import HW4K, TOPK_BIG_K, topk_check, topk_maps
+    from waldboost_tpu_torch.ops.nms import TOPK_RUN
+    n = _grid_size(wt.load(os.path.join(ROOT, "models",
+                                        "fpga_4k_synth_64.pb"),
+                           device="cpu"), HW4K)
+    hs, alive = topk_maps(kind, 8, n, TOPK_BIG_K, 29)
+    assert TOPK_BIG_K > TOPK_RUN
+    bad, _ = topk_check(torch.from_numpy(hs).to(cuda),
+                        torch.from_numpy(alive).to(cuda), TOPK_BIG_K)
+    assert bad == 0
+
+
+def test_extraction_launches_topk_without_sync_on_card(cuda):
+    """The dense extraction and two-phase's finish (JAX's defaults and the
+    overflowing setting) at VGA and 4K run S2, never torch.sort on the
+    card, and never synchronize with the host (nms_iou=None, PyTorch's
+    sync debug mode "error"); the dense path launches S2 once a batch."""
+    from chip_smoke import HW4K, TP_OVER, no_sync_run, scene_batch
+    from waldboost_tpu_torch.ops import nms as tnms
+    synth = wt.load(FLAGSHIP)
+    fpga = wt.load(os.path.join(ROOT, "models", "fpga_4k_synth_64.pb"))
+    scene = scene_batch(8).to(cuda)
+    noise4k = _frames(8, HW4K, 3).to(cuda)
+    make = lambda m, hw, **kw: wt.make_batched_detector_boxes(
+        m, hw, device=cuda, **kw)[0]
+    runs = [(make(synth, (480, 640), k=1024), scene),
+            (make(fpga, HW4K, k=128), noise4k),
+            (make(synth, (480, 640), two_phase=True), scene),
+            (make(synth, (480, 640), two_phase=True, **TP_OVER), scene),
+            (make(fpga, HW4K, k=128, two_phase=True), noise4k),
+            (make(fpga, HW4K, k=128, two_phase=True, **TP_OVER), noise4k)]
+    for i, (det, images) in enumerate(runs):
+        before = tnms.compact_launches
+        assert no_sync_run(det, images) == [], i
+        torch.cuda.synchronize()
+        # two calls of finish (the warm one and the checked one)
+        assert tnms.compact_launches - before == (2 if i < 2 else 4), i

@@ -19,7 +19,8 @@
 //    cascade_response_grid_pallas (_make_kernel).
 //  wb_cascade_suffix   (S1) stages [start, T) over a list of window
 //    origins (two-phase serving's compacted prefix survivors), from their
-//    prefix scores and alive flags; n_weak per image.
+//    prefix scores and alive flags; n_weak per image.  A warp an entry,
+//    a lane a stage (see the note above suffix_kernel).
 //    Replaces the XLA op waldboost_tpu/ops/cascade.py::
 //    cascade_suffix_sparse (gathers of the compacted list, stage by
 //    stage); JAX has no kernel here.
@@ -430,14 +431,22 @@ Args args(const void* canvas, int batch, int C, int H, int W,
               static_cast<int*>(n_weak)};
 }
 
-// S1: one list entry a thread, the blocks of one image along x and the
-// images along y, so a warp's entries belong to one image.  An alive
-// entry walks stages [start, T) from its prefix score with the walk
-// above (the tables read through the L1 cache: every thread reads the
-// same record), until it is rejected; a dead entry keeps its score.
-// Each warp sums its n_weak with shuffles into one atomicAdd.  Bound:
-// each entry's chain of dependent loads (record, canvas value, compare)
-// over the stages it enters, not bytes.
+// S1: stage-parallel warp walk.  Stage t's response depends on the
+// canvas and stage t alone, not on the running score, so a warp walks
+// one entry at a time with a lane for each of 32 consecutive stages:
+// the lanes fetch their stage's records, canvas values and leaf together
+// (one latency for 32 stages, where a thread an entry paid one a stage),
+// then every lane adds the 32 leaves, passed by shuffles, in stage order
+// with __fadd_rn and tests each stage's theta: the f32 additions of the
+// serial walk, so hs and alive are bitwise its.  A rejection ends the
+// entry; n_weak adds the counting stages it entered (a ballot), one
+// atomicAdd an entry.  The blocks are persistent and warp w takes
+// entries w, w + W, ... of the flattened (B, S) list 32 at a time (a lane
+// each): the dead ones (after S2 a suffix of each row) are written by
+// their lanes at once, the alive ones walked in turn, so the alive
+// entries at the head of each row spread over every warp of the card.
+// Bound: the canvas values a stage needs sit behind its record's load,
+// and the stage chain is serial in f32: latency, not bytes.
 struct SuffixArgs {
   const void* canvas;  // (B, C, H, W) float32 or bfloat16
   int C, H, W, gv;     // gv: the width of the grid idx indexes
@@ -454,59 +463,121 @@ struct SuffixArgs {
 
 constexpr int kSuffixBlock = 256;
 
+// One lane's stage t of the entry at w: its leaf value, theta and whether
+// it counts toward n_weak.
 template <bool kHeap2, class E>
-__global__ void __launch_bounds__(kSuffixBlock) suffix_kernel(SuffixArgs a) {
-  const int b = blockIdx.y;
-  const int j = blockIdx.x * kSuffixBlock + threadIdx.x;
-  int my_nw = 0;
-  if (j < a.S) {
-    const size_t i = static_cast<size_t>(b) * a.S + j;
-    float hs = a.h_in[i];
-    bool alive = a.alive_in[i] != 0;
-    if (alive) {
-      const long long o = a.idx[i];
-      const long long r = o / a.gv, c = o - r * a.gv;
-      const E* w = static_cast<const E*>(a.canvas) +
-                   static_cast<size_t>(b) * a.C * a.H * a.W + r * a.W + c;
-      if (kHeap2) {
-        const int4* s = reinterpret_cast<const int4*>(a.table);
-        for (int t = a.start; t < a.T; ++t) {
-          const Heap2 h = fetch(s, t, w);
-          my_nw += h.q.w;
-          hs = __fadd_rn(hs, leaf(h));
-          if (!(hs >= __int_as_float(h.q.z))) {
-            alive = false;
-            break;
-          }
-        }
-      } else {
-        const int2* stage = reinterpret_cast<const int2*>(a.table);
-        const int4* recs =
-            reinterpret_cast<const int4*>(a.table + 2 * ((a.T + 1) & ~1));
-        for (int t = a.start; t < a.T; ++t) {
-          const int4 n = recs[t * a.NN];
-          const int2 st = stage[t];
-          my_nw += st.y;
-          hs = __fadd_rn(hs, walk(recs + t * a.NN, w, n, value(w, n)));
-          if (!(hs >= __int_as_float(st.x))) {
-            alive = false;
-            break;
-          }
-        }
+__device__ __forceinline__ void suffix_stage(const SuffixArgs& a, int t,
+                                             const E* __restrict__ w,
+                                             float& resp, float& theta,
+                                             int& counts) {
+  if (kHeap2) {
+    const Heap2 h = fetch(reinterpret_cast<const int4*>(a.table), t, w);
+    resp = leaf(h);
+    theta = __int_as_float(h.q.z);
+    counts = h.q.w;
+  } else {
+    const int2 st = reinterpret_cast<const int2*>(a.table)[t];
+    const int4* recs =
+        reinterpret_cast<const int4*>(a.table + 2 * ((a.T + 1) & ~1)) +
+        static_cast<size_t>(t) * a.NN;
+    const int4 n = recs[0];
+    resp = walk(recs, w, n, value(w, n));
+    theta = __int_as_float(st.x);
+    counts = st.y;
+  }
+}
+
+template <bool kHeap2, class E>
+__global__ void __launch_bounds__(kSuffixBlock)
+    suffix_kernel(SuffixArgs a, long long total) {
+  const int lane = threadIdx.x & 31;
+  const long long n_warps =
+      static_cast<long long>(gridDim.x) * (kSuffixBlock / 32);
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * (kSuffixBlock / 32) +
+      (threadIdx.x >> 5);
+  const size_t img = static_cast<size_t>(a.C) * a.H * a.W;
+  for (long long first = warp; first < total; first += 32 * n_warps) {
+    const long long i = first + lane * n_warps;
+    float h = 0.0f;
+    bool walk_it = false;
+    if (i < total) {
+      h = a.h_in[i];
+      const bool alive = a.alive_in[i] != 0;
+      walk_it = alive && a.start < a.T;
+      if (!walk_it) {  // dead, or no stage left: the input as it is
+        a.h_out[i] = h;
+        a.alive_out[i] = static_cast<uint8_t>(alive);
       }
     }
-    a.h_out[i] = hs;
-    a.alive_out[i] = static_cast<uint8_t>(alive);
+    unsigned todo = __ballot_sync(0xffffffffu, walk_it);
+    while (todo) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const long long j = first + src * n_warps;
+      float hs = __shfl_sync(0xffffffffu, h, src);
+      const int b = static_cast<int>(j / a.S);
+      const long long o = a.idx[j];
+      const long long r = o / a.gv, c = o - r * a.gv;
+      const E* w = static_cast<const E*>(a.canvas) + b * img + r * a.W + c;
+      bool alive = true;
+      int nw = 0;
+      for (int t0 = a.start; t0 < a.T && alive; t0 += 32) {
+        const int n_here = min(32, a.T - t0);
+        float resp = 0.0f, theta = 0.0f;
+        int counts = 0;
+        if (lane < n_here)
+          suffix_stage<kHeap2, E>(a, t0 + lane, w, resp, theta, counts);
+        int rej = 32;  // the first stage of the 32 that rejects
+#pragma unroll
+        for (int s = 0; s < 32; ++s) {
+          const float v = __shfl_sync(0xffffffffu, resp, s);
+          const float th = __shfl_sync(0xffffffffu, theta, s);
+          if (s < n_here && rej == 32) {
+            hs = __fadd_rn(hs, v);
+            if (!(hs >= th)) rej = s;
+          }
+        }
+        nw += __popc(__ballot_sync(0xffffffffu, counts && lane <= rej &&
+                                                    lane < n_here));
+        alive = rej == 32;
+      }
+      if (lane == 0) {
+        a.h_out[j] = hs;
+        a.alive_out[j] = static_cast<uint8_t>(alive);
+        if (nw) atomicAdd(a.n_weak + b, nw);
+      }
+    }
   }
-  for (int off = 16; off > 0; off >>= 1)
-    my_nw += __shfl_down_sync(0xffffffffu, my_nw, off);
-  if ((threadIdx.x & 31) == 0 && my_nw) atomicAdd(a.n_weak + b, my_nw);
+}
+
+// Blocks of an S1 instance that fit the card at once (queried once per
+// device).
+template <bool kHeap2, class E>
+long long suffix_blocks() {
+  static std::mutex mu;
+  static std::map<int, long long> fit;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto it = fit.find(dev);
+  if (it != fit.end()) return it->second;
+  int sms = 0, per_sm = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, suffix_kernel<kHeap2, E>, kSuffixBlock, 0);
+  return fit[dev] = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
 }
 
 template <bool kHeap2, class E>
 void launch_suffix(const SuffixArgs& a, int batch, cudaStream_t stream) {
-  const dim3 grid((a.S + kSuffixBlock - 1) / kSuffixBlock, batch);
-  suffix_kernel<kHeap2, E><<<grid, kSuffixBlock, 0, stream>>>(a);
+  const long long total = static_cast<long long>(batch) * a.S;
+  // at least one entry a warp
+  const long long want = (total + kSuffixBlock / 32 - 1) / (kSuffixBlock / 32);
+  const long long fit = suffix_blocks<kHeap2, E>();
+  suffix_kernel<kHeap2, E>
+      <<<static_cast<int>(want < fit ? want : fit), kSuffixBlock, 0,
+         stream>>>(a, total);
 }
 
 }  // namespace

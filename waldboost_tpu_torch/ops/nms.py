@@ -2,12 +2,14 @@
 
 Counterparts of ``waldboost_tpu/ops/nms.py::extract_detections_masked``,
 ``extract_detections_rowwise``, ``topk_detections``, ``iou_matrix_device``
-and ``nms_device``
-(plain torch; the JAX package has no Pallas kernel here), and of the
+and ``nms_device`` (the JAX package has no Pallas kernel here), of the
 exact ``jax.lax.approx_max_k(masked, cap, recall_target=1.0)`` of
-two-phase serving (``waldboost_tpu/parallel/detect.py:759``):
-:func:`compact_survivors`, kernel S2 (``csrc/compact.cu``) on a CUDA
-tensor, its plain version on a CPU tensor.
+two-phase serving (``waldboost_tpu/parallel/detect.py:759``) and of its
+final ``lax.top_k`` (``:767``).
+
+Every top-k of the port's extractions goes through :func:`topk_masked`:
+kernel S2 (``csrc/compact.cu``, one launch, no host synchronization) on
+a CUDA tensor, :func:`topk_masked_plain` (a stable sort) on a CPU tensor.
 
 Extraction is an exact top-k: candidates are ordered by score descending,
 then by flat window-origin index ascending (a stable sort), so ``count ==
@@ -19,7 +21,7 @@ remaining candidate with ``iou > thr``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,13 +29,16 @@ from .._build import check, load_library
 
 __all__ = ["extract_detections", "extract_detections_masked",
            "extract_detections_rowwise", "compact_survivors",
-           "compact_survivors_plain", "origin_boxes", "topk_detections",
+           "compact_survivors_plain", "topk_masked", "topk_masked_plain",
+           "complete_count", "origin_boxes", "topk_detections",
            "iou_matrix_device", "nms", "nms_device"]
 
-#: kernel launches made by :func:`compact_survivors` (S2)
+#: kernel launches made by :func:`topk_masked` (S2), from every caller
 compact_launches = 0
-#: entries of one block of S2's count and write passes (csrc/compact.cu)
-COMPACT_TILE = 4096
+#: most keys one block of S2 sorts (``kRun`` in csrc/compact.cu); a row
+#: with more sorts runs of this many and merges them, in a (B, k) scratch
+#: the wrapper allocates when k exceeds it
+TOPK_RUN = 2048
 
 
 def extract_detections(masked: torch.Tensor, count: torch.Tensor,
@@ -52,10 +57,8 @@ def extract_detections(masked: torch.Tensor, count: torch.Tensor,
     valid too, so crops at them are safe).
     """
     B, gu, gv = masked.shape
-    flat = masked.reshape(B, gu * gv)
     k_eff = min(k, gu * gv)
-    scores, idx = torch.sort(flat, dim=1, descending=True, stable=True)
-    scores, idx = scores[:, :k_eff], idx[:, :k_eff]
+    scores, idx, _ = topk_masked(masked.reshape(B, gu * gv), k_eff)
     valid = torch.isfinite(scores)
     count = torch.where(count <= k_eff, count, torch.full_like(count, -1))
     rs = torch.div(idx, gv, rounding_mode="floor")
@@ -87,12 +90,23 @@ def extract_detections_masked(masked: torch.Tensor, count,
     rects, scores, valid, cnt, rs, cs = extract_detections(
         mk, cnt, level_id.long(), offsets.long(), inv_scales, window, k,
         with_coords=True)
-    got = valid.sum(dim=1, dtype=torch.int32)
-    cnt = torch.where(got == cnt, cnt, torch.full_like(cnt, -1))
+    cnt, _ = complete_count(scores, cnt, scores.shape[1])
     out = (rects, scores, valid, cnt)
     if with_coords:
         out += (rs.to(torch.int32), cs.to(torch.int32))
     return out if batched else tuple(o[0] for o in out)
+
+
+def complete_count(scores: torch.Tensor, count: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(count, complete)`` of (B, k) top-k ``scores`` taken for (B,)
+    survivor counts ``count``: complete where ``count <= k`` and the
+    finite scores number ``count`` (JAX's check in
+    ``extract_detections_masked`` and two-phase serving's compaction),
+    the count there and -1 elsewhere.  On the device, no sync."""
+    got = torch.isfinite(scores).sum(dim=1, dtype=torch.int32)
+    complete = (count <= k) & (got == count)
+    return torch.where(complete, count, torch.full_like(count, -1)), complete
 
 
 def origin_boxes(rs, cs, valid, level_id, offsets, inv_scales, window):
@@ -142,16 +156,109 @@ def extract_detections_rowwise(hs: torch.Tensor, alive: torch.Tensor,
     return rects, scores, valid, count
 
 
-def _flat(masked: torch.Tensor, cap: int):
-    if masked.dtype != torch.float32 or masked.dim() < 1:
-        raise ValueError("compact_survivors: masked must be a float32 map")
-    batched = masked.dim() > 1
-    flat = (masked.reshape(masked.shape[0], -1) if batched
-            else masked.reshape(1, -1)).contiguous()
-    if not 0 <= int(cap) <= flat.shape[1]:
-        raise ValueError(f"compact_survivors: cap {cap} outside [0, "
-                         f"{flat.shape[1]}]")
-    return batched, flat
+def _topk_args(values: torch.Tensor, k: int, alive, what: str):
+    """``(batched, flat, mask)``: ``values`` (and ``alive``) as contiguous
+    (B, N) rows, the first dimension the batch unless ``values`` is 1-D."""
+    if values.dtype != torch.float32 or values.dim() < 1:
+        raise ValueError(f"{what}: the map must be float32")
+    batched = values.dim() > 1
+    rows = lambda x: (x.reshape(x.shape[0], -1) if batched
+                      else x.reshape(1, -1)).contiguous()
+    flat = rows(values)
+    mask = None
+    if alive is not None:
+        if alive.shape != values.shape or alive.dtype != torch.bool \
+                or alive.device != values.device:
+            raise ValueError(f"{what}: alive must be a bool tensor of the "
+                             f"map's shape and device")
+        mask = rows(alive)
+    if not 0 <= int(k) <= flat.shape[1]:
+        raise ValueError(f"{what}: k {k} outside [0, {flat.shape[1]}]")
+    return batched, flat, mask
+
+
+def _unbatch(batched, *outs):
+    return outs if batched else tuple(o[0] for o in outs)
+
+
+def topk_masked(values: torch.Tensor, k: int,
+                alive: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(scores, idx, present)``: per row of a (B, ...) score map, the
+    first ``k`` entries of its stable descending sort, flattened: the
+    finite entries by score descending, then flat index ascending; after
+    them, when fewer than ``k`` are finite, the others by index.  With
+    ``alive`` (a bool map of the same shape) the map is ``values`` where
+    alive and -inf elsewhere.  Returns (B, k) float32 scores, int64 flat
+    indices and the (B,) int32 count of entries present (finite, or
+    alive with ``alive``); a 1-D map gives one row, unbatched.
+
+    Kernel S2 (``csrc/compact.cu``) on a CUDA tensor: one launch, output
+    shapes fixed by ``k``, nothing read back by the host.
+    :func:`topk_masked_plain` on a CPU tensor.  The two agree bitwise on
+    any map (non-finite values of either sign and NaN rank as -inf)."""
+    what = "topk_masked"
+    batched, flat, mask = _topk_args(values, k, alive, what)
+    if flat.device.type == "cpu":
+        return topk_masked_plain(values, k, alive)
+    if flat.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {flat.device}")
+    global compact_launches
+    B, n = flat.shape
+    k = int(k)
+    dev = flat.device
+    scores = torch.empty((B, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, k), dtype=torch.int64, device=dev)
+    if k == 0 or B == 0:
+        present = (torch.isfinite(flat) if mask is None else mask).sum(
+            dim=1, dtype=torch.int32)
+        return _unbatch(batched, scores, idx, present)
+    present = torch.empty(B, dtype=torch.int32, device=dev)
+    lib = _topk_library()
+    ws = torch.empty(int(lib.wb_topk_workspace(B, n)), dtype=torch.int32,
+                     device=dev)
+    runs = torch.empty((B, k), dtype=torch.int64, device=dev) \
+        if k > TOPK_RUN else None
+    with torch.cuda.device(dev):
+        check(lib.wb_topk(flat.data_ptr(),
+                          None if mask is None else mask.data_ptr(), B, n, k,
+                          scores.data_ptr(), idx.data_ptr(),
+                          present.data_ptr(), ws.data_ptr(), ws.numel(),
+                          None if runs is None else runs.data_ptr(),
+                          torch.cuda.current_stream(dev).cuda_stream),
+              "wb_topk kernel")
+    compact_launches += 1
+    return _unbatch(batched, scores, idx, present)
+
+
+def _topk_library():
+    lib = load_library("compact")
+    if lib.wb_topk.argtypes is None:
+        _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.wb_topk_workspace.argtypes = [_CI, _CL]
+        lib.wb_topk_workspace.restype = _CL
+        # values, alive, B, n, k, scores, idx, present, ws, ws words,
+        # runs, stream
+        lib.wb_topk.argtypes = [_VP, _VP, _CI, _CL, _CI, _VP, _VP, _VP, _VP,
+                                _CL, _VP, _VP]
+        lib.wb_topk.restype = _CI
+    return lib
+
+
+def topk_masked_plain(values: torch.Tensor, k: int,
+                      alive: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain-torch version of :func:`topk_masked` (kernel S2): one stable
+    descending sort of each row with every non-finite value as -inf and
+    -0 as +0, cut to ``k``; the scores are the map's values there."""
+    batched, flat, mask = _topk_args(values, k, alive, "topk_masked")
+    v = flat if mask is None else torch.where(mask, flat, float("-inf"))
+    key = torch.where(torch.isfinite(v), v + 0.0, float("-inf"))
+    idx = torch.sort(key, dim=1, descending=True, stable=True).indices
+    idx = idx[:, :int(k)]
+    present = (torch.isfinite(flat) if mask is None else mask).sum(
+        dim=1, dtype=torch.int32)
+    return _unbatch(batched, torch.gather(v, 1, idx), idx, present)
 
 
 def compact_survivors(masked: torch.Tensor, count: torch.Tensor, cap: int
@@ -161,71 +268,18 @@ def compact_survivors(masked: torch.Tensor, count: torch.Tensor, cap: int
     the flattened map, by score descending, then flat index ascending:
     the stable descending sort of the map cut to ``cap`` (JAX's exact
     ``approx_max_k``), as (B, cap) float32 scores and int64 flat indices.
-    ``count`` (B,) is each image's survivor count (its finite entries).
-
-    On a CUDA tensor, kernel S2 (``csrc/compact.cu``) writes the finite
-    entries in index order, then the first non-finite ones, into ``cap``
-    slots, or, when an image has more than ``cap`` survivors, into as
-    many slots as the largest count; a stable sort of those slots then
-    orders them.  Choosing the slots reads the counts on the host (one
-    synchronization); a count that differs from the map's finite entries
-    raises."""
-    batched, flat = _flat(masked, cap)
-    if flat.device.type == "cpu":
-        return compact_survivors_plain(masked, count, cap)
-    if flat.device.type != "cuda":
-        raise ValueError(f"compact_survivors: unsupported device "
-                         f"{flat.device}")
-    global compact_launches
-    B, n = flat.shape
-    dev = flat.device
-    n_blocks = -(-n // COMPACT_TILE)
-    offsets = torch.empty((B, n_blocks), dtype=torch.int32, device=dev)
-    totals = torch.zeros(B, dtype=torch.int32, device=dev)
-    lib = load_library("compact")
-    _signature(lib)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        check(lib.wb_compact_count(flat.data_ptr(), B, n, n_blocks,
-                                   offsets.data_ptr(), totals.data_ptr(),
-                                   stream), "wb_compact_count kernel")
-        both = torch.stack([totals, count.reshape(-1).to(dev, torch.int32)
-                            ]).cpu()
-        if not torch.equal(both[0], both[1]):
-            raise ValueError(f"compact_survivors: counts {both[1].tolist()} "
-                             f"differ from the map's survivors "
-                             f"{both[0].tolist()}")
-        n_out = max(int(cap), int(both[0].max()) if B else 0)
-        scores = torch.empty((B, n_out), dtype=torch.float32, device=dev)
-        idx = torch.empty((B, n_out), dtype=torch.int64, device=dev)
-        check(lib.wb_compact_write(flat.data_ptr(), B, n, n_blocks,
-                                   offsets.data_ptr(), totals.data_ptr(),
-                                   n_out, scores.data_ptr(), idx.data_ptr(),
-                                   stream), "wb_compact_write kernel")
-    compact_launches += 1
-    scores, perm = torch.sort(scores, dim=1, descending=True, stable=True)
-    scores, idx = scores[:, :cap], torch.gather(idx, 1, perm[:, :cap])
-    return (scores, idx) if batched else (scores[0], idx[0])
-
-
-def _signature(lib) -> None:
-    _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if lib.wb_compact_count.argtypes is None:
-        lib.wb_compact_count.argtypes = [_VP, _CI, _CL, _CI, _VP, _VP, _VP]
-        lib.wb_compact_count.restype = _CI
-        lib.wb_compact_write.argtypes = [_VP, _CI, _CL, _CI, _VP, _VP, _CI,
-                                         _VP, _VP, _VP]
-        lib.wb_compact_write.restype = _CI
+    :func:`topk_masked`: kernel S2 on a CUDA tensor, with no host
+    synchronization.  ``count`` (B,), each image's survivor count, is not
+    read: a caller that holds one compares it with the entries captured
+    on the device (``TwoPhaseDetector.finish``, JAX's ``complete``)."""
+    return topk_masked(masked, cap)[:2]
 
 
 def compact_survivors_plain(masked: torch.Tensor, count: torch.Tensor,
                             cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-torch version of :func:`compact_survivors` (kernel S2): the
     stable descending sort of the whole flattened map, cut to ``cap``."""
-    batched, flat = _flat(masked, cap)
-    scores, idx = torch.sort(flat, dim=1, descending=True, stable=True)
-    scores, idx = scores[:, :cap], idx[:, :cap]
-    return (scores, idx) if batched else (scores[0], idx[0])
+    return topk_masked_plain(masked, cap)[:2]
 
 
 def topk_detections(hs: torch.Tensor, alive: torch.Tensor,
@@ -236,8 +290,7 @@ def topk_detections(hs: torch.Tensor, alive: torch.Tensor,
     ``hs`` and ``alive`` maps: :func:`extract_detections` over ``hs`` where
     alive and -inf elsewhere (the order of ``lax.top_k``: lowest flat index
     first among equal scores)."""
-    masked = torch.where(alive, hs, torch.tensor(float("-inf"),
-                                                 device=hs.device))
+    masked = torch.where(alive, hs, float("-inf"))
     rects, scores, valid, _ = extract_detections(
         masked, alive.sum(dim=(1, 2)), level_id, offsets, inv_scales, window,
         k)

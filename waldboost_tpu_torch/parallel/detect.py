@@ -11,11 +11,12 @@ and ``make_bucket_detector_boxes`` (any frame size) come from
     canvas    octaves, planes (B1), channel canvas (B2 grad_hist, B5 FPGA)
               (canvas.py)
     cascade   frozen cascade, masked score map (kernel B3, ops/cascade_static.py)
-    extract   exact top-k boxes and greedy NMS     (ops/nms.py, plain torch)
+    extract   exact top-k (kernel S2, ops/nms.py::topk_masked), boxes and
+              greedy NMS (ops/nms.py, plain torch)
 
 With ``two_phase=True`` (:class:`TwoPhaseDetector`) the cascade step is
 kernel B4 over the first ``prefix`` stages, the exact compaction of its
-survivors (kernel S2, ``ops/nms.py::compact_survivors``) and the walk of
+survivors (kernel S2, ``ops/nms.py::topk_masked``) and the walk of
 the remaining stages over them (kernel S1, ``ops/cascade.py::
 cascade_suffix_sparse``); with an ``extractor`` other than ``"approx"``
 (:class:`RowwiseDetector`) it is B4 over every stage and the row-wise
@@ -58,8 +59,9 @@ from ..canvas import (as_image, channel_canvas, is_kernel_canvas, serving_opts,
 from ..model import Model, shared_plan
 from ..ops.cascade import cascade_suffix_sparse
 from ..ops.cascade_static import cascade_masked, cascade_response
-from ..ops.nms import (compact_survivors, extract_detections,
-                       extract_detections_rowwise, nms, origin_boxes)
+from ..ops.nms import (complete_count, extract_detections,
+                       extract_detections_rowwise, nms, origin_boxes,
+                       topk_masked)
 from ..packing import PackedPyramidPlan
 from .mesh import Mesh, as_shards, gather
 
@@ -286,11 +288,10 @@ class TwoPhaseDetector:
 
     :meth:`launch` queues the canvas and kernel B4 over the first
     ``prefix`` stages; :meth:`finish` compacts each image's prefix
-    survivors to ``cap`` entries (kernel S2, which reads the survivor
-    counts on the host), walks the remaining stages over them (kernel S1)
-    and extracts the best ``k_out`` by final score, then by position in
-    the compacted list (``lax.top_k``'s order), as JAX's
-    ``_make_two_phase_detector_boxes`` does."""
+    survivors to ``cap`` entries (kernel S2), walks the remaining stages
+    over them (kernel S1) and extracts the best ``k_out`` by final score,
+    then by position in the compacted list (``lax.top_k``'s order; S2
+    again), as JAX's ``_make_two_phase_detector_boxes`` does."""
 
     def __init__(self, model: Model, packed: PackedPyramidPlan, image_shape,
                  k: int, nms_iou: Optional[float], prefix: int,
@@ -319,37 +320,28 @@ class TwoPhaseDetector:
             return (cv,) + cascade_response(cv, self.grid.valid,
                                             self.prefix_step.ops, self.prefix)
 
-    @staticmethod
-    def prefix_survivors(hs1: torch.Tensor, alive1: torch.Tensor):
-        """``(masked, count)``: the prefix scores where alive, -inf
-        elsewhere, as a (B, GU * GV) map, and the (B,) int32 survivor
-        counts: what the compaction takes."""
-        masked = torch.where(alive1, hs1, torch.tensor(
-            float("-inf"), device=hs1.device)).reshape(hs1.shape[0], -1)
-        return masked, alive1.sum(dim=(1, 2), dtype=torch.int32)
-
     def finish(self, launched):
-        """``(rects, scores, valid, count, n_weak)`` of a launched batch."""
+        """``(rects, scores, valid, count, n_weak)`` of a launched batch.
+        Kernel S2 (``ops/nms.py::topk_masked``) compacts the prefix
+        survivors straight from B4's ``hs1`` and ``alive1`` and takes the
+        final top ``k_out`` of S1's list; the survivor counts, the
+        completeness and the -1 are computed on the device, so nothing
+        here waits for it (without NMS)."""
         if isinstance(launched, int):
             return self._empty(launched)
         cv, hs1, alive1, nw1 = launched
-        gv = hs1.shape[2]
-        neg_inf = torch.tensor(float("-inf"), device=self.device)
+        B, _, gv = hs1.shape
         with span("wb.compact"):
-            masked, count1 = self.prefix_survivors(hs1, alive1)
-            scores_k, idx = compact_survivors(masked, count1, self.cap)
+            scores_k, idx, count1 = topk_masked(
+                hs1.reshape(B, -1), self.cap, alive=alive1.reshape(B, -1))
             alive_k = torch.isfinite(scores_k)
-            complete = (count1 <= self.cap) & (
-                alive_k.sum(dim=1, dtype=torch.int32) == count1)
+            _, complete = complete_count(scores_k, count1, self.cap)
         with span("wb.suffix"):
             H, alive_s, nw2 = cascade_suffix_sparse(
                 cv, self.prefix_step.ops, self.window, None, idx, scores_k,
                 alive_k, self.prefix)
         with span("wb.extract"):
-            n_surv = alive_s.sum(dim=1, dtype=torch.int32)
-            scores, sel = torch.sort(torch.where(alive_s, H, neg_inf), dim=1,
-                                     descending=True, stable=True)
-            scores, sel = scores[:, :self.k_out], sel[:, :self.k_out]
+            scores, sel, n_surv = topk_masked(H, self.k_out, alive=alive_s)
             valid = torch.isfinite(scores)
             at = torch.gather(idx, 1, sel)
             g = self.grid
@@ -669,8 +661,7 @@ class TileShardedDetector:
     def _finish(self, hs, alive, nw):
         if not self.boxes:
             return hs, alive, nw
-        masked = torch.where(alive, hs, torch.tensor(float("-inf"),
-                                                     device=hs.device))
+        masked = torch.where(alive, hs, float("-inf"))
         rects, scores, keep, count = extract_boxes(
             masked[None], alive.sum(dtype=torch.int32)[None], self.grid,
             self.k, self.nms_iou)
