@@ -821,53 +821,21 @@ def host_probe():
             "host_span_us": span_us, "host_python_loop_ms": loop}
 
 
-def trace_breakdown(trace, window):
-    """Device idle share and per-span time of a Chrome trace.
-
-    ``window`` names the user annotation that encloses the traced batches.
-    Each device event (kernel, memcpy, memset) is given to the innermost
-    ``wb.*`` span that holds its launch on the host (matched by CUDA
-    correlation id); device busy time is the union of device intervals
-    inside the window.
-    """
-    ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
-    win = [e for e in ev if e.get("cat") == "user_annotation"
-           and e["name"] == window]
-    require(len(win) == 1, f"trace has no single {window!r} span")
-    w0, w1 = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
-    spans = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
-                    if e.get("cat") == "user_annotation"
-                    and e["name"].startswith("wb.")), key=lambda s: s[0])
-    launch_ts = {e["args"]["correlation"]: e["ts"] for e in ev
-                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                 and "correlation" in e.get("args", {})}
-    dev = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
-                                              "gpu_memset")]
-    per = {}
-    for s0, s1, name in spans:
-        per.setdefault(name, {"host_ms": 0.0, "device_ms": 0.0})
-        per[name]["host_ms"] += (s1 - s0) / 1e3
-    per.setdefault("other", {"host_ms": 0.0, "device_ms": 0.0})
-    intervals = []
-    for e in dev:
-        t0, t1 = max(e["ts"], w0), min(e["ts"] + e["dur"], w1)
-        if t1 > t0:
-            intervals.append((t0, t1))
-        lt = launch_ts.get(e.get("args", {}).get("correlation"))
-        owner = "other"
-        if lt is not None:
-            inner = [s for s in spans if s[0] <= lt <= s[1]]
-            if inner:
-                owner = min(inner, key=lambda s: s[1] - s[0])[2]
-        per[owner]["device_ms"] += e["dur"] / 1e3
-    busy, end = 0.0, w0
-    for t0, t1 in sorted(intervals):
-        if t1 > end:
-            busy += t1 - max(t0, end)
-            end = t1
-    return {"window_ms": (w1 - w0) / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / (w1 - w0),
-            "n_device_events": len(dev), "layers": per}
+def report_trace(trace, what):
+    """``wbbench/trace.py::reduce_trace`` of a Chrome trace over its
+    ``smoke.window`` span on the current card, printed after ``trace
+    <what>``: the window, the device's busy time and each span's host and
+    device milliseconds."""
+    import torch
+    from wbbench.trace import reduce_trace
+    bd = reduce_trace(trace, "smoke.window", [torch.cuda.current_device()])
+    print(f"trace {what} {bd['window_s'] * 1e3:.3f} ms, device busy "
+          f"{bd['busy_s'] * 1e3:.3f} ms ({bd['n_device_events']} device "
+          f"events)")
+    for layer, t in bd["layers"].items():
+        print(f"  {layer}: host {t['host_s'] * 1e3:.3f} ms, device "
+              f"{t['device_s'] * 1e3:.3f} ms")
+    return bd
 
 
 def trace_workload(workload, fn, batches, n, metric, trace_dir=None):
@@ -890,19 +858,13 @@ def trace_workload(workload, fn, batches, n, metric, trace_dir=None):
     os.close(fd)
     prof.export_chrome_trace(path)
     with open(path) as f:
-        bd = trace_breakdown(json.load(f), "smoke.window")
+        bd = report_trace(json.load(f), f"{workload}: {n} batches in")
     if trace_dir is None:
         os.remove(path)
     else:
         os.replace(path, os.path.join(trace_dir, f"{workload}.json"))
-    print(f"trace {workload}: {n} batches in {bd['window_ms']:.3f} ms, "
-          f"device busy {bd['device_busy_ms']:.3f} ms "
-          f"({bd['n_device_events']} device events)")
-    for layer, t in bd["layers"].items():
-        print(f"  {layer}: host {t['host_ms']:.3f} ms, device "
-              f"{t['device_ms']:.3f} ms")
     if bd["n_device_events"]:
-        metric(f"{workload}_device_idle_share", bd["device_idle_share"], "1")
+        metric(f"{workload}_device_idle_share", bd["idle_share"], "1")
     else:
         print(f"trace {workload}: the profiler recorded no device events; "
               f"device idle share not measured")
@@ -5278,17 +5240,9 @@ def main():
         trace = json.load(f)
     if args.trace_dir is None:
         os.remove(path)
-    bd = trace_breakdown(trace, "smoke.window")
-    print(f"trace train_config4 ({card}): 6 stages in "
-          f"{bd['window_ms']:.3f} ms, "
-          f"device busy {bd['device_busy_ms']:.3f} ms "
-          f"({bd['n_device_events']} device events)")
-    for layer, t in bd["layers"].items():
-        print(f"  {layer}: host {t['host_ms']:.3f} ms, device "
-              f"{t['device_ms']:.3f} ms")
+    bd = report_trace(trace, f"train_config4 ({card}): 6 stages in")
     if bd["n_device_events"]:
-        metric("train_config4_device_idle_share", bd["device_idle_share"],
-               "1")
+        metric("train_config4_device_idle_share", bd["idle_share"], "1")
     # the last span holds only the end of the train call
     for i, split in enumerate(stage_splits(trace, "smoke.stage")[:6]):
         print(f"train stage {8 + i} split (host ms, {card}): " + ", ".join(
@@ -5309,17 +5263,10 @@ def main():
         trace = json.load(f)
     if args.trace_dir is None:
         os.remove(path)
-    bd = trace_breakdown(trace, "smoke.window")
-    print(f"trace train_config4b ({card}): 6 stages in "
-          f"{bd['window_ms']:.3f} ms, device busy "
-          f"{bd['device_busy_ms']:.3f} ms ({bd['n_device_events']} device "
-          f"events)")
-    for layer, t in bd["layers"].items():
-        print(f"  {layer}: host {t['host_ms']:.3f} ms, device "
-              f"{t['device_ms']:.3f} ms")
+    bd = report_trace(trace, f"train_config4b ({card}): 6 stages in")
     require(bd["n_device_events"] > 0, "config 4b: the profiler recorded no "
             "device events")
-    metric("train_config4b_device_idle_share", bd["device_idle_share"], "1")
+    metric("train_config4b_device_idle_share", bd["idle_share"], "1")
     for i, split in enumerate(stage_splits(trace, "smoke.stage")[:6]):
         print(f"train 4b stage {b0 + i} split (host ms, {card}): "
               + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))

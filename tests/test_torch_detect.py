@@ -92,9 +92,16 @@ def test_layer_spans_only_under_profiler():
     plain = ft(images)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         traced = ft(images)
-    names = {e.name for e in prof.events() if e.name.startswith("wb.")}
+    events = [e for e in prof.events() if e.name.startswith("wb.")]
+    names = {e.name for e in events}
     assert names == {"wb.octaves", "wb.planes", "wb.channels", "wb.cascade",
-                     "wb.extract", "wb.nms"}
+                     "wb.extract", "wb.nms", "wb.nms.round", "wb.sync"}
+    # the NMS loop's rounds and reads lie inside wb.nms on the host
+    nms_spans = [e.time_range for e in events if e.name == "wb.nms"]
+    for e in events:
+        if e.name in ("wb.nms.round", "wb.sync"):
+            assert any(o.start <= e.time_range.start
+                       and e.time_range.end <= o.end for o in nms_spans)
     for a, b in zip(plain, traced):
         assert torch.equal(a, b)
 

@@ -50,12 +50,10 @@ the layers.
 from __future__ import annotations
 
 import functools
-from contextlib import nullcontext
 from typing import Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .channels import (ChannelFunction, _normalize_opts, level_channels,
                        level_octaves, octave_chain, octave_chain_f32)
@@ -68,6 +66,7 @@ from .ops.planes import (FloatPlaneOperands, PlaneOperands, octave_buffer,
                          planes, planes_float, planes_float_fast)
 from .packing import PackedPyramidPlan
 from .polyphase import float_plane_tables, plane_tables
+from .profiling import span
 
 #: the plane type of float32 frames in fast serving mode, by ``fast_float``
 FAST_FLOAT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -75,14 +74,6 @@ FAST_FLOAT = {"f32": torch.float32, "bf16": torch.bfloat16}
 __all__ = ["ChannelCanvas", "WindowGrid", "channel_canvas", "window_grid",
            "serving_opts", "as_image", "span", "per_level_canvas",
            "is_kernel_canvas"]
-
-
-def span(name: str):
-    """A profiler span while a torch profiler runs, else nothing: an
-    ungated ``record_function`` costs about 10 us of host time per span."""
-    if torch._C._autograd._profiler_enabled():
-        return record_function(name)
-    return nullcontext()
 
 
 def serving_opts(channel_opts: dict, n_channels: int

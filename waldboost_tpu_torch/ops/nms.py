@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from .._build import check, load_library
+from ..profiling import span, tracing
 
 __all__ = ["extract_detections", "extract_detections_masked",
            "extract_detections_rowwise", "compact_survivors",
@@ -136,7 +137,7 @@ def extract_detections_rowwise(hs: torch.Tensor, alive: torch.Tensor,
     GV))``, and ``count`` (B,) int32: the survivor count, or -1 when it
     exceeds ``k`` or a row holds more than ``k_row`` survivors."""
     B, gu, gv = hs.shape
-    neg_inf = torch.tensor(float("-inf"), device=hs.device)
+    neg_inf = torch.full((), float("-inf"), device=hs.device)
     masked = torch.where(alive, hs, neg_inf)
     count = alive.sum(dim=(1, 2), dtype=torch.int32)
     row_over = alive.sum(dim=2, dtype=torch.int32).amax(dim=1) if gu \
@@ -327,22 +328,33 @@ def _iou_with(rects: torch.Tensor, area: torch.Tensor,
 def nms(rects: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         iou_threshold: float) -> torch.Tensor:
     """Greedy NMS over (B, K) candidate sets; returns keep (B, K) bool.
-    The loop runs once per kept box of the fullest image, plus one."""
+    The loop runs once per kept box of the fullest image, plus one test
+    that ends it.  While a torch profiler runs, each round is a
+    ``wb.nms.round`` span and each test's read of the device a ``wb.sync``
+    span: R rounds and R + 1 reads a call."""
+    traced = tracing()
     K = scores.shape[1]
     keep = torch.zeros_like(valid)
     area = torch.clamp(rects[..., 2] - rects[..., 0], min=0) \
         * torch.clamp(rects[..., 3] - rects[..., 1], min=0)
     col = torch.arange(K, device=scores.device).unsqueeze(0)
-    neg_inf = torch.tensor(float("-inf"), device=scores.device)
+    # filled on the device: a tensor made from a host value would be a
+    # blocking copy
+    neg_inf = torch.full((), float("-inf"), device=scores.device)
     remaining = valid.clone()
-    while bool(remaining.any()):
-        i = torch.argmax(torch.where(remaining, scores, neg_inf), dim=1)
-        active = torch.gather(remaining, 1, i.view(-1, 1))
-        picked = col == i.view(-1, 1)
-        sup = (_iou_with(rects, area, i) > iou_threshold) | picked
-        remaining &= ~(active & sup)
-        keep |= active & picked
-    return keep
+    while True:
+        left = remaining.any()
+        with span("wb.sync", traced):
+            more = bool(left)
+        if not more:
+            return keep
+        with span("wb.nms.round", traced):
+            i = torch.argmax(torch.where(remaining, scores, neg_inf), dim=1)
+            active = torch.gather(remaining, 1, i.view(-1, 1))
+            picked = col == i.view(-1, 1)
+            sup = (_iou_with(rects, area, i) > iou_threshold) | picked
+            remaining &= ~(active & sup)
+            keep |= active & picked
 
 
 def nms_device(rects: torch.Tensor, scores: torch.Tensor,

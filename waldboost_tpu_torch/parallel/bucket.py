@@ -53,15 +53,17 @@ import torch
 
 from ..boxes import Boxes, non_max_suppression
 from ..canvas import (FAST_FLOAT, ChannelCanvas, WindowGrid, as_image,
-                      serving_opts, span)
+                      serving_opts)
 from ..channels import pyramid_plan, resolve_channel_function
 from ..model import Model
 from ..mining import gather_windows
 from ..ops.cascade_static import cascade_masked
 from ..ops.nms import extract_detections, nms
 from ..packing import PackedPyramidPlan, _packed_plan_cached
+from ..profiling import span
 from ..verification import detect_and_verify, get_verifier_program
-from .detect import MeshDetector, empty_results, extract_boxes
+from .detect import (MeshDetector, empty_results, extract_boxes, to_device,
+                     to_host)
 from .mesh import gather
 
 __all__ = ["BucketedDetector", "BucketProgram", "BucketSize",
@@ -204,7 +206,8 @@ class BucketProgram:
                 masked, count, grid.level_id, grid.offsets, grid.inv_scales,
                 grid.window, self.k, with_coords=True)
         with span("wb.verify"):
-            b, j = keep.nonzero(as_tuple=True)
+            with span("wb.sync"):
+                b, j = keep.nonzero(as_tuple=True)
             crops = gather_windows(exact, b, rs[b, j], cs[b, j], grid.window)
             scores = casc.clone()
             scores[b, j] = self.verify(crops, casc[b, j])
@@ -369,11 +372,10 @@ class BucketedDetector:
             for j, im in enumerate(chunk):
                 batch[j, :im.shape[0], :im.shape[1]] = im
             if self.mesh is None:
-                outs = fn(torch.from_numpy(batch).to(self.device), geom)
+                outs = fn(to_device(batch, self.device), geom)
             else:
                 outs = [gather(o, self.mesh) for o in fn(batch, geom)]
-            rects, scores, valid, count, n_weak, *casc = (
-                a.cpu().numpy() for a in outs)
+            rects, scores, valid, count, n_weak, *casc = to_host(outs)
             for j, im in enumerate(chunk):
                 if count[j] < 0:
                     out.append(self._fallback_detect(im))

@@ -35,7 +35,9 @@ environment variable for them.
 While a torch profiler runs, each step runs inside a ``record_function``
 span named ``wb.<step>`` (``wb.octaves``, ``wb.planes``, ``wb.channels``,
 ``wb.cascade``, ``wb.extract``, ``wb.nms``), so a trace attributes host
-and device time to the layers.
+and device time to the layers; each point where the host waits for the
+card (the NMS loop's tests, the uploads and copies to the host of
+:func:`detect_batch` and ``BucketedDetector``) is a ``wb.sync`` span.
 
 Every entry point runs on ``device``, or on the model's device when None
 (which is the card unless the model was loaded or moved elsewhere).  With
@@ -55,7 +57,7 @@ import torch.nn.functional as F
 
 from ..boxes import Boxes
 from ..canvas import (as_image, channel_canvas, is_kernel_canvas, serving_opts,
-                      span, window_grid)
+                      window_grid)
 from ..model import Model, shared_plan
 from ..ops.cascade import cascade_suffix_sparse
 from ..ops.cascade_static import cascade_masked, cascade_response
@@ -63,6 +65,7 @@ from ..ops.nms import (complete_count, extract_detections,
                        extract_detections_rowwise, nms, origin_boxes,
                        topk_masked)
 from ..packing import PackedPyramidPlan
+from ..profiling import span, tracing
 from .mesh import Mesh, as_shards, gather
 
 __all__ = ["BatchedDetector", "MeshDetector", "TwoPhaseDetector",
@@ -101,6 +104,24 @@ def extract_boxes(masked: torch.Tensor, count: torch.Tensor, grid, k: int,
         with span("wb.nms"):
             keep = keep & nms(rects, scores, keep, float(nms_iou))
     return rects, scores, keep, count
+
+
+def to_device(array: np.ndarray, device) -> torch.Tensor:
+    """``array`` copied to ``device``: a blocking copy from pageable
+    memory, so a ``wb.sync`` span."""
+    with span("wb.sync"):
+        return torch.from_numpy(array).to(device)
+
+
+def to_host(tensors) -> List[np.ndarray]:
+    """Each tensor copied to the host as a numpy array, each copy a
+    ``wb.sync`` span: the first waits for the card."""
+    traced = tracing()
+    out = []
+    for t in tensors:
+        with span("wb.sync", traced):
+            out.append(t.cpu().numpy())
+    return out
 
 
 def empty_results(B: int, device):
@@ -702,10 +723,10 @@ def detect_batch(model: Model, images, k: int = 4096, mesh=None,
     fn, _ = make_batched_detector_boxes(model, images.shape[1:], k=k,
                                         mesh=mesh, k_row=k_row)
     if mesh is None:
-        outs = fn(torch.from_numpy(images).to(fn.device))
+        outs = fn(to_device(images, fn.device))
     else:
         outs = [gather(o, mesh) for o in fn(images)]
-    rects, scores, valid, count, _ = (a.cpu().numpy() for a in outs)
+    rects, scores, valid, count, _ = to_host(outs)
     out = []
     for b in range(images.shape[0]):
         if count[b] < 0:

@@ -5,6 +5,13 @@ phases in the torch profiler's timeline, one profiler session over the
 host and the card written as a Chrome trace, and a wall-clock throughput
 meter for benchmarking loops that also folds in a model's cascade cost
 counters (``Model.cost_stats``).
+
+The serving path marks its steps with :func:`span`, which records only
+while a torch profiler runs: ``wb.octaves``, ``wb.planes``,
+``wb.channels``, ``wb.cascade``, ``wb.extract``, ``wb.nms`` (and the
+two-phase and verifier steps), one ``wb.nms.round`` a round of the greedy
+NMS loop, and one ``wb.sync`` at each point where the host waits for the
+card (a read of a device value, a blocking copy).
 """
 
 from __future__ import annotations
@@ -16,8 +23,12 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
+from torch.profiler import record_function
 
-__all__ = ["trace_annotation", "start_trace", "stop_trace", "Meter"]
+__all__ = ["trace_annotation", "tracing", "span", "start_trace",
+           "stop_trace", "Meter"]
+
+_UNTRACED = contextlib.nullcontext()
 
 
 def trace_annotation(name: str):
@@ -28,6 +39,21 @@ def trace_annotation(name: str):
             canvas = compute_canvas(image)
     """
     return torch.profiler.record_function(name)
+
+
+def tracing() -> bool:
+    """True while a torch profiler runs."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def span(name: str, traced: Optional[bool] = None):
+    """A profiler span named ``name`` while a torch profiler runs, else
+    nothing: an ungated ``record_function`` costs about 10 us of host time
+    per span.  ``traced`` is :func:`tracing` taken once by a caller that
+    opens many spans (a loop), in place of a test per span."""
+    if tracing() if traced is None else traced:
+        return record_function(name)
+    return _UNTRACED
 
 
 class _Trace:
