@@ -16,11 +16,11 @@ single-scale serving (BASELINE config 1, n_scales), and all of it over
 several devices and processes (meshes, tile sharding, two ranks over
 torch.distributed), two-phase and row-wise batched serving, channel
 functions a user registers (the per-level canvas), and checks
-and times its eleven CUDA kernels
+and times its twelve CUDA kernels
 (planes B1,
 grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
 B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d,
-cascade_suffix S1, compact S2):
+cascade_suffix S1, compact S2, nms S3):
 
  1. prints torch/CUDA versions and the card's name and power limit;
  2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
@@ -365,13 +365,25 @@ cascade_suffix S1, compact S2):
         per-level route's and channel_pyramid's, bitwise;
     10d. the VGA batch-8 canvas and whole detector call (k=1024, NMS 0.5)
         of the per-level and the kernel canvas, in turns (CUDA events);
-11. prints the per-kernel JSON summary (launches from the Model-API path,
-    S2's among them, B5's from the config-5 path, B2f's and B3f's from the
-    fast path, B2d's from the exact float path, S1's from the two-phase
-    path, max_abs_err, ms (S1's and S2's, and their plain_ms and
-    library_ms, the device time from the profiler at VGA scenes),
-    plain_ms, bound_ms from this run's shapes, library_ms where a PyTorch
-    call computes the same: S2's torch.sort), then the final ok line.
+11. S3 (ops/nms.py::nms, csrc/nms.cu) bitwise nms_plain on the card on
+    the extraction's candidates (rects, scores, valid of
+    make_batched_detector_boxes with nms_iou=None): the VGA scenes and a
+    noise batch at k 1024, 4K noise (fpga_4k_synth_64) at k 128 and the
+    VGA scenes at k 12000 (past the block's shared memory), batch 8, NMS
+    0.5 and 0.3, one launch a call; the dense VGA and 4K detectors with
+    NMS 0.5 finished under the sync debug mode "error"; S3 beside
+    nms_plain in turns (device time from the profiler, CUDA events; S3
+    also replayed from a CUDA graph) at the VGA scenes and 4K noise, with
+    the plain loop's rounds and the bound; every serving path with NMS
+    (phases 3-5d, 8a, 8b, 9a row-wise, 9c) launches S3, from counters set
+    to 0 just before it;
+12. prints the per-kernel JSON summary (launches from the Model-API path,
+    S2's and S3's among them, B5's from the config-5 path, B2f's and B3f's
+    from the fast path, B2d's from the exact float path, S1's from the
+    two-phase path, max_abs_err, ms (S1's and S2's, and their plain_ms and
+    library_ms, the device time from the profiler at VGA scenes), plain_ms,
+    bound_ms from this run's shapes, library_ms where a PyTorch call
+    computes the same: S2's torch.sort), then the final ok line.
 
 Before the summary it prints its own wall time.  Any failed phase raises
 and the script exits nonzero without the ok line.
@@ -460,6 +472,11 @@ KERNELS = {
                 "replaces the XLA ops waldboost_tpu/parallel/detect.py:759 "
                 "(approx_max_k, recall_target=1.0) and :767 (lax.top_k), "
                 "and the extraction's top-k, waldboost_tpu/ops/nms.py:154"),
+    # S3 replaces a loop of XLA ops, not a pallas_call
+    "nms": ("waldboost_tpu_torch.ops.nms", "nms_launches",
+            "waldboost_tpu_torch/csrc/nms.cu",
+            "replaces the XLA while loop waldboost_tpu/ops/nms.py:89 "
+            "(nms_device's lax.while_loop)"),
 }
 #: the fast serving mode's golden (scripts/make_torch_fast_golden.py)
 FAST_GOLDEN = os.path.join(ROOT, "tests", "data",
@@ -2290,7 +2307,7 @@ TRACE_KERNELS = {"planes": "planes_kernel", "grad_hist": "grad_hist_kernel",
                  "cascade_fast": "cascade_fast_kernel",
                  "cascade_response": "cascade_kernel",
                  "cascade_suffix": "suffix_kernel",
-                 "compact": "topk_kernel"}
+                 "compact": "topk_kernel", "nms": "nms_kernel"}
 #: the two-process run's own time limit (each rank)
 MP_TIMEOUT_S = 300
 
@@ -2402,8 +2419,8 @@ def mesh_serving_run(wt, dev, mesh, label, synth, scene_np, golden, fastg,
                   with_n_weak=not fast)
         fs, _ = wt.make_batched_detector_boxes(synth, VGA, mesh=mesh, **kw)
         fu, _ = wt.make_batched_detector_boxes(synth, VGA, device=dev, **kw)
-        kernels = ("planes", "grad_hist_fast", "cascade_fast") if fast \
-            else ("planes", "grad_hist", "cascade")
+        kernels = ("planes", "grad_hist_fast", "cascade_fast", "nms") \
+            if fast else ("planes", "grad_hist", "cascade", "nms")
         what = f"phase {phase} ({label}, k={k})"
         outs, got = mesh_launches(zero, read, lambda: fs(shards), kernels, n,
                                   what)
@@ -2929,12 +2946,12 @@ def twophase_mesh_run(wt, dev, mesh, label, synth, scene_np, zero, read):
     shards = shard_array(np.concatenate([scene_np] * n), mesh)
     what = f"phase 9c ({label})"
     outs, got = mesh_launches(zero, read, lambda: fs(shards),
-                              dict(TP_LAUNCHES), n, what)
+                              dict(TP_LAUNCHES, nms=1), n, what)
     mesh_blocks_equal(outs, fu(torch.from_numpy(scene_np).to(dev)), mesh,
                       dev, what)
     if any(d.index != dev.index for d in mesh.local_devices):
         _, seen = kernel_devices(lambda: fs(shards))
-        require_on_devices(seen, TP_PATH, mesh, what)
+        require_on_devices(seen, TP_PATH + ("nms",), mesh, what)
     print(f"{what}: {n} shards of {MESH_SHARD_BATCH} VGA scenes, two-phase "
           f"bitwise the unsharded path; launches {got}")
 
@@ -2966,9 +2983,10 @@ def twophase_phases(wt, dev, card, metric, zero, read, synth, noise, scene,
               f"{launches[path]}")
     tp, row = launches["two-phase"], launches["row-wise"]
     require(all(tp[k] > 0 for k in TP_PATH) and tp["cascade"] == 0
-            and tp["compact"] == 2 * tp["cascade_suffix"],
+            and tp["compact"] == 2 * tp["cascade_suffix"]
+            and tp["nms"] == 0,
             f"phase 9a: the two-phase path launched {tp}")
-    require(all(row[k] > 0 for k in TP_PATH[:3])
+    require(all(row[k] > 0 for k in TP_PATH[:3]) and row["nms"] == 1
             and not any(row[k] for k in TP_KERNELS + ("cascade",)),
             f"phase 9a: the row-wise path launched {row}")
 
@@ -3460,6 +3478,98 @@ def channel_phases(wt, dev, card, metric, zero, read, synth, noise, scene):
     return path_launches
 
 
+#: phase 11: the K at which S3 runs past the block's shared memory (25
+#: bytes a candidate; the H100 opts a block in to 227 KB), and the NMS
+#: thresholds S3 is held to its plain version at
+NMS_BIG_K = 12000
+NMS_THRESHOLDS = (0.5, 0.3)
+
+
+def nms_phase(wt, dev, card, metric, zero, read, synth, scene, noise):
+    """Phase 11: S3 (``ops/nms.py::nms``, csrc/nms.cu) bitwise
+    ``nms_plain`` on the card, on the candidates the extraction gives it
+    (``make_batched_detector_boxes(nms_iou=None)``'s rects, scores and
+    valid): the VGA scenes and a noise batch at k 1024, 4K noise through
+    fpga_4k_synth_64 at k 128, and the VGA scenes at k ``NMS_BIG_K``
+    (past the block's shared memory), batch 8, at each of
+    ``NMS_THRESHOLDS``, S3 launched once a call; the dense VGA and 4K
+    detectors with NMS 0.5 finished under the sync debug mode "error";
+    then S3 beside ``nms_plain`` in turns at the VGA scenes and 4K noise
+    (NMS 0.5), S3 also replayed from a CUDA graph, with its bound (the
+    candidates read once, keep written once).  Returns S3's largest
+    error (0: every keep entry must equal the plain version's), ``(ms,
+    plain ms, None)`` and the bound at the VGA scenes."""
+    import torch
+    from waldboost_tpu_torch.ops import nms as nms_mod
+    t0 = time.perf_counter()
+    fpga = wt.load(os.path.join(ROOT, "models", FPGA_MODELS[0] + ".pb"),
+                   device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    noise4k = torch.randint(0, 256, (BATCH,) + HW4K, generator=gen,
+                            dtype=torch.uint8, device=dev)
+    make = lambda m, hw, **kw: wt.make_batched_detector_boxes(
+        m, hw, device=dev, **kw)[0]
+    optin = torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin
+    require(NMS_BIG_K * 25 > optin, f"phase 11: k={NMS_BIG_K} fits the "
+            f"block's {optin} bytes of shared memory")
+    cases = {"VGA scenes": (make(synth, VGA, k=1024), scene),
+             "VGA noise": (make(synth, VGA, k=1024), noise),
+             "4K noise": (make(fpga, HW4K, k=128), noise4k),
+             f"VGA scenes k={NMS_BIG_K}": (make(synth, VGA, k=NMS_BIG_K),
+                                           scene)}
+    timed = {}
+    for label, (det, images) in cases.items():
+        rects, scores, valid = det(images)[:3]
+        for thr in NMS_THRESHOLDS:
+            zero()
+            got = nms_mod.nms(rects, scores, valid, thr)
+            torch.cuda.synchronize()
+            launches = read()["nms"]
+            want = nms_mod.nms_plain(rects, scores, valid, thr)
+            bad = int((got != want).sum())
+            print(f"phase 11: S3 {label} {tuple(scores.shape)}, NMS {thr}: "
+                  f"{bad} mismatching keep entries of {want.numel()}, "
+                  f"{int(valid.sum())} candidates, kept "
+                  f"{want.sum(1).tolist()}, {launches} launch")
+            require(bad == 0 and launches == 1, f"phase 11: S3 {label} NMS "
+                    f"{thr}: {bad} keep entries differ from nms_plain, "
+                    f"{launches} launches")
+        if label in ("VGA scenes", "4K noise"):
+            timed[label] = (rects, scores, valid)
+    del cases
+
+    # the dense detectors with NMS read nothing back on the host
+    runs = {"dense VGA": (make(synth, VGA, k=1024, nms_iou=0.5), scene),
+            "dense 4K": (make(fpga, HW4K, k=128, nms_iou=0.5), noise4k)}
+    for label, (det, images) in runs.items():
+        seen = no_sync_run(det, images)
+        require(not seen, f"phase 11: {label} sorted on the card: {seen}")
+    print(f"phase 11: {list(runs)} with NMS 0.5 finished under the sync "
+          f"debug mode 'error' without a host sync")
+
+    row_vga = b_vga = None
+    for label, (rects, scores, valid) in timed.items():
+        call = lambda: nms_mod.nms(rects, scores, valid, 0.5)
+        plain = lambda: nms_mod.nms_plain(rects, scores, valid, 0.5)
+        rounds = int(plain().sum(1).max())
+        row, ev, _ = timed_in_turns(call, plain)
+        replayed = graph_ms(call, 10)
+        b = bound(nbytes(rects, scores, valid) + valid.numel())
+        if label == "VGA scenes":
+            row_vga, b_vga = row, b
+        print(f"phase 11: S3 {label} {tuple(scores.shape)}, NMS 0.5, "
+              f"{rounds} rounds: {timing_text(row, ev, None)}, replayed "
+              f"from a CUDA graph {replayed:.4f} ms, bound {b[0]:.5f} ms "
+              f"({b[1]}) ({card})")
+        tag = f"nms_{label.split()[0].lower()}"
+        metric(f"{tag}_ms", row[0], "ms")
+        metric(f"{tag}_events_ms", float(np.mean(ev)), "ms")
+        metric(f"{tag}_plain_ms", row[1], "ms")
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return 0.0, row_vga, b_vga
+
+
 def main():
     import importlib
 
@@ -3897,6 +4007,8 @@ def main():
     require(all(serving_launches[k] > 0
                 for k in ("planes", "grad_hist", "cascade", "compact")),
             "a kernel of the serving path was not launched")
+    require(serving_launches["nms"] == 1,
+            "the serving path did not launch S3 once for its call")
     rects, scores = rects.cpu().numpy(), scores.cpu().numpy()
     valid, count = valid.cpu().numpy(), count.cpu().numpy()
     require(rects.shape == (len(gframes), 1024, 4)
@@ -3928,11 +4040,11 @@ def main():
         synth, VGA, k=fk, nms_iou=fiou, with_n_weak=False, device=dev,
         fast=True, fast_float=ff)[0] for ff in ("f32", "bf16")}
     fast_runs = (("uint8", fast_dets["f32"], frames,
-                  ("planes", "grad_hist_fast", "cascade_fast")),
+                  ("planes", "grad_hist_fast", "cascade_fast", "nms")),
                  ("float_f32", fast_dets["f32"], ffloat,
-                  ("grad_hist_fast", "cascade_fast")),
+                  ("grad_hist_fast", "cascade_fast", "nms")),
                  ("float_bf16", fast_dets["bf16"], ffloat,
-                  ("grad_hist_fast", "cascade_fast")))
+                  ("grad_hist_fast", "cascade_fast", "nms")))
     fast_launches = dict.fromkeys(KERNELS, 0)
     fast_out = {}
     for key, fdet, imgs, need in fast_runs:
@@ -3973,8 +4085,10 @@ def main():
     torch.cuda.synchronize()
     got = read_counters()
     print(f"fast multi-model launches: {got}")
-    require(got["grad_hist_fast"] > 0 and got["cascade_fast"] > 0,
-            "make_multi_detector_boxes(fast=True) did not launch B2f and B3f")
+    require(got["grad_hist_fast"] > 0 and got["cascade_fast"] > 0
+            and got["nms"] > 0,
+            "make_multi_detector_boxes(fast=True) did not launch B2f, B3f "
+            "and S3")
     rects, scores, mvalid, label, _, _ = multi_fast
     urects, uscores, uvalid, _, _ = fast_out["uint8"]
     for b in range(len(gframes)):
@@ -4171,7 +4285,7 @@ def main():
     fpga_launches = read_counters()
     print(f"config-5 path launches: {fpga_launches}")
     require(all(fpga_launches[k] > 0 for k in ("planes", "fpga", "cascade",
-                                               "cascade_response")),
+                                               "cascade_response", "nms")),
             "a kernel of the config-5 path was not launched")
     check_fpga_path(fgold, fres)
 
@@ -4187,7 +4301,7 @@ def main():
     bucket_launches = read_counters()
     print(f"bucketed path launches: {bucket_launches}")
     require(all(bucket_launches[k] > 0
-                for k in ("planes", "grad_hist", "cascade")),
+                for k in ("planes", "grad_hist", "cascade", "nms")),
             "bucketed serving: a kernel of the path was not launched")
     require(bdet.compiles == 2, f"bucketed serving: {bdet.compiles} set-ups "
             f"for two buckets")
@@ -4303,8 +4417,9 @@ def main():
     float_launches = read_counters()
     print(f"exact float path launches: {float_launches}")
     require(float_launches["grad_hist_float"] > 0
-            and float_launches["cascade"] > 0,
-            "exact float serving: B2d or B3 was not launched")
+            and float_launches["cascade"] > 0
+            and float_launches["nms"] == 1,
+            "exact float serving: B2d, B3 or S3 was not launched")
     require(float_launches["grad_hist"] == 0
             and float_launches["grad_hist_fast"] == 0
             and float_launches["planes"] == 0,
@@ -5312,11 +5427,16 @@ def main():
     print(f"per-level path launches (VGA noise batch): "
           f"{json.dumps(per_level_launches)}")
 
+    # -- phase 11: S3 at the serving paths' candidate sets ----------------
+    errs["nms"], timing["nms"], bounds["nms"] = nms_phase(
+        wt, dev, card, metric, zero_counters, read_counters, synth, scene,
+        noise[0])
+
     print(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s "
           f"({card})")
     # launches: the Model-API path's (S2's among them: the dense
-    # extraction), B5's from the config-5 path, B2f's and B3f's from the
-    # fast serving path, S1's from the two-phase path
+    # extraction; S3's: its NMS), B5's from the config-5 path, B2f's and
+    # B3f's from the fast serving path, S1's from the two-phase path
     launches = dict(path_launches, fpga=fpga_launches["fpga"],
                     grad_hist_fast=fast_launches["grad_hist_fast"],
                     cascade_fast=fast_launches["cascade_fast"],

@@ -1,13 +1,16 @@
 """PyTorch port: the serving path's ``wb.nms.round`` and ``wb.sync``
 profiler spans (``waldboost_tpu_torch/profiling.py::span``).
 
-On the CPU, greedy NMS (``ops/nms.py::nms``) records one ``wb.nms.round``
-a round, as many as the most boxes a frame of the batch keeps, and one
-``wb.sync`` a test of the loop, one more; both inside ``wb.nms``.  On the
+On the CPU, greedy NMS (``ops/nms.py::nms``, the loop ``nms_plain``)
+records one ``wb.nms.round`` a round, as many as the most boxes a frame of
+the batch keeps, and one ``wb.sync`` a test of the loop, one more; both
+inside ``wb.nms``.  On the
 card (``cuda`` marker; ``python -m pytest tests/test_torch_spans.py -m
 cuda``), every point where a serving path's host waits for the card is a
 ``wb.sync`` span: under ``torch.cuda.set_sync_debug_mode("warn")`` a call
-warns as many times as it records ``wb.sync``."""
+warns as many times as it records ``wb.sync``, which is never on the
+dense, two-phase and row-wise paths (NMS there is kernel S3, with no host
+read)."""
 
 import os
 import traceback
@@ -160,6 +163,8 @@ def test_every_host_wait_is_a_sync_span_on_card(cuda, path):
         call()
     torch.cuda.synchronize()
     waits, n_sync = _waits(call)
-    assert n_sync > 0
+    # the dense, two-phase and row-wise paths wait nowhere: their NMS is
+    # kernel S3; the others upload frames and copy results to the host
+    assert (n_sync > 0) == (path in ("bucketed", "detect_batch"))
     assert len(waits) == n_sync, (path, n_sync, sorted(
         (w, waits.count(w)) for w in set(waits)))

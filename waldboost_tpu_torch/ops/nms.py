@@ -10,6 +10,9 @@ final ``lax.top_k`` (``:767``).
 Every top-k of the port's extractions goes through :func:`topk_masked`:
 kernel S2 (``csrc/compact.cu``, one launch, no host synchronization) on
 a CUDA tensor, :func:`topk_masked_plain` (a stable sort) on a CPU tensor.
+Every greedy NMS goes through :func:`nms`: kernel S3 (``csrc/nms.cu``,
+one launch for the batch, no host read) on a CUDA tensor, the loop
+:func:`nms_plain` on a CPU tensor.
 
 Extraction is an exact top-k: candidates are ordered by score descending,
 then by flat window-origin index ascending (a stable sort), so ``count ==
@@ -32,10 +35,12 @@ __all__ = ["extract_detections", "extract_detections_masked",
            "extract_detections_rowwise", "compact_survivors",
            "compact_survivors_plain", "topk_masked", "topk_masked_plain",
            "complete_count", "origin_boxes", "topk_detections",
-           "iou_matrix_device", "nms", "nms_device"]
+           "iou_matrix_device", "nms", "nms_plain", "nms_device"]
 
 #: kernel launches made by :func:`topk_masked` (S2), from every caller
 compact_launches = 0
+#: kernel launches made by :func:`nms` (S3), from every caller
+nms_launches = 0
 #: most keys one block of S2 sorts (``kRun`` in csrc/compact.cu); a row
 #: with more sorts runs of this many and merges them, in a (B, k) scratch
 #: the wrapper allocates when k exceeds it
@@ -327,11 +332,69 @@ def _iou_with(rects: torch.Tensor, area: torch.Tensor,
 
 def nms(rects: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         iou_threshold: float) -> torch.Tensor:
-    """Greedy NMS over (B, K) candidate sets; returns keep (B, K) bool.
-    The loop runs once per kept box of the fullest image, plus one test
-    that ends it.  While a torch profiler runs, each round is a
-    ``wb.nms.round`` span and each test's read of the device a ``wb.sync``
-    span: R rounds and R + 1 reads a call."""
+    """Greedy NMS over (B, K) candidate sets (rects (B, K, 4) XYXY);
+    returns keep (B, K) bool: while a valid candidate remains, the best
+    remaining one (the highest score, NaN above all, the lower index on a
+    tie) is kept and every remaining candidate whose IoU with it exceeds
+    ``iou_threshold`` (as a float32) is dropped.
+
+    Kernel S3 (``csrc/nms.cu``) on a CUDA tensor: one launch for the
+    batch, nothing read back by the host; rects and scores must be
+    float32 and valid bool there (ValueError otherwise).
+    :func:`nms_plain` on a CPU tensor, which takes any dtypes the loop
+    takes.  The two agree bitwise on every input on which the plain loop
+    ends."""
+    if scores.device.type == "cpu":
+        return nms_plain(rects, scores, valid, iou_threshold)
+    if scores.device.type != "cuda":
+        raise ValueError(f"nms: unsupported device {scores.device}")
+    if scores.dim() != 2 or rects.shape != (*scores.shape, 4) \
+            or valid.shape != scores.shape:
+        raise ValueError(f"nms: rects {tuple(rects.shape)}, scores "
+                         f"{tuple(scores.shape)} and valid "
+                         f"{tuple(valid.shape)} are not (B, K, 4), (B, K), "
+                         f"(B, K)")
+    if rects.dtype != torch.float32 or scores.dtype != torch.float32 \
+            or valid.dtype != torch.bool:
+        raise ValueError("nms: rects and scores must be float32, valid bool")
+    if rects.device != scores.device or valid.device != scores.device:
+        raise ValueError("nms: rects, scores and valid on different devices")
+    global nms_launches
+    B, K = scores.shape
+    dev = scores.device
+    keep = torch.empty((B, K), dtype=torch.bool, device=dev)
+    if B == 0 or K == 0:
+        return keep
+    rects, scores, valid = (t.contiguous() for t in (rects, scores, valid))
+    lib = _nms_library()
+    with torch.cuda.device(dev):
+        check(lib.wb_nms(rects.data_ptr(), scores.data_ptr(),
+                         valid.data_ptr(), B, K, float(iou_threshold),
+                         keep.data_ptr(),
+                         torch.cuda.current_stream(dev).cuda_stream),
+              "wb_nms kernel")
+    nms_launches += 1
+    return keep
+
+
+def _nms_library():
+    lib = load_library("nms")
+    if lib.wb_nms.argtypes is None:
+        _VP, _CI = ctypes.c_void_p, ctypes.c_int
+        # rects, scores, valid, B, K, thr, keep, stream
+        lib.wb_nms.argtypes = [_VP, _VP, _VP, _CI, _CI, ctypes.c_float, _VP,
+                               _VP]
+        lib.wb_nms.restype = _CI
+    return lib
+
+
+def nms_plain(rects: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+              iou_threshold: float) -> torch.Tensor:
+    """Plain-torch version of :func:`nms` (kernel S3): the greedy loop,
+    one round a kept box of the fullest image, plus one test that ends
+    it.  While a torch profiler runs, each round is a ``wb.nms.round``
+    span and each test's read of the device a ``wb.sync`` span: R rounds
+    and R + 1 reads a call."""
     traced = tracing()
     K = scores.shape[1]
     keep = torch.zeros_like(valid)
@@ -363,7 +426,8 @@ def nms_device(rects: torch.Tensor, scores: torch.Tensor,
     """:func:`nms` under the JAX package's name and parameters: one (K,)
     candidate set (rects (K, 4)) or a (B, K) batch; returns keep of the
     same shape.  A box at an IoU of exactly the threshold with a kept one
-    is not suppressed, as in the host NMS."""
+    is not suppressed, as in the host NMS.  On a CUDA tensor rects and
+    scores must be float32 and valid bool, as :func:`nms` says."""
     if scores.dim() == 1:
         return nms(rects[None], scores[None], valid[None],
                    float(iou_threshold))[0]

@@ -36,8 +36,9 @@ While a torch profiler runs, each step runs inside a ``record_function``
 span named ``wb.<step>`` (``wb.octaves``, ``wb.planes``, ``wb.channels``,
 ``wb.cascade``, ``wb.extract``, ``wb.nms``), so a trace attributes host
 and device time to the layers; each point where the host waits for the
-card (the NMS loop's tests, the uploads and copies to the host of
-:func:`detect_batch` and ``BucketedDetector``) is a ``wb.sync`` span.
+card (the uploads and copies to the host of :func:`detect_batch` and
+``BucketedDetector``, and on the CPU the NMS loop's tests) is a
+``wb.sync`` span.
 
 Every entry point runs on ``device``, or on the model's device when None
 (which is the card unless the model was loaded or moved elsewhere).  With
@@ -214,10 +215,10 @@ class MeshDetector:
     returns each output as the list of this process's shards, on their
     devices; concatenated in mesh order (:func:`~.mesh.gather`) they are
     the unsharded detector's outputs, bitwise.  Every shard's canvas and
-    walk are queued before any shard's extraction, which waits for its
-    device (NMS once per kept box), so the cards work at the same time.
-    The extractions run in turn: a thread for each card's was measured
-    three to five times slower on four cards (PERF.md §5)."""
+    walk are queued before any shard's extraction, so the cards work at
+    the same time.  The extractions are queued in turn; on the card they
+    read nothing back (NMS is kernel S3), so the host runs ahead of every
+    card."""
 
     def __init__(self, mesh: Mesh, parts: Sequence):
         self.mesh = mesh

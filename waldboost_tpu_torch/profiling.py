@@ -10,8 +10,9 @@ The serving path marks its steps with :func:`span`, which records only
 while a torch profiler runs: ``wb.octaves``, ``wb.planes``,
 ``wb.channels``, ``wb.cascade``, ``wb.extract``, ``wb.nms`` (and the
 two-phase and verifier steps), one ``wb.nms.round`` a round of the greedy
-NMS loop, and one ``wb.sync`` at each point where the host waits for the
-card (a read of a device value, a blocking copy).
+NMS loop (``ops/nms.py::nms_plain``, the CPU's NMS; the card's, kernel S3,
+has no rounds on the host), and one ``wb.sync`` at each point where the
+host waits for the card (a read of a device value, a blocking copy).
 """
 
 from __future__ import annotations
