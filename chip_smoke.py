@@ -16,11 +16,11 @@ single-scale serving (BASELINE config 1, n_scales), and all of it over
 several devices and processes (meshes, tile sharding, two ranks over
 torch.distributed), two-phase and row-wise batched serving, channel
 functions a user registers (the per-level canvas), and checks
-and times its twelve CUDA kernels
+and times its thirteen CUDA kernels
 (planes B1,
 grad_hist B2, cascade B3, cascade_response B4, fpga B5, cascade_generic
 B6, grad_hist_fast B2f, cascade_fast B3f, grad_hist_float B2d,
-cascade_suffix S1, compact S2, nms S3):
+cascade_suffix S1, compact S2, nms S3, octaves S4):
 
  1. prints torch/CUDA versions and the card's name and power limit;
  2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
@@ -377,9 +377,18 @@ cascade_suffix S1, compact S2, nms S3):
     the plain loop's rounds and the bound; every serving path with NMS
     (phases 3-5d, 8a, 8b, 9a row-wise, 9c) launches S3, from counters set
     to 0 just before it;
-12. prints the per-kernel JSON summary (launches from the Model-API path,
-    S2's and S3's among them, B5's from the config-5 path, B2f's and B3f's
-    from the fast path, B2d's from the exact float path, S1's from the
+12. S4 (ops/octaves.py::octaves, csrc/octaves.cu) byte for byte the
+    plain chain (octaves_plain: octave_buffer of octave_chain or
+    octave_chain_f32) on the card, on uint8 noise and float32 frames with
+    NaN, +-inf, subnormals and -0 at VGA (5 octaves) and 4K (7), batch 8,
+    one launch each; the dense VGA and 4K detector calls launch it once;
+    S4 beside the plain chain in turns (device time from the profiler,
+    CUDA events) at VGA and 4K, with its bound (the frames read once, the
+    octave buffer written once); every serving path's launch counts above
+    carry S4's column (octaves);
+13. prints the per-kernel JSON summary (launches from the Model-API path,
+    S2's, S3's and S4's among them, B5's from the config-5 path, B2f's and
+    B3f's from the fast path, B2d's from the exact float path, S1's from the
     two-phase path, max_abs_err, ms (S1's and S2's, and their plain_ms and
     library_ms, the device time from the profiler at VGA scenes), plain_ms,
     bound_ms from this run's shapes, library_ms where a PyTorch call
@@ -396,6 +405,8 @@ Usage: python chip_smoke.py [--trace-dir DIR]   (DIR keeps the traces)
                                               alone, no summary)
        python chip_smoke.py --channels-only  (build, then phases 10a-10d
                                               alone, no summary)
+       python chip_smoke.py --octaves-only  (build, then phase 12 alone,
+                                             no summary)
 """
 
 import argparse
@@ -477,6 +488,11 @@ KERNELS = {
             "waldboost_tpu_torch/csrc/nms.cu",
             "replaces the XLA while loop waldboost_tpu/ops/nms.py:89 "
             "(nms_device's lax.while_loop)"),
+    # S4 replaces the XLA octave chain, not a pallas_call
+    "octaves": ("waldboost_tpu_torch.ops.octaves", "octaves_launches",
+                "waldboost_tpu_torch/csrc/octaves.cu",
+                "replaces the XLA octave chain "
+                "waldboost_tpu/channels.py:517 (_compute_octaves_f32)"),
 }
 #: the fast serving mode's golden (scripts/make_torch_fast_golden.py)
 FAST_GOLDEN = os.path.join(ROOT, "tests", "data",
@@ -2307,7 +2323,8 @@ TRACE_KERNELS = {"planes": "planes_kernel", "grad_hist": "grad_hist_kernel",
                  "cascade_fast": "cascade_fast_kernel",
                  "cascade_response": "cascade_kernel",
                  "cascade_suffix": "suffix_kernel",
-                 "compact": "topk_kernel", "nms": "nms_kernel"}
+                 "compact": "topk_kernel", "nms": "nms_kernel",
+                 "octaves": "octaves_kernel"}
 #: the two-process run's own time limit (each rank)
 MP_TIMEOUT_S = 300
 
@@ -2419,8 +2436,9 @@ def mesh_serving_run(wt, dev, mesh, label, synth, scene_np, golden, fastg,
                   with_n_weak=not fast)
         fs, _ = wt.make_batched_detector_boxes(synth, VGA, mesh=mesh, **kw)
         fu, _ = wt.make_batched_detector_boxes(synth, VGA, device=dev, **kw)
-        kernels = ("planes", "grad_hist_fast", "cascade_fast", "nms") \
-            if fast else ("planes", "grad_hist", "cascade", "nms")
+        kernels = ("octaves", "planes", "grad_hist_fast", "cascade_fast",
+                   "nms") if fast else ("octaves", "planes", "grad_hist",
+                                        "cascade", "nms")
         what = f"phase {phase} ({label}, k={k})"
         outs, got = mesh_launches(zero, read, lambda: fs(shards), kernels, n,
                                   what)
@@ -3570,6 +3588,99 @@ def nms_phase(wt, dev, card, metric, zero, read, synth, scene, noise):
     return 0.0, row_vga, b_vga
 
 
+#: phase 12: the frames S4 is held and timed at (label, sides, octaves:
+#: the benchmark's plans have 5 at VGA and 7 at 4K)
+OCTAVE_CASES = (("VGA", VGA, 5), ("4K", HW4K, 7))
+
+
+def special_floats(shape, dev, seed):
+    """Seeded float32 frames over many exponents, about a twelfth each
+    NaN, +inf, -inf, subnormal and -0."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev) * torch.pow(
+        2.0, torch.randint(-20, 20, shape, generator=gen, device=dev).float())
+    pick = torch.randint(0, 12, shape, generator=gen, device=dev)
+    sub = torch.randint(1, 2 ** 23, shape, generator=gen, device=dev,
+                        dtype=torch.int32).view(torch.float32)
+    for code, value in ((0, float("nan")), (1, float("inf")),
+                        (2, float("-inf")), (4, -0.0)):
+        x = torch.where(pick == code, torch.full_like(x, value), x)
+    return torch.where(pick == 3, sub, x).contiguous()
+
+
+def octaves_phase(wt, dev, card, metric, zero, read, synth):
+    """Phase 12: S4 (``ops/octaves.py::octaves``, csrc/octaves.cu) byte
+    for byte ``octaves_plain`` on the card: uint8 noise and float32 frames
+    with NaN, +-inf, subnormals and -0 at each of ``OCTAVE_CASES``, batch
+    8, one launch each; the dense VGA and 4K detector calls launch it
+    once; then S4 beside the plain chain in turns on the uint8 noise, with
+    its bound (the frames read once, the octave buffer written once).
+    Returns S4's largest error (0: every value must equal the plain
+    chain's bits), ``(ms, plain ms, None)`` and the bound at VGA."""
+    import torch
+    from waldboost_tpu_torch.ops import octaves as oct_mod
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bits = lambda t: t.view(torch.int32) if t.is_floating_point() else t
+    frames = {}
+    for label, hw, n in OCTAVE_CASES:
+        u8 = torch.randint(0, 256, (BATCH,) + hw, generator=gen,
+                           dtype=torch.uint8, device=dev)
+        frames[label] = u8
+        for images in (u8, special_floats((BATCH,) + hw, dev, 12)):
+            zero()
+            got = oct_mod.octaves(images, n)
+            torch.cuda.synchronize()
+            launches = read()["octaves"]
+            want = oct_mod.octaves_plain(images, n)
+            bad = int((bits(got) != bits(want)).sum())
+            print(f"phase 12: S4 {label} {images.dtype} {tuple(got.shape)}, "
+                  f"{n} octaves: {bad} mismatching values of "
+                  f"{want.numel()}, {launches} launch")
+            require(bad == 0 and launches == 1, f"phase 12: S4 {label} "
+                    f"{images.dtype}: {bad} values differ from the plain "
+                    f"chain, {launches} launches")
+
+    fpga = wt.load(os.path.join(ROOT, "models", FPGA_MODELS[0] + ".pb"),
+                   device=dev)
+    dense = {"VGA": wt.make_batched_detector_boxes(
+                 synth, VGA, k=1024, nms_iou=0.5, device=dev)[0],
+             "4K": wt.make_batched_detector_boxes(
+                 fpga, HW4K, k=128, nms_iou=0.5, device=dev)[0]}
+    for label, det in dense.items():
+        det(frames[label])
+        torch.cuda.synchronize()
+        zero()
+        det(frames[label])
+        torch.cuda.synchronize()
+        got = read()
+        print(f"phase 12: dense {label} call launches {got}")
+        require(got["octaves"] == 1, f"phase 12: the dense {label} call "
+                f"launched S4 {got['octaves']} times")
+    del dense
+
+    row_vga = b_vga = None
+    for label, hw, n in OCTAVE_CASES:
+        u8 = frames[label]
+        call = lambda: oct_mod.octaves(u8, n)
+        plain = lambda: oct_mod.octaves_plain(u8, n)
+        row, ev, _ = timed_in_turns(call, plain)
+        b = bound(nbytes(u8, call()))
+        if label == "VGA":
+            row_vga, b_vga = row, b
+        share = "not measured" if row[0] is None else f"{b[0] / row[0]:.3f}"
+        print(f"phase 12: S4 {label} {tuple(u8.shape)}, {n} octaves: "
+              f"{timing_text(row, ev, None)}, bound {b[0]:.5f} ms ({b[1]}), "
+              f"bound/kernel {share} ({card})")
+        tag = f"octaves_{label.lower()}"
+        metric(f"{tag}_ms", row[0], "ms")
+        metric(f"{tag}_events_ms", float(np.mean(ev)), "ms")
+        metric(f"{tag}_plain_ms", row[1], "ms")
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return 0.0, row_vga, b_vga
+
+
 def main():
     import importlib
 
@@ -3585,6 +3696,8 @@ def main():
     ap.add_argument("--channels-only", action="store_true",
                     help="build, then run phases 10a-10d alone (no "
                     "summary)")
+    ap.add_argument("--octaves-only", action="store_true",
+                    help="build, then run phase 12 alone (no summary)")
     args = ap.parse_args()
     started = time.perf_counter()
 
@@ -3679,6 +3792,14 @@ def main():
         print(f"chip_smoke --channels-only wall time: "
               f"{time.perf_counter() - started:.1f} s ({card}); phases 1 "
               f"and 10a-10d passed, the others were not run")
+        return
+
+    if args.octaves_only:
+        octaves_phase(wt, dev, card, metric, zero_counters, read_counters,
+                      synth)
+        print(f"chip_smoke --octaves-only wall time: "
+              f"{time.perf_counter() - started:.1f} s ({card}); phases 1 "
+              f"and 12 passed, the others were not run")
         return
 
     if args.mesh_only:
@@ -4009,6 +4130,8 @@ def main():
             "a kernel of the serving path was not launched")
     require(serving_launches["nms"] == 1,
             "the serving path did not launch S3 once for its call")
+    require(serving_launches["octaves"] == 1,
+            "the serving path did not launch S4 once for its call")
     rects, scores = rects.cpu().numpy(), scores.cpu().numpy()
     valid, count = valid.cpu().numpy(), count.cpu().numpy()
     require(rects.shape == (len(gframes), 1024, 4)
@@ -4040,11 +4163,12 @@ def main():
         synth, VGA, k=fk, nms_iou=fiou, with_n_weak=False, device=dev,
         fast=True, fast_float=ff)[0] for ff in ("f32", "bf16")}
     fast_runs = (("uint8", fast_dets["f32"], frames,
-                  ("planes", "grad_hist_fast", "cascade_fast", "nms")),
+                  ("octaves", "planes", "grad_hist_fast", "cascade_fast",
+                   "nms")),
                  ("float_f32", fast_dets["f32"], ffloat,
-                  ("grad_hist_fast", "cascade_fast", "nms")),
+                  ("octaves", "grad_hist_fast", "cascade_fast", "nms")),
                  ("float_bf16", fast_dets["bf16"], ffloat,
-                  ("grad_hist_fast", "cascade_fast", "nms")))
+                  ("octaves", "grad_hist_fast", "cascade_fast", "nms")))
     fast_launches = dict.fromkeys(KERNELS, 0)
     fast_out = {}
     for key, fdet, imgs, need in fast_runs:
@@ -4418,8 +4542,9 @@ def main():
     print(f"exact float path launches: {float_launches}")
     require(float_launches["grad_hist_float"] > 0
             and float_launches["cascade"] > 0
-            and float_launches["nms"] == 1,
-            "exact float serving: B2d, B3 or S3 was not launched")
+            and float_launches["nms"] == 1
+            and float_launches["octaves"] == 1,
+            "exact float serving: B2d, B3, S3 or S4 was not launched")
     require(float_launches["grad_hist"] == 0
             and float_launches["grad_hist_fast"] == 0
             and float_launches["planes"] == 0,
@@ -5431,6 +5556,10 @@ def main():
     errs["nms"], timing["nms"], bounds["nms"] = nms_phase(
         wt, dev, card, metric, zero_counters, read_counters, synth, scene,
         noise[0])
+
+    # -- phase 12: S4 at the cells' frames ------------------------------
+    errs["octaves"], timing["octaves"], bounds["octaves"] = octaves_phase(
+        wt, dev, card, metric, zero_counters, read_counters, synth)
 
     print(f"chip_smoke wall time: {time.perf_counter() - started:.1f} s "
           f"({card})")

@@ -4,17 +4,17 @@
 (B, C, Hc, Wc) float32 channel canvas of one packed pyramid plan and one
 channel function:
 
-    octaves   uint8 octave chain, flattened (channels.py, integer torch)
+    octaves   uint8 octave chain, flattened      (kernel S4, ops/octaves.py)
     planes    polyphase planes of every level      (kernel B1, ops/planes.py)
     channels  pooled, smoothed channel canvas: grad_hist (C = 4, kernel B2,
               ops/channels.py) or the FPGA integer family and its "+"
               composites (kernel B5, ops/fpga.py)
 
-A (B, H, W) float32 batch takes the f32 octave chain, the float64 plane
-build (``ops/planes.py::planes_float``, plain torch) and kernel B2d
-(``ops/channels.py::grad_hist_float``); the FPGA family runs its chain
-on the float planes in plain torch (``ops/fpga.py::fpga_channels_float``),
-as the JAX package does in XLA.
+A (B, H, W) float32 batch takes the f32 octave chain (S4 too), the
+float64 plane build (``ops/planes.py::planes_float``, plain torch) and
+kernel B2d (``ops/channels.py::grad_hist_float``); the FPGA family runs
+its chain on the float planes in plain torch
+(``ops/fpga.py::fpga_channels_float``), as the JAX package does in XLA.
 
 At shrink 1, and for channel functions with no polyphase form (grad_mag
 and its composites), the canvas is the JAX package's image-space one
@@ -56,13 +56,14 @@ import numpy as np
 import torch
 
 from .channels import (ChannelFunction, _normalize_opts, level_channels,
-                       level_octaves, octave_chain, octave_chain_f32)
+                       level_octaves)
 from .fpga.channels import fpga_kernel_masks
 from .ops.channels import grad_hist, grad_hist_fast, grad_hist_float
 from .ops.fpga import fpga_channels, fpga_channels_float
 from .ops.image_canvas import (ImageCanvasOperands, image_canvas_tables,
                                image_channels, pool_smooth, resize_image)
-from .ops.planes import (FloatPlaneOperands, PlaneOperands, octave_buffer,
+from .ops.octaves import octaves as octave_buffer_of
+from .ops.planes import (FloatPlaneOperands, PlaneOperands,
                          planes, planes_float, planes_float_fast)
 from .packing import PackedPyramidPlan
 from .polyphase import float_plane_tables, plane_tables
@@ -236,9 +237,8 @@ class ChannelCanvas:
             rmap.astype(np.int32), device=self.device)
 
     def octaves(self, images: torch.Tensor) -> torch.Tensor:
-        if images.is_floating_point():
-            return octave_buffer(octave_chain_f32(images, self.n_octaves))
-        return octave_buffer(octave_chain(images, self.n_octaves))
+        """The (B, S) octave buffer of the batch (S4 on the card)."""
+        return octave_buffer_of(images.contiguous(), self.n_octaves)
 
     def planes(self, octs: torch.Tensor) -> torch.Tensor:
         """The polyphase planes, or on the image-space path the (B, H, W)
