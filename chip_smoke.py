@@ -24,10 +24,8 @@ cascade_suffix S1, compact S2, nms S3, octaves S4):
 
  1. prints torch/CUDA versions and the card's name and power limit;
  2. builds the kernels from waldboost_tpu_torch/csrc (one nvcc per source,
-    all at once, the previous B2d/B2f and S1 designs among them; B3f's
-    previous design is csrc/cascade.cu's walk, built for B3) and prints
-    ptxas's
-    register / shared-memory / spill report;
+    all at once) and prints ptxas's register / shared-memory / spill
+    report;
  3. runs each kernel at the VGA batch-8 shapes against its plain-torch
     version on the card, bitwise (tolerance 0), mismatches printed per
     phase: B1, B2, B3 on a noise batch; B4 with flagship_synth_64 and
@@ -57,9 +55,8 @@ cascade_suffix S1, compact S2, nms S3, octaves S4):
     the canvas's float32 copy, printing how its front read the canvas (TMA
     box copies, global memory or no front): the three committed
     models on the VGA bfloat16 canvases of noise frames (from uint8, f32
-    and bf16 planes) and of 8 scene_generator(seed=100) frames, the
-    previous design (csrc/cascade.cu's walk over bfloat16) against the
-    plain version, and B3f_EDGES (grids under one tile, bfloat16 rows off
+    and bf16 planes) and of 8 scene_generator(seed=100) frames, and
+    B3f_EDGES (grids under one tile, bfloat16 rows off
     16 bytes, canvases one element off a word, windows 8, 12 and 24, C =
     1, 4 and 5, batch 1 and 3) with the seeded cascades of
     b3f_edge_models (HEAP2 fronts of 3 and 4 stages, 40 depth-5 stages,
@@ -232,13 +229,9 @@ cascade_suffix S1, compact S2, nms S3, octaves S4):
     per workload, MP/s, p50/p80; config 1 single-scale among them), Model.detect and the three-model wt.detect
     (ms/frame, p50 of 30 frames) and make_batched_detector (MP/s at batch 8,
     30 batches), B3 on the 40-stage depth-5 model (GENERAL node records); B2f
-    on each plane type and B3f at VGA; B3f beside its previous design in
-    turns on the noise and the scene canvas, CUDA events around back-to-back
-    calls and around a CUDA graph of 20 calls (no host time); B2, B2d and
-    B2f on each plane type
-    again beside the previous design of B2d and B2f
-    (csrc/baseline/grad_hist_pr10.cu, built with the package's sources) in
-    turns, and B2d's instruction floor (its f64 operations and conversions at
+    on each plane type and B3f at VGA; B3f on the noise and the scene
+    canvas from a CUDA graph of 20 calls (no host time) beside its bound;
+    B2d's instruction floor (its f64 operations and conversions at
     16.9e12 and 4.18e12 a second, one after the other); fast serving end to
     end (30 batches per workload: uint8 noise k=128 and scenes k=1024, float32
     noise with f32 and bf16 planes, k=128); B2d at VGA (float noise planes,
@@ -321,9 +314,8 @@ cascade_suffix S1, compact S2, nms S3, octaves S4):
     9b. S1 and S2 per call beside their plain versions, in turns, on the
         device (torch.profiler: the kernels' own time) and with the
         wrapper (CUDA events around back-to-back calls) at VGA scenes and
-        4K noise, S1 also beside its previous design (csrc/baseline/
-        suffix_per_entry.cu, bitwise checked first), S2 beside torch.sort(
-        stable=True) of the whole masked map, the bounds; then
+        4K noise, S2 beside torch.sort(stable=True) of the whole masked
+        map, the bounds; then
         two-phase against dense make_batched_detector_boxes end to end
         (MP/s, p50, p80; dense, two-phase, two-phase, dense) at VGA noise
         k=128, VGA scenes k=1024 (NMS 0.5) and config 5 k=128;
@@ -378,8 +370,8 @@ cascade_suffix S1, compact S2, nms S3, octaves S4):
     (phases 3-5d, 8a, 8b, 9a row-wise, 9c) launches S3, from counters set
     to 0 just before it;
 12. S4 (ops/octaves.py::octaves, csrc/octaves.cu) byte for byte the
-    plain chain (octaves_plain: octave_buffer of octave_chain or
-    octave_chain_f32) on the card, on uint8 noise and float32 frames with
+    plain chain (octaves_plain: octave_buffer of channels.py::
+    level_octaves) on the card, on uint8 noise and float32 frames with
     NaN, +-inf, subnormals and -0 at VGA (5 octaves) and 4K (7), batch 8,
     one launch each; the dense VGA and 4K detector calls launch it once;
     S4 beside the plain chain in turns (device time from the profiler,
@@ -410,8 +402,6 @@ Usage: python chip_smoke.py [--trace-dir DIR]   (DIR keeps the traces)
 """
 
 import argparse
-import functools
-
 import json
 import os
 import subprocess
@@ -435,62 +425,43 @@ FPGA_GOLDEN = os.path.join(ROOT, "tests", "data",
 #: the committed BASELINE config-5 models (smooth 0, smooth 1)
 FPGA_MODELS = ("fpga_4k_synth_64", "fpga_4k_smooth_synth_64")
 
-# kernel name -> (module of its launch counter, counter attribute, CUDA
+# kernel name (its key in waldboost_tpu_torch._build.launches) -> (CUDA
 # source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
-    "planes": ("waldboost_tpu_torch.ops.planes", "planes_launches",
-               "waldboost_tpu_torch/csrc/planes.cu",
+    "planes": ("waldboost_tpu_torch/csrc/planes.cu",
                "waldboost_tpu/ops/plane_pallas.py:339 and :483"),
-    "grad_hist": ("waldboost_tpu_torch.ops.channels", "grad_hist_launches",
-                  "waldboost_tpu_torch/csrc/grad_hist.cu",
+    "grad_hist": ("waldboost_tpu_torch/csrc/grad_hist.cu",
                   "waldboost_tpu/ops/channels_pallas.py:405"),
-    "cascade": ("waldboost_tpu_torch.ops.cascade_static", "cascade_launches",
-                "waldboost_tpu_torch/csrc/cascade.cu",
+    "cascade": ("waldboost_tpu_torch/csrc/cascade.cu",
                 "waldboost_tpu/ops/cascade_static.py:764"),
-    "cascade_response": ("waldboost_tpu_torch.ops.cascade_static",
-                         "cascade_response_launches",
-                         "waldboost_tpu_torch/csrc/cascade.cu",
+    "cascade_response": ("waldboost_tpu_torch/csrc/cascade.cu",
                          "waldboost_tpu/ops/cascade_static.py:611"),
-    "fpga": ("waldboost_tpu_torch.ops.fpga", "fpga_launches",
-             "waldboost_tpu_torch/csrc/fpga.cu",
+    "fpga": ("waldboost_tpu_torch/csrc/fpga.cu",
              "waldboost_tpu/ops/channels_pallas.py:684"),
-    "cascade_generic": ("waldboost_tpu_torch.ops.cascade",
-                        "cascade_generic_launches",
-                        "waldboost_tpu_torch/csrc/cascade.cu",
+    "cascade_generic": ("waldboost_tpu_torch/csrc/cascade.cu",
                         "waldboost_tpu/ops/cascade_pallas.py:182"),
-    "grad_hist_fast": ("waldboost_tpu_torch.ops.channels",
-                       "grad_hist_fast_launches",
-                       "waldboost_tpu_torch/csrc/grad_hist_float.cu",
+    "grad_hist_fast": ("waldboost_tpu_torch/csrc/grad_hist_float.cu",
                        "waldboost_tpu/ops/channels_pallas.py:405 (fast=True)"),
-    "cascade_fast": ("waldboost_tpu_torch.ops.cascade_static",
-                     "cascade_fast_launches",
-                     "waldboost_tpu_torch/csrc/cascade_fast.cu",
+    "cascade_fast": ("waldboost_tpu_torch/csrc/cascade_fast.cu",
                      "waldboost_tpu/ops/cascade_static.py:764 (fast=True)"),
-    "grad_hist_float": ("waldboost_tpu_torch.ops.channels",
-                        "grad_hist_float_launches",
-                        "waldboost_tpu_torch/csrc/grad_hist_float.cu",
+    "grad_hist_float": ("waldboost_tpu_torch/csrc/grad_hist_float.cu",
                         "waldboost_tpu/ops/channels_pallas.py:405 (float_dd, "
                         ":373)"),
     # S1 and S2 replace XLA operations of two-phase serving, not a
     # pallas_call
-    "cascade_suffix": ("waldboost_tpu_torch.ops.cascade",
-                       "cascade_suffix_launches",
-                       "waldboost_tpu_torch/csrc/cascade.cu",
+    "cascade_suffix": ("waldboost_tpu_torch/csrc/cascade.cu",
                        "replaces the XLA op waldboost_tpu/ops/cascade.py:476 "
                        "(cascade_suffix_sparse)"),
-    "compact": ("waldboost_tpu_torch.ops.nms", "compact_launches",
-                "waldboost_tpu_torch/csrc/compact.cu",
+    "compact": ("waldboost_tpu_torch/csrc/compact.cu",
                 "replaces the XLA ops waldboost_tpu/parallel/detect.py:759 "
                 "(approx_max_k, recall_target=1.0) and :767 (lax.top_k), "
                 "and the extraction's top-k, waldboost_tpu/ops/nms.py:154"),
     # S3 replaces a loop of XLA ops, not a pallas_call
-    "nms": ("waldboost_tpu_torch.ops.nms", "nms_launches",
-            "waldboost_tpu_torch/csrc/nms.cu",
+    "nms": ("waldboost_tpu_torch/csrc/nms.cu",
             "replaces the XLA while loop waldboost_tpu/ops/nms.py:89 "
             "(nms_device's lax.while_loop)"),
     # S4 replaces the XLA octave chain, not a pallas_call
-    "octaves": ("waldboost_tpu_torch.ops.octaves", "octaves_launches",
-                "waldboost_tpu_torch/csrc/octaves.cu",
+    "octaves": ("waldboost_tpu_torch/csrc/octaves.cu",
                 "replaces the XLA octave chain "
                 "waldboost_tpu/channels.py:517 (_compute_octaves_f32)"),
 }
@@ -522,11 +493,6 @@ F64_OPS_S = 34e12
 #: the 1.98 GHz the peaks assume)
 F64_INSTR_S = F64_OPS_S / 2
 CONV_S = 132 * 16 * 1.98e9
-#: the previous design of B2d and B2f, built beside the package's sources
-#: and timed against them (its B2 is the committed one's)
-PREVIOUS_GRAD_HIST = "baseline/grad_hist_pr10"
-#: S1's previous design (an entry a thread), timed beside it in phase 9b
-PREVIOUS_SUFFIX = "baseline/suffix_per_entry"
 #: tiling edges of B2d and B2f (h, w, batch): widths off the 128-column
 #: tile, float32 widths no multiple of 4 (5, 45, 257), a multiple of 4
 #: but not of 8 (132) and of 16 (256); each also one element off its
@@ -664,32 +630,15 @@ def user_grad(image):
     return torch.stack([im, gx.abs()])
 
 
-def previous_b3f(casc_mod, canvas, valid, ops):
-    """B3f's previous design (``csrc/cascade.cu``'s walk over a bfloat16
-    canvas, ``wb_cascade``), which no serving path launches: ``(masked,
-    n_weak, count)`` as :func:`cascade_masked` returns them."""
-    import torch
-    B, dev = canvas.shape[0], canvas.device
-    gu, gv = valid.shape
-    masked = torch.empty((B, gu, gv), dtype=torch.float32, device=dev)
-    count = torch.zeros(B, dtype=torch.int32, device=dev)
-    n_weak = torch.zeros(B, dtype=torch.int32, device=dev)
-    T = ops.sc.n_stages
-    casc_mod.launch_response("wb_cascade", canvas, valid,
-                             ops.records(tuple(canvas.shape[1:])), T, T,
-                             ops.sc.fr.shape[1], masked, count, n_weak)
-    return masked, n_weak, count
-
-
-def previous_cascade_masked(casc_mod, canvas, valid, ops):
-    """``cascade_masked`` as it was before B3f's redesign: on a bfloat16
-    CUDA canvas its checks and :func:`previous_b3f`; else the committed
-    one."""
-    import torch
-    if canvas.dtype != torch.bfloat16 or canvas.device.type != "cuda":
-        return casc_mod.cascade_masked(canvas, valid, ops)
-    casc_mod._check(canvas, valid, ops)
-    return previous_b3f(casc_mod, canvas, valid, ops)
+def front_paths(since):
+    """How B3f's fronts read the canvas (``tma``, ``global``, ``none``) in
+    the launches counted in ``_build.launches`` since ``since``, a copy of
+    it (``{}``: since it was cleared)."""
+    from waldboost_tpu_torch import _build
+    return ", ".join(k.split("/", 1)[1]
+                     for k, n in sorted(_build.launches.items())
+                     if k.startswith("cascade_fast/")
+                     and n != since.get(k, 0))
 
 
 def b3f_edges(casc_mod, dev, seed=12):
@@ -779,20 +728,6 @@ def graph_ms(fn, iters, replays=3):
     torch.cuda.synchronize()
     del g
     return t0.elapsed_time(t1) / (iters * replays)
-
-
-def host_call_ms(fn, calls=50):
-    """Host milliseconds per call of ``fn`` (the wrapper's own time: no
-    synchronize inside the timed calls)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    ms = (time.perf_counter() - t) / calls * 1e3
-    torch.cuda.synchronize()
-    return ms
 
 
 def max_abs_err(got, want):
@@ -2869,58 +2804,21 @@ class TpInputs:
                                         + nbytes(rec.data))}
 
 
-def timed_in_turns(call, plain, lib=None, previous=None):
-    """``((ms, plain ms, library ms), (events ms, events ms), previous
-    ms)`` of a kernel's wrapper ``call``, its plain version, the library
-    call ``lib`` and the kernel's ``previous`` design (None: none), in
-    turns (call, previous, plain, library, previous, call): device ms
-    from the profiler (:func:`device_ms`; the previous design's the mean
-    of its two runs), the call's also from CUDA events around
+def timed_in_turns(call, plain, lib=None):
+    """``((ms, plain ms, library ms), (events ms, events ms))`` of a
+    kernel's wrapper ``call``, its plain version and the library call
+    ``lib``, in turns (call, plain, library, call): device ms from the
+    profiler (:func:`device_ms`), the call's also from CUDA events around
     back-to-back calls (host time included where the wrapper's is the
     longer)."""
-    mean = lambda v: float(np.mean(v)) if v else None
     ev = [cuda_ms(call, 20)]
     ms = [device_ms(call)]
-    prev = [device_ms(previous)] if previous is not None else []
     plain_ms = device_ms(plain, 3)
     lib_ms = device_ms(lib, 10) if lib is not None else None
-    if previous is not None:
-        prev.append(device_ms(previous))
     ms.append(device_ms(call))
     ev.append(cuda_ms(call, 20))
-    return ((mean([m for m in ms if m is not None]), plain_ms, lib_ms), ev,
-            mean([m for m in prev if m is not None]))
-
-
-def previous_suffix(cv, ops, window, idx, scores, alive, start):
-    """``(H, alive, n_weak)`` of S1's previous design
-    (csrc/baseline/suffix_per_entry.cu: an entry a thread) on the arguments of
-    ``cascade_suffix_sparse`` (batched, ``meta`` left out)."""
-    import ctypes
-    import torch
-    from waldboost_tpu_torch import _build
-    from waldboost_tpu_torch.ops import cascade as gen_mod
-    _, cv, idx, scores, alive, gv = gen_mod._suffix_args(
-        cv, ops, window, idx, scores, alive, start, None)
-    rec = gen_mod._suffix_tables(ops, tuple(cv.shape[1:]))[3]
-    B, C, H, W = cv.shape
-    S = idx.shape[1]
-    T, NN = gen_mod._n_stages_nodes(ops)
-    h_out = torch.empty((B, S), dtype=torch.float32, device=cv.device)
-    a_out = torch.empty((B, S), dtype=torch.bool, device=cv.device)
-    n_weak = torch.zeros(B, dtype=torch.int32, device=cv.device)
-    fn = _build.load_library(PREVIOUS_SUFFIX).wb_cascade_suffix_previous
-    _VP, _CI = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [_VP] + [_CI] * 6 + [_VP] * 3 + [_CI, _VP] + [_CI] * 4 \
-        + [_VP] * 4
-    fn.restype = _CI
-    _build.check(fn(cv.data_ptr(), cv.element_size(), B, C, H, W, gv,
-                    idx.data_ptr(), scores.data_ptr(), alive.data_ptr(), S,
-                    rec.data.data_ptr(), rec.layout, T, int(start), NN,
-                    h_out.data_ptr(), a_out.data_ptr(), n_weak.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream),
-                 "wb_cascade_suffix_previous kernel")
-    return h_out, a_out, n_weak
+    ms = [m for m in ms if m is not None]
+    return (float(np.mean(ms)) if ms else None, plain_ms, lib_ms), ev
 
 
 def timing_text(row, ev, lib_name):
@@ -3065,27 +2963,13 @@ def twophase_phases(wt, dev, card, metric, zero, read, synth, noise, scene,
             lib = (lambda: torch.sort(inp.masked, dim=1, descending=True,
                                       stable=True)) \
                 if kname == "compact" else None
-            prev = None
-            if kname == "cascade_suffix":
-                d = inp.det
-                prev = lambda: previous_suffix(
-                    inp.cv, d.prefix_step.ops, d.window, inp.idx,
-                    inp.scores, inp.alive, d.prefix)
-                require(all(torch.equal(x, y) for x, y in
-                            zip(prev(), call())),
-                        f"phase 9b: S1's previous design differs at {label}")
-            row, ev, prev_ms = timed_in_turns(call, plain, lib, prev)
+            row, ev = timed_in_turns(call, plain, lib)
             if label == "VGA scenes":
                 timing[kname], bounds[kname] = row, b[kname]
-            prev_txt = "" if prev is None else \
-                f", previous design (an entry a thread) {prev_ms:.4f} ms"
             print(f"phase 9b: {kname} {label} batch {BATCH}: "
                   f"{timing_text(row, ev, lib and 'torch.sort of the map')}"
-                  f"{prev_txt}, bound "
+                  f", bound "
                   f"{b[kname][0]:.5f} ms ({b[kname][1]}) ({card})")
-            if prev is not None:
-                metric(f"cascade_suffix_{label.split()[0].lower()}_previous"
-                       f"_ms", prev_ms, "ms")
             tag = f"{kname}_{label.split()[0].lower()}"
             metric(f"{tag}_ms", row[0], "ms")
             metric(f"{tag}_events_ms", float(np.mean(ev)), "ms")
@@ -3320,7 +3204,7 @@ def topk_phase(wt, dev, card, metric, zero, read, synth, fpga, scene,
         require(bad == 0, f"phase 9d: S2 on the dense {label} map differs "
                 f"from its plain version ({bad})")
         lib = lambda: torch.sort(flat, dim=1, descending=True, stable=True)
-        row, ev, _ = timed_in_turns(call, plain, lib)
+        row, ev = timed_in_turns(call, plain, lib)
         b = bound(nbytes(flat) + flat.shape[0] * det.k * 12
                   + flat.shape[0] * 4)
         rows[label] = row + (b,)
@@ -3571,7 +3455,7 @@ def nms_phase(wt, dev, card, metric, zero, read, synth, scene, noise):
         call = lambda: nms_mod.nms(rects, scores, valid, 0.5)
         plain = lambda: nms_mod.nms_plain(rects, scores, valid, 0.5)
         rounds = int(plain().sum(1).max())
-        row, ev, _ = timed_in_turns(call, plain)
+        row, ev = timed_in_turns(call, plain)
         replayed = graph_ms(call, 10)
         b = bound(nbytes(rects, scores, valid) + valid.numel())
         if label == "VGA scenes":
@@ -3665,7 +3549,7 @@ def octaves_phase(wt, dev, card, metric, zero, read, synth):
         u8 = frames[label]
         call = lambda: oct_mod.octaves(u8, n)
         plain = lambda: oct_mod.octaves_plain(u8, n)
-        row, ev, _ = timed_in_turns(call, plain)
+        row, ev = timed_in_turns(call, plain)
         b = bound(nbytes(u8, call()))
         if label == "VGA":
             row_vga, b_vga = row, b
@@ -3682,8 +3566,6 @@ def octaves_phase(wt, dev, card, metric, zero, read, synth):
 
 
 def main():
-    import importlib
-
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3721,16 +3603,11 @@ def main():
     from waldboost_tpu_torch.polyphase import META_COLS
     from waldboost_tpu_torch.profiling import Meter
     from waldboost_tpu_torch.utils import fake_data_generator
-    counters = {name: (importlib.import_module(mod), attr)
-                for name, (mod, attr, _, _) in KERNELS.items()}
-
     def zero_counters():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        _build.launches.clear()
 
     def read_counters():
-        return {name: getattr(mod, attr)
-                for name, (mod, attr) in counters.items()}
+        return {name: _build.launches[name] for name in KERNELS}
 
     dev = torch.device("cuda", torch.cuda.current_device())
     device_name = torch.cuda.get_device_name(dev)
@@ -3745,8 +3622,8 @@ def main():
     # -- phase 1: build ---------------------------------------------------
     t0 = time.time()
     sources = sorted({os.path.basename(src)[:-3]
-                      for _, _, src, _ in KERNELS.values()})
-    _build.build(sources + [PREVIOUS_GRAD_HIST, PREVIOUS_SUFFIX])
+                      for src, _ in KERNELS.values()})
+    _build.build(sources)
     for name in sources:
         for line in _build.build_log(name).splitlines():
             if "spill" in line or "ptxas" in line and (
@@ -4041,8 +3918,9 @@ def main():
 
     def b3f_phase(phase, cv, valid_, ops):
         """B3f against its plain version and B3 over the float32 copy."""
+        since = dict(_build.launches)
         got = casc_mod.cascade_masked(cv, valid_, ops)
-        path = casc_mod.cascade_fast_path
+        path = front_paths(since)
         check_phase("cascade_fast", f"{phase} (front by {path})", got,
                     casc_mod.cascade_masked_plain(cv, valid_, ops))
         check_phase("cascade_fast", f"{phase} against B3 on float32", got,
@@ -4055,10 +3933,6 @@ def main():
             got = b3f_phase(f"cascade_fast {mname} bf16 canvas of {kind} "
                             "planes", cv, grid.valid, ops)
             print(f"  survivors {got[2].tolist()}, n_weak {got[1].tolist()}")
-        check_phase("cascade_fast", f"previous design of cascade_fast {mname} "
-                    "(csrc/cascade.cu)",
-                    previous_b3f(casc_mod, fcv, grid.valid, ops),
-                    casc_mod.cascade_masked_plain(fcv, grid.valid, ops))
         if mname == "flagship_hard_64":
             continue
         for cap in (None, 12):
@@ -4177,7 +4051,7 @@ def main():
         torch.cuda.synchronize()
         got = read_counters()
         print(f"fast path {key} launches: {got}; B3f's front read the canvas "
-              f"by {casc_mod.cascade_fast_path}")
+              f"by {front_paths({})}")
         require(all(got[k] > 0 for k in need),
                 f"fast path {key}: a kernel of the path was not launched")
         require(got["grad_hist"] == 0 and got["cascade"] == 0,
@@ -4481,7 +4355,7 @@ def main():
     torch.cuda.synchronize()
     got = read_counters()
     print(f"bucketed fast path launches (uint8 frames): {got}; B3f's front "
-          f"read the canvas by {casc_mod.cascade_fast_path}")
+          f"read the canvas by {front_paths({})}")
     require(got["grad_hist"] > 0 and got["cascade_fast"] > 0
             and got["grad_hist_fast"] == 0 and got["cascade"] == 0,
             "bucketed fast mode on uint8 frames must run B2 and B3f, not "
@@ -4997,60 +4871,6 @@ def main():
         metric(f"{name}_plain_us_per_image", timing[name][1] * 1e3 / BATCH,
                "us/image")
 
-    # B2, B2d and B2f beside the previous design of csrc/grad_hist_float.cu
-    # (csrc/baseline/grad_hist_pr10.cu, whose B2 is the committed one's),
-    # in turns in this call: committed, previous, previous, committed
-    prev_lib = _build.load_library(PREVIOUS_GRAD_HIST)
-
-    def previous_ms(src, fn):
-        keep = _build.load_library(src)
-        _build._LIBS[src] = prev_lib
-        try:
-            return cuda_ms(fn, 20)
-        finally:
-            _build._LIBS[src] = keep
-
-    previous = {}
-    for name in ("grad_hist", "grad_hist_float", "grad_hist_fast",
-                 "grad_hist_fast_bf16", "grad_hist_fast_f32"):
-        src = "grad_hist" if name == "grad_hist" else "grad_hist_float"
-        kern = calls[name][0]
-        k1 = cuda_ms(kern, 20)
-        p1 = previous_ms(src, kern)
-        p2 = previous_ms(src, kern)
-        k2 = cuda_ms(kern, 20)
-        previous[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        metric(f"{name}_previous_kernel_us_per_image",
-               previous[name][1] * 1e3 / BATCH, "us/image")
-        print(f"{name}: committed {previous[name][0]:.4f} ms, previous "
-              f"design {previous[name][1]:.4f} ms (same call, in turns)")
-
-    # B3f against its previous design (csrc/cascade.cu's walk over the
-    # bfloat16 canvas), in turns, on the noise canvas of the timing row and
-    # on the scene canvas: CUDA events around back-to-back calls (as every
-    # row above) and around a CUDA graph of the calls (no host time)
-    b3f_turns = {}
-    for cname, cv in (("noise", fcv), ("scene", fcv_scene)):
-        new = (lambda cv: lambda: casc_mod.cascade_masked(
-            cv, grid.valid, ops_synth))(cv)
-        old = (lambda cv: lambda: previous_cascade_masked(
-            casc_mod, cv, grid.valid, ops_synth))(cv)
-        row = {}
-        for how, clock in (("events", cuda_ms), ("graph", graph_ms)):
-            n1, o1, o2, n2 = (clock(f, 20) for f in (new, old, old, new))
-            row[how] = ((n1 + n2) / 2, (o1 + o2) / 2)
-            metric(f"cascade_fast_{cname}_{how}_kernel_us_per_image",
-                   row[how][0] * 1e3 / BATCH, "us/image")
-            metric(f"cascade_fast_{cname}_{how}_previous_us_per_image",
-                   row[how][1] * 1e3 / BATCH, "us/image")
-        b3f_turns[cname] = row
-        print(f"cascade_fast {cname} ({card}): new {row['events'][0]:.4f} "
-              f"ms, previous design {row['events'][1]:.4f} ms (back to back,"
-              f" in turns); from a CUDA graph new {row['graph'][0]:.4f} ms, "
-              f"previous {row['graph'][1]:.4f} ms; host per call new "
-              f"{host_call_ms(new):.4f} ms, previous {host_call_ms(old):.4f} "
-              f"ms")
-
     # the least time of each kernel's call at these shapes: bytes (each
     # input read once, each output written once) over the HBM rate, or its
     # arithmetic over the peak rate of its type
@@ -5148,16 +4968,20 @@ def main():
         got = casc_mod.cascade_masked(cv, grid.valid, ops_synth)
         least = bound(nbytes(cv, grid.valid, *got, records(ops_synth, cv)),
                       f32_ops=4 * int(got[1].sum()))[0]
-        new_ms, old_ms = b3f_turns[cname]["graph"]
+        # from a CUDA graph of the calls: no host time
+        new_ms = graph_ms(lambda: casc_mod.cascade_masked(
+            cv, grid.valid, ops_synth), 20)
+        metric(f"cascade_fast_{cname}_graph_kernel_us_per_image",
+               new_ms * 1e3 / BATCH, "us/image")
         metric(f"cascade_fast_{cname}_bound_us_per_image",
                least * 1e3 / BATCH, "us/image")
         plain_ms = cuda_ms(lambda: casc_mod.cascade_masked_plain(
             cv, grid.valid, ops_synth), 2)
         metric(f"cascade_fast_{cname}_plain_us_per_image",
                plain_ms * 1e3 / BATCH, "us/image")
-        print(f"cascade_fast {cname}: bound {least:.5f} ms; from a CUDA graph"
-              f" the new design at {least / new_ms:.3f} of it, the previous "
-              f"at {least / old_ms:.3f}; plain version {plain_ms:.4f} ms")
+        print(f"cascade_fast {cname} ({card}): bound {least:.5f} ms; from "
+              f"a CUDA graph {new_ms:.4f} ms, at {least / new_ms:.3f} of the "
+              f"bound; plain version {plain_ms:.4f} ms")
     for name, (ms, what) in bounds.items():
         metric(f"{name}_bound_us_per_image", ms * 1e3 / BATCH, "us/image")
         print(f"{name}: bound by {what}; kernel at "
@@ -5224,42 +5048,6 @@ def main():
     }
     for workload, (fn_, batches) in fast_workloads.items():
         e2e(workload, fn_, batches, reps=30)
-    # the fast path with B3f's previous design (its wrapper and
-    # csrc/cascade.cu's walk over bfloat16) in place of the new one, host
-    # clock: the two alternate batch by batch (each first in every other
-    # pair), so a drift of the host's speed reaches both alike; whether the
-    # kernel's gain, or the wrappers' host time, shows end to end
-    from waldboost_tpu_torch.parallel import detect as detect_mod
-    designs = {"new": casc_mod.cascade_masked,
-               "previous": functools.partial(previous_cascade_masked,
-                                             casc_mod)}
-    for workload in ("vga_fast_noise_k128", "vga_fast_scene_k1024"):
-        fn_, batches = fast_workloads[workload]
-        ms = {k: [] for k in designs}
-        try:
-            for r in range(-2, 60):
-                images = batches[r % len(batches)]
-                for which in sorted(designs, reverse=r % 2 == 1):
-                    detect_mod.cascade_masked = designs[which]
-                    t = time.perf_counter()
-                    fn_(images)
-                    torch.cuda.synchronize()
-                    if r >= 0:
-                        ms[which].append((time.perf_counter() - t) * 1e3)
-        finally:
-            detect_mod.cascade_masked = casc_mod.cascade_masked
-        mp = {}
-        for which, v in ms.items():
-            mp[which] = sum(batches[r % len(batches)].numel()
-                            for r in range(len(v))) / sum(v) / 1e3
-            metric(f"{workload}_b3f_{which}_mp_per_s", mp[which], "MP/s")
-            metric(f"{workload}_b3f_{which}_batch_ms_p50",
-                   float(np.median(v)), "ms")
-        print(f"{workload} ({card}): with the new B3f {mp['new']:.1f} MP/s "
-              f"(p50 {np.median(ms['new']):.4f} ms a batch), with the "
-              f"previous design {mp['previous']:.1f} MP/s (p50 "
-              f"{np.median(ms['previous']):.4f} ms), batch by batch in "
-              "turns")
     # exact float frames: f32 octaves, the float64 plane build (plain
     # torch, timed alone too), B2d, B3
     metric("planes_float_us_per_image",
@@ -5577,7 +5365,7 @@ def main():
          "ms": timing[name][0], "plain_ms": timing[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": timing[name][2] if len(timing[name]) > 2 else None}
-        for name, (_, _, src, rep) in KERNELS.items()]}))
+        for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

@@ -6,10 +6,9 @@ NVIDIA GPU, each held bitwise against the kernel's plain version and
 timed.
 
 A variant is the committed source with textual edits, built by nvcc as
-waldboost_tpu_torch/_build.py builds the source (all variants at once), or
-an earlier design kept under csrc/baseline/ (the "first design" rows,
-launched as its wrapper launched it: B1 over a zeroed canvas; B2d's and
-B2f's "previous design" row, csrc/baseline/grad_hist_pr10.cu):
+waldboost_tpu_torch/_build.py builds the source (all variants at once),
+swapped in as the package's library for that source and launched through
+the package's own wrappers:
 
 * a launch bound or a tuning constant (the choices of the source), B1's
   tile shape, tile order (the package's row-major one, or grouped by the
@@ -21,8 +20,8 @@ B2f's "previous design" row, csrc/baseline/grad_hist_pr10.cu):
   phase, so a missing barrier changes the output;
 * ``ablation``: work removed (the values differ by design): timed only,
   its mismatch count printed, never a failure;
-* ``cause``: one of the previous design's suspected costs put back into
-  the new one (scalar shared reads, 4-byte copies, f64 conversions), the
+* ``cause``: one of a former design's suspected costs put back into
+  the committed one (scalar shared reads, 4-byte copies, f64 conversions), the
   values unchanged, so held bitwise like any variant.
 
 The walk also runs on GENERAL records of the depth-2 models (the tables
@@ -54,7 +53,7 @@ the host clock.
 Prints the card line, one line per variant (ms, mismatches, ptxas
 registers and spill stores per kernel instance), the static SASS counts
 of conversions, f64 operations, shared loads, copies and shuffles of the
-committed and previous B2d/B2f builds (cuobjdump), a JSON summary as the
+committed B2d/B2f build (cuobjdump), a JSON summary as the
 last line (also written to --out), and exits 1 if a variant other than an
 ablation differs from the plain version.
 
@@ -182,10 +181,9 @@ WALK_VARIANTS["prefetch: HEAP2 stage t+1 loaded before t's compares"] = ([(
     "          if (t + 1 < a.n_run) nx = fetch(s, t + 1, w);\n")], False)
 
 
-# B3f's new design (csrc/cascade_fast.cu).  A variant: (edits, ablation,
-# host settings of ops/cascade.py: FRONT_REJECTS, FRONT_FOOTPRINT_BYTES;
-# "previous": csrc/cascade.cu's walk instead).  The host builds the front's
-# records for the tile the built library reports.
+# B3f (csrc/cascade_fast.cu).  A variant: (edits, ablation, host settings
+# of ops/cascade.py: FRONT_REJECTS, FRONT_FOOTPRINT_BYTES).  The host
+# builds the front's records for the tile the built library reports.
 WF_PRODUCER = ("        uint8_t* dst = sBuf + k * a.fbytes;\n"
                "        if (lane == 0) {\n")
 WF_CONSUMER = ("    if (kBuffers) mbar_wait(full + k, (i / kBuffers) & 1u);\n")
@@ -275,12 +273,9 @@ WALK_FAST_VARIANTS.update({
          "    const int k = kBuffers ? i % kBuffers : 0;\n"
          "    if (kBuffers) mbar_wait(full + k, (i / kBuffers) & 1u);\n")],
         False, {}),
-    "previous design (csrc/cascade.cu, in turns)": ([], False,
-                                                    {"previous": True}),
 })
 
 
-FIRST_DESIGN = "first design"
 PLANES_BOUND = "__global__ void __launch_bounds__(kThreads)\nplanes_kernel("
 PLANES_V = "      __syncwarp();  // the previous piece is done with V\n"
 PLANES_ROW = "    uint32_t w[4] = {0, 0, 0, 0};\n"
@@ -332,8 +327,6 @@ PLANES_VARIANTS.update({
         (16, 128, "raster")),
     "poison": (PLANES_POISON, False, (16, 128, "raster")),
     "poison+skew": (PLANES_POISON + PLANES_SKEW, False, (16, 128, "raster")),
-    # the first design: one thread per output byte over a zeroed canvas
-    FIRST_DESIGN: ("baseline/planes_per_byte.cu", False, None),
 })
 
 GH_BOUND = "__launch_bounds__(kThreads, kBlocksPerSm)"
@@ -368,9 +361,7 @@ GH_SKEW = [
      "__nanosleep(4000);\n#pragma unroll 1\n    for (int il = ty;"),
 ]
 
-GH_VARIANTS = {"committed (minblocks 5)": ([], False),
-               # the first design: 32 x 32 tiles staged as int, scalar work
-               FIRST_DESIGN: ("baseline/grad_hist_tile32.cu", False)}
+GH_VARIANTS = {"committed (minblocks 5)": ([], False)}
 GH_VARIANTS.update({f"minblocks {n}": ([(GH_BOUND,
                                          f"__launch_bounds__(kThreads, {n})")],
                                        False) for n in (2, 3, 4)})
@@ -502,11 +493,8 @@ GHF_PER_TAP = [(
     "        __dadd_rn(cvt(a), __dmul_rn(2.0, cvt(b))), cvt(c)));\n"
     "  }\n")]
 
-PREVIOUS = "previous design"
 GHF_VARIANTS = {
     "committed": ([], False),
-    # the float-plane instances of B2's template, before their redesign
-    PREVIOUS: ("baseline/grad_hist_pr10.cu", False),
     "poison": (GHF_POISON, False),
     "poison+skew": (GHF_POISON + GHF_SKEW, False),
     "minblocks -1 (each instance)": (ghf_blocks(-1), False),
@@ -605,13 +593,8 @@ def build_variants(_build, src_name, variants, workdir):
     jobs, running, done = [], [], {}
     for i, (label, (edits, *_)) in enumerate(variants.items()):
         src = os.path.join(workdir, f"{src_name}_{i}.cu")
-        if isinstance(edits, str):  # another source, as it is
-            with open(os.path.join(_build.CSRC, edits)) as f:
-                text = f.read()
-        else:
-            text = edit(base, edits, label)
         with open(src, "w") as f:
-            f.write(text)
+            f.write(edit(base, edits, label))
         jobs.append((label, src, src[:-3] + ".so"))
     width = max(1, os.cpu_count() or 1)
     while jobs or running:
@@ -707,46 +690,6 @@ def sweep(_build, name, variants, libs, checks, times, failures, rows,
     _build._LIBS.pop(name, None)
 
 
-FIRST_PLANES_ARGS = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p)
-
-
-def first_design_planes(lib, ops):
-    """``fn(octs, out)`` launching the first B1 design as its wrapper did:
-    a zeroed canvas, then one thread per output byte in blocks of 256
-    elements of one level (its tables built here from the level table)."""
-    import torch
-    from waldboost_tpu_torch.ops import planes as tpl
-    from waldboost_tpu_torch.polyphase import META_COLS
-    fn = lib.wb_planes
-    fn.argtypes = FIRST_PLANES_ARGS
-    fn.restype = ctypes.c_int
-    dev = ops.device
-    ne = META_COLS.index("elems")
-    meta = torch.as_tensor(np.ascontiguousarray(ops.host.meta[:, :ne + 1]),
-                           device=dev)
-    blocks = torch.tensor([(li, e) for li, n in enumerate(
-        ops.host.meta[:, ne].tolist()) for e in range(0, n, 256)],
-        dtype=torch.int32, device=dev)
-    PH, PW = ops.host.plane_hw
-
-    def call(octs, out=None):
-        B = octs.shape[0]
-        out = torch.zeros((B, 2, 2, PH, PW), dtype=torch.uint8, device=dev)
-        err = fn(octs.data_ptr(), octs.shape[1], meta.data_ptr(),
-                 blocks.data_ptr(), blocks.shape[0], ops.i0h.data_ptr(),
-                 ops.frh.data_ptr(), ops.i0w.data_ptr(), ops.frw.data_ptr(),
-                 out.data_ptr(), B, PH, PW,
-                 torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"first-design planes kernel: CUDA error {err}")
-        return out
-    return call
-
-
 def sweep_planes(_build, libs, dev, failures, rows):
     """B1's variants: each into a canvas pre-filled with 0xAB (a gap byte
     it misses is a mismatch) at VGA, 1080p and 4K halo 0 (batch 8 of
@@ -770,7 +713,7 @@ def sweep_planes(_build, libs, dev, failures, rows):
         imgs = torch.randint(0, 256, (batch,) + hw, generator=gen,
                              dtype=torch.uint8, device=dev)
         n_oct = max(pl.level.octave for pl in packed.levels) + 1
-        octs = tpl.octave_buffer(tch.octave_chain(imgs, n_oct))
+        octs = tpl.octave_buffer(tch.level_octaves(imgs, n_oct))
         inputs[name] = (packed, hw, octs)
 
     def ops_for(name, tab):
@@ -802,16 +745,11 @@ def sweep_planes(_build, libs, dev, failures, rows):
     for i, label in enumerate(order):
         lib, ptx = libs[label]
         edits, ablation, tab = PLANES_VARIANTS[label]
-        if tab is None:
-            run = {name: (lambda f, o: lambda out=None: f(o, out))(
-                first_design_planes(lib, ops_for(name, None)), octs)
-                for name, (_, _, octs) in inputs.items()}
-        else:
-            _build._LIBS["planes"] = lib
-            run = {name: (lambda o, p: lambda out=None: tpl.planes(o, p,
-                                                                   out=out))(
-                octs, ops_for(name, tab))
-                for name, (_, _, octs) in inputs.items()}
+        _build._LIBS["planes"] = lib
+        run = {name: (lambda o, p: lambda out=None: tpl.planes(o, p,
+                                                               out=out))(
+            octs, ops_for(name, tab))
+            for name, (_, _, octs) in inputs.items()}
         bad = 0
         for name, fn in run.items():
             buf = torch.full(tuple(want[name].shape) if "odd" not in name
@@ -854,7 +792,7 @@ def grad_hist_cases(dev):
         t = polyphase.plane_tables(packed, packed.halo, hw)
         imgs = torch.randint(0, 256, (BATCH,) + hw, generator=gen,
                              dtype=torch.uint8, device=dev)
-        planes = tpl.planes_plain(tpl.octave_buffer(tch.octave_chain(
+        planes = tpl.planes_plain(tpl.octave_buffer(tch.level_octaves(
             imgs, len(t.oct_hw))), tpl.PlaneOperands.build(t, dev))
         mask = torch.as_tensor(packed.smooth_interior_mask().astype(np.uint8),
                                device=dev)
@@ -1154,8 +1092,8 @@ def sweep_walk_fast(_build, libs, dev, failures, rows):
     graph (chip_smoke.graph_ms: no host time)."""
     import torch
     import waldboost_tpu_torch as wt
-    from chip_smoke import (MODEL_NAMES, b3f_edges, graph_ms, previous_b3f,
-                            scene_batch)
+    from chip_smoke import MODEL_NAMES, b3f_edges, graph_ms, scene_batch
+    from waldboost_tpu_torch._build import launches
     from waldboost_tpu_torch.ops import cascade as gen_mod
     from waldboost_tpu_torch.ops import cascade_static as casc_mod
     defaults = {k: getattr(gen_mod, k) for k in
@@ -1188,13 +1126,13 @@ def sweep_walk_fast(_build, libs, dev, failures, rows):
         for o in every_ops:  # the front's records under these settings
             o._fronts.clear()
             o._fast_runs.clear()
-        walk = (lambda cv, v, o: previous_b3f(casc_mod, cv, v, o)) \
-            if host.get("previous") else casc_mod.cascade_masked
-        bad, paths = 0, set()
-        for (_, cv, v, o), want in zip(cases, wants):
-            bad += mismatches(walk(cv, v, o), want)
-            if not host.get("previous"):
-                paths.add(casc_mod.cascade_fast_path)
+        walk = casc_mod.cascade_masked
+        before = dict(launches)
+        bad = sum(mismatches(walk(cv, v, o), want)
+                  for (_, cv, v, o), want in zip(cases, wants))
+        paths = {p for p in casc_mod.FAST_PATHS
+                 if launches["cascade_fast/" + p] != before.get(
+                     "cascade_fast/" + p, 0)}
         ms = {k: graph_ms((lambda cv: lambda: walk(cv, valid, ops))(cv), 20)
               for k, cv in canvases.items()}
         tag = label if i < len(order) - 1 else label + " (again)"
@@ -1255,7 +1193,6 @@ def main():
     if "walk_fast" in todo:
         libs["walk_fast"] = build_variants(_build, "cascade_fast",
                                            WALK_FAST_VARIANTS, workdir)
-        _build.build(["cascade"])  # the previous design
     print(f"build: {time.time() - t0:.1f} s", flush=True)
 
     rows, failures = [], []
@@ -1269,12 +1206,11 @@ def main():
               times, failures, rows, host)
     sass = {}
     if "grad_hist_float" in libs:
-        for label in ("committed", PREVIOUS):
-            sass[label] = sass_counts(
-                _build, libs["grad_hist_float"][label][0]._name)
-            for inst, ops in sass[label].items():
-                print(f"sass {label}, {inst}: " + ", ".join(
-                    f"{k} {v}" for k, v in ops.items()), flush=True)
+        sass["committed"] = sass_counts(
+            _build, libs["grad_hist_float"]["committed"][0]._name)
+        for inst, ops in sass["committed"].items():
+            print(f"sass committed, {inst}: " + ", ".join(
+                f"{k} {v}" for k, v in ops.items()), flush=True)
         checks, times = grad_hist_float_cases(dev)
         tiny = torch.zeros((1, 2, 2, 8, 8), dtype=torch.float32, device=dev)
         host = {"8x8 host": lambda: tcc.grad_hist_float(tiny, None, 0)}

@@ -101,7 +101,7 @@ def main():
     print(cs.card_line())
     with tempfile.TemporaryDirectory() as tmp:
         lib = build(tmp)
-        nms_mod._topk_library = lambda: lib
+        _build._LIBS["compact"] = lib
         synth = wt.load(os.path.join(ROOT, "models", "flagship_synth_64.pb"),
                         device=dev)
         fpga = wt.load(os.path.join(ROOT, "models", "fpga_4k_synth_64.pb"),

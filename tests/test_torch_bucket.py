@@ -241,8 +241,8 @@ def test_bucketed_fast_float_bound():
     packed = tbucket.bucket_geometry((128, 128), img.shape, (8, 8), 2,
                                      n_per_oct, cf.name)
     tables = float_plane_tables(packed, packed.halo, img.shape)
-    octs = tch.octave_chain_f32(torch.from_numpy(img[None]),
-                                len(tables.oct_hw))
+    octs = tch.level_octaves(torch.from_numpy(img[None]),
+                             len(tables.oct_hw))
     planes = tpl.planes_float_fast(tpl.octave_buffer(octs),
                                    tpl.FloatPlaneOperands.build(tables,
                                                                 "cpu"),

@@ -19,6 +19,7 @@ import torch
 import waldboost_tpu_torch as wt
 from waldboost_tpu_torch import channels as tch
 from waldboost_tpu_torch import packing, polyphase
+from waldboost_tpu_torch._build import launches
 from waldboost_tpu_torch.canvas import channel_canvas, window_grid
 from waldboost_tpu_torch.ops import cascade as tc
 from waldboost_tpu_torch.ops import cascade_static as tcs
@@ -36,7 +37,7 @@ HARD64 = os.path.join(ROOT, "models", "flagship_hard_64.pb")
 sys.path.insert(0, ROOT)
 from chip_smoke import (CANVAS_GOLDEN,  # noqa: E402
                         DEVICE_FPGA_TRAIN_GOLDEN, DEVICE_TRAIN_GOLDEN,
-                        b3f_edges, previous_b3f,
+                        b3f_edges,
                         FPGA_TRAIN_GOLDEN, TRAIN_DEPTH, TRAIN_GOLDEN,
                         canvas_golden_frames, canvas_golden_run,
                         canvas_model_path, device_train_golden_run,
@@ -70,7 +71,7 @@ def test_kernels_match_plain_on_card(cuda, hw, npo):
     tables = polyphase.plane_tables(packed, packed.halo, hw)
     pops = tpl.PlaneOperands.build(tables, cuda)
     imgs = _frames(3, hw, seed=1).to(cuda)
-    octs = tpl.octave_buffer(tch.octave_chain(imgs, len(tables.oct_hw)))
+    octs = tpl.octave_buffer(tch.level_octaves(imgs, len(tables.oct_hw)))
     planes = tpl.planes(octs, pops)
     torch.testing.assert_close(planes, tpl.planes_plain(octs, pops),
                                rtol=0, atol=0)
@@ -144,7 +145,7 @@ def test_planes_every_byte_on_card(cuda, hw, halo, batch):
     tables = polyphase.plane_tables(packed, packed.halo, hw)
     pops = tpl.PlaneOperands.build(tables, cuda)
     imgs = _frames(batch, hw, seed=hw[0] + halo).to(cuda)
-    octs = tpl.octave_buffer(tch.octave_chain(imgs, len(tables.oct_hw)))
+    octs = tpl.octave_buffer(tch.level_octaves(imgs, len(tables.oct_hw)))
     want = tpl.planes_plain(octs, pops)
     shape = (batch, 2, 2) + tables.plane_hw
     out = torch.full(shape, 0xAB, dtype=torch.uint8, device=cuda)
@@ -466,8 +467,8 @@ def test_cascade_fast_matches_plain_on_card(cuda):
     chip_smoke.py's B3f edges: grids under one tile, rows off 16 bytes, a
     canvas one element off a word, windows 8, 12 and 24, C = 1, 4 and 5,
     batch 1 and 3, deep-tree, oversized, one-stage and never-rejecting
-    cascades); its previous design (csrc/cascade.cu) likewise; B4 over the
-    canvas, with n_stages_cap."""
+    cascades), each launch counted under the path its front read the
+    canvas by; B4 over the canvas, with n_stages_cap."""
     rng = np.random.RandomState(4)
     hw = (96, 128)
     packed = packing._packed_plan_cached(hw[0], hw[1], 2, 2, (12, 12),
@@ -479,13 +480,20 @@ def test_cascade_fast_matches_plain_on_card(cuda):
     canvas = tcc.grad_hist_fast(planes, mask, 1)
     valid = torch.as_tensor(packed.valid_mask((12, 12)).astype(np.uint8),
                             device=cuda)
+
+    def fast(cv, evalid, eops):
+        """B3f's outputs and the front paths its launch was counted by."""
+        before = {p: launches["cascade_fast/" + p] for p in tcs.FAST_PATHS}
+        out = tcs.cascade_masked(cv, evalid, eops)
+        return out, [p for p in tcs.FAST_PATHS
+                     if launches["cascade_fast/" + p] != before[p]]
+
     for path in (FLAGSHIP, HARD64, HARD256):
         ops = wt.load(path, device=cuda)._operands(cuda)
-        got = tcs.cascade_masked(canvas, valid, ops)
-        assert tcs.cascade_fast_path == "tma"
+        got, moved = fast(canvas, valid, ops)
+        assert moved == ["tma"]
         for want in (tcs.cascade_masked_plain(canvas, valid, ops),
-                     tcs.cascade_masked(canvas.float(), valid, ops),
-                     previous_b3f(tcs, canvas, valid, ops)):
+                     tcs.cascade_masked(canvas.float(), valid, ops)):
             for g, w_ in zip(got, want):
                 assert torch.equal(g, w_)
         if path == HARD64:
@@ -499,8 +507,9 @@ def test_cascade_fast_matches_plain_on_card(cuda):
                     assert torch.equal(g, w_)
     paths = set()
     for label, cv, evalid, eops in b3f_edges(tcs, cuda):
-        got = tcs.cascade_masked(cv, evalid, eops)
-        paths.add(tcs.cascade_fast_path)
+        got, moved = fast(cv, evalid, eops)
+        assert len(moved) == 1, label
+        paths.update(moved)
         for want in (tcs.cascade_masked_plain(cv, evalid, eops),
                      tcs.cascade_masked(cv.float(), evalid, eops)):
             for g, w_ in zip(got, want):
@@ -944,7 +953,6 @@ def test_extraction_launches_topk_without_sync_on_card(cuda):
     card, and never synchronize with the host (nms_iou=None, PyTorch's
     sync debug mode "error"); the dense path launches S2 once a batch."""
     from chip_smoke import HW4K, TP_OVER, no_sync_run, scene_batch
-    from waldboost_tpu_torch.ops import nms as tnms
     synth = wt.load(FLAGSHIP)
     fpga = wt.load(os.path.join(ROOT, "models", "fpga_4k_synth_64.pb"))
     scene = scene_batch(8).to(cuda)
@@ -958,8 +966,8 @@ def test_extraction_launches_topk_without_sync_on_card(cuda):
             (make(fpga, HW4K, k=128, two_phase=True), noise4k),
             (make(fpga, HW4K, k=128, two_phase=True, **TP_OVER), noise4k)]
     for i, (det, images) in enumerate(runs):
-        before = tnms.compact_launches
+        before = launches["compact"]
         assert no_sync_run(det, images) == [], i
         torch.cuda.synchronize()
         # two calls of finish (the warm one and the checked one)
-        assert tnms.compact_launches - before == (2 if i < 2 else 4), i
+        assert launches["compact"] - before == (2 if i < 2 else 4), i

@@ -116,7 +116,7 @@ def test_octaves_f32_match_jax(hw, npo):
     imgs = float_frames(2, hw, seed=1)
     _, _, tp = _plans(hw, npo)
     n_oct = len(polyphase.float_plane_tables(tp, tp.halo, hw).oct_hw)
-    got = tch.octave_chain_f32(torch.from_numpy(imgs), n_oct)
+    got = tch.level_octaves(torch.from_numpy(imgs), n_oct)
     assert n_oct >= 2
     for b in range(2):
         want = _compute_octaves_f32(jnp.asarray(imgs[b]), n_oct)
@@ -131,8 +131,8 @@ def test_planes_float_fast_match_jax(hw, npo, fast_float):
     cf, jp, tp = _plans(hw, npo)
     tables = polyphase.float_plane_tables(tp, tp.halo, hw)
     ops = tpl.FloatPlaneOperands.build(tables, "cpu")
-    octs = tpl.octave_buffer(tch.octave_chain_f32(torch.from_numpy(imgs),
-                                                  len(tables.oct_hw)))
+    octs = tpl.octave_buffer(tch.level_octaves(torch.from_numpy(imgs),
+                                               len(tables.oct_hw)))
     bf16 = fast_float == "bf16"
     got = tpl.planes_float_fast(octs, ops,
                                 torch.bfloat16 if bf16 else torch.float32)

@@ -88,7 +88,7 @@ def setup(kind, smooth=1):
     jp = JM._packed_plan_cached(hw[0], hw[1], 2, npo, (8, 8), halo=cf.halo)
     tp = packing._packed_plan_cached(hw[0], hw[1], 2, npo, (8, 8), halo=1)
     tables = polyphase.float_plane_tables(tp, tp.halo, hw)
-    octl = tch.octave_chain_f32(torch.from_numpy(imgs), len(tables.oct_hw))
+    octl = tch.level_octaves(torch.from_numpy(imgs), len(tables.oct_hw))
     planes = tpl.planes_float(tpl.octave_buffer(octl),
                               tpl.FloatPlaneOperands.build(tables, "cpu"))
     return imgs, cf, jp, tp, octl, planes

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import waldboost_tpu_torch as wt
+from waldboost_tpu_torch._build import launches
 from waldboost_tpu_torch.ops import nms as nms_mod
 from waldboost_tpu_torch.ops.nms import nms, nms_plain
 from waldboost_tpu_torch.parallel import bucket as bucket_mod
@@ -189,10 +190,10 @@ def test_kernel_is_the_plain_loop(cuda, B, K, thr, kind):
     rects, scores, valid = _on(cuda, *_candidates(B, K, kind, thr,
                                                   seed=B * 100003 + K))
     want = nms_plain(rects, scores, valid, thr)
-    before = nms_mod.nms_launches
+    before = launches["nms"]
     got = nms(rects, scores, valid, thr)
     torch.cuda.synchronize()
-    assert nms_mod.nms_launches == before + 1
+    assert launches["nms"] == before + 1
     assert got.dtype == torch.bool and got.shape == (B, K)
     assert torch.equal(got, want), (got ^ want).nonzero()[:8].tolist()
 
@@ -219,11 +220,11 @@ def test_neg_inf_scores_end(cuda, K):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,K", [(0, 16), (4, 0), (0, 0)])
 def test_empty_batch_makes_no_launch(cuda, B, K):
-    before = nms_mod.nms_launches
+    before = launches["nms"]
     keep = nms(torch.zeros(B, K, 4, device=cuda), torch.zeros(B, K,
                                                               device=cuda),
                torch.ones(B, K, dtype=torch.bool, device=cuda), 0.5)
-    assert nms_mod.nms_launches == before
+    assert launches["nms"] == before
     assert keep.shape == (B, K) and keep.dtype == torch.bool
 
 
@@ -297,14 +298,14 @@ def test_serving_call_launches_s3_once(cuda, path, monkeypatch):
     call with the plain loop in S3's place."""
     call, want = _serving_call(path, cuda)
     call()  # tables and kernels set up
-    before = nms_mod.nms_launches
+    before = launches["nms"]
     got = _flat(call())
     torch.cuda.synchronize()
-    assert nms_mod.nms_launches - before == want
+    assert launches["nms"] - before == want
     for mod in (nms_mod, detect_mod, bucket_mod):
         monkeypatch.setattr(mod, "nms", nms_plain)
     plain = _flat(call())
-    assert nms_mod.nms_launches - before == want
+    assert launches["nms"] - before == want
     assert len(got) == len(plain)
     for a, b in zip(got, plain):
         if isinstance(a, torch.Tensor):

@@ -1,7 +1,7 @@
 """PyTorch port: kernel S4 (``ops/octaves.py::octaves``,
 ``csrc/octaves.cu``), the octave chain of a batch and its concatenation
 into the (B, S) octave buffer in one launch, held byte for byte against
-the plain chain ``octave_buffer(octave_chain(...))`` and its float32 twin
+the plain chain ``octave_buffer(level_octaves(...))`` (uint8 and float32)
 on the same tensors.
 
 Run on a machine with an NVIDIA Hopper GPU and nvcc:
@@ -23,8 +23,8 @@ import torch
 
 import waldboost_tpu_torch as wt
 from waldboost_tpu_torch import canvas as canvas_mod
-from waldboost_tpu_torch.channels import octave_chain, octave_chain_f32
-from waldboost_tpu_torch.ops import octaves as oct_mod
+from waldboost_tpu_torch._build import launches
+from waldboost_tpu_torch.channels import level_octaves
 from waldboost_tpu_torch.ops.octaves import (LAUNCH_LEVELS, octave_sizes,
                                              octaves, octaves_plain)
 from waldboost_tpu_torch.ops.planes import octave_buffer
@@ -67,8 +67,7 @@ def _frames(B, hw, dtype, seed, special=False):
 
 
 def _plain(images, n):
-    chain = octave_chain if images.dtype == torch.uint8 else octave_chain_f32
-    return octave_buffer(chain(images, n))
+    return octave_buffer(level_octaves(images, n))
 
 
 def _same_bits(a, b):
@@ -87,10 +86,10 @@ def _same_bits(a, b):
 def test_cpu_wrapper_is_the_plain_chain(dtype, B, hw, n):
     images = _frames(B, hw, dtype, seed=B * 1000 + hw[0] * 7 + n,
                      special=True)
-    before = oct_mod.octaves_launches
+    before = launches["octaves"]
     got = octaves(images, n)
     want = _plain(images, n)
-    assert oct_mod.octaves_launches == before
+    assert launches["octaves"] == before
     assert got.dtype == dtype
     S = sum(h * w for h, w in octave_sizes(*hw, n))
     assert tuple(got.shape) == (B, S)
@@ -103,7 +102,7 @@ def test_cpu_wrapper_is_the_plain_chain(dtype, B, hw, n):
 @pytest.mark.parametrize("hw", EDGE_HW)
 def test_octave_sizes_are_the_chain_shapes(hw):
     images = _frames(1, hw, torch.uint8, seed=3)
-    chain = octave_chain(images, 8)
+    chain = level_octaves(images, 8)
     assert octave_sizes(*hw, 8) == [tuple(o.shape[1:]) for o in chain]
 
 
@@ -138,7 +137,7 @@ def test_closed_form_is_the_wrapped_step(kind):
     frames = np.empty((quads.shape[1], 2, 2), np.uint8)
     frames[:, 0, 0], frames[:, 1, 0] = quads[0], quads[1]
     frames[:, 0, 1], frames[:, 1, 1] = quads[2], quads[3]
-    chain = octave_chain(torch.from_numpy(frames), 2)[1]
+    chain = level_octaves(torch.from_numpy(frames), 2)[1]
     np.testing.assert_array_equal(chain.numpy().reshape(-1), want)
 
 
@@ -254,9 +253,9 @@ def test_canvas_on_the_cpu_takes_the_plain_chain():
     canvas = fn.canvas
     wide = _frames(2, (96, 256), torch.uint8, seed=9)
     images = wide[:, :, ::2]
-    before = oct_mod.octaves_launches
+    before = launches["octaves"]
     got = canvas.octaves(images)
-    assert oct_mod.octaves_launches == before
+    assert launches["octaves"] == before
     assert torch.equal(got, _plain(images.contiguous(), canvas.n_octaves))
 
 
@@ -297,10 +296,10 @@ def test_kernel_is_the_plain_chain(cuda, hw, n, B, dtype):
     images = _frames(B, hw, dtype, seed=hw[0] * 31 + n * 7 + B,
                      special=True).to(cuda)
     want = _plain(images, n)
-    before = oct_mod.octaves_launches
+    before = launches["octaves"]
     got = octaves(images, n)
     torch.cuda.synchronize()
-    assert oct_mod.octaves_launches - before == _launches_for(hw, n)
+    assert launches["octaves"] - before == _launches_for(hw, n)
     assert _same_bits(got, want)
     out = torch.full_like(want, 0xAB if dtype == torch.uint8 else 3.5)
     assert octaves(images, n, out=out) is out
@@ -350,9 +349,9 @@ def test_kernel_refuses_on_the_card(cuda):
 @pytest.mark.parametrize("B,hw", [(0, (16, 16)), (2, (0, 16)), (2, (16, 0))])
 def test_empty_batch_makes_no_launch(cuda, B, hw):
     images = torch.zeros((B,) + hw, dtype=torch.uint8, device=cuda)
-    before = oct_mod.octaves_launches
+    before = launches["octaves"]
     got = octaves(images, 4)
-    assert oct_mod.octaves_launches == before
+    assert launches["octaves"] == before
     S = sum(h * w for h, w in octave_sizes(*hw, 4))
     assert tuple(got.shape) == (B, S)
 
@@ -370,12 +369,12 @@ def test_dense_call_launches_s4_once(cuda, path, monkeypatch):
                                            device=cuda)
     images = _frames(8, hw, torch.uint8, seed=24).to(cuda)
     fn(images)  # tables and kernels set up
-    before = oct_mod.octaves_launches
+    before = launches["octaves"]
     got = fn(images)
     torch.cuda.synchronize()
-    assert oct_mod.octaves_launches - before == 1
+    assert launches["octaves"] - before == 1
     monkeypatch.setattr(canvas_mod, "octave_buffer_of", octaves_plain)
     plain = fn(images)
-    assert oct_mod.octaves_launches - before == 1
+    assert launches["octaves"] - before == 1
     for a, b in zip(got, plain):
         assert torch.equal(a, b)

@@ -187,7 +187,7 @@ def test_tile_walk_emulation_matches_plain(hw, npo, halo):
                                          halo=halo)
     t = polyphase.plane_tables(packed, packed.halo, hw)
     ops = tpl.PlaneOperands.build(t, "cpu")
-    octs = tpl.octave_buffer(tch.octave_chain(imgs, len(t.oct_hw)))
+    octs = tpl.octave_buffer(tch.level_octaves(imgs, len(t.oct_hw)))
     want = tpl.planes_plain(octs, ops).numpy().reshape(
         (2, 4) + t.plane_hw)
     np.testing.assert_array_equal(_emulate(octs.numpy(), t), want)
@@ -202,7 +202,7 @@ def test_planes_write_every_byte_of_out():
     ops = tpl.PlaneOperands.build(t, "cpu")
     imgs = torch.from_numpy(np.random.RandomState(2).randint(
         0, 256, (2,) + hw).astype(np.uint8))
-    octs = tpl.octave_buffer(tch.octave_chain(imgs, len(t.oct_hw)))
+    octs = tpl.octave_buffer(tch.level_octaves(imgs, len(t.oct_hw)))
     out = torch.full((2, 2, 2) + t.plane_hw, 0xAB, dtype=torch.uint8)
     got = tpl.planes(octs, ops, out=out)
     assert got.data_ptr() == out.data_ptr()

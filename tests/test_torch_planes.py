@@ -24,7 +24,7 @@ torch.set_num_threads(1)
 def test_octave_chain_matches_jax(hw):
     img = noise_frames(1, hw, seed=1)[0]
     want = _compute_octaves_f32(jnp.asarray(img), 4)
-    got = tch.octave_chain(torch.from_numpy(img[None]), 4)
+    got = tch.level_octaves(torch.from_numpy(img[None]), 4)
     for g, w_ in zip(got, want):
         assert g.dtype == torch.uint8
         np.testing.assert_array_equal(g[0].numpy().astype(np.float32),

@@ -71,8 +71,8 @@ def port_planes(imgs, packed):
     h, w = imgs.shape[1:]
     tables = polyphase.plane_tables(packed, packed.halo, (h, w))
     ops = tpl.PlaneOperands.build(tables, "cpu")
-    octs = tpl.octave_buffer(tch.octave_chain(torch.from_numpy(imgs),
-                                              len(tables.oct_hw)))
+    octs = tpl.octave_buffer(tch.level_octaves(torch.from_numpy(imgs),
+                                               len(tables.oct_hw)))
     return tpl.planes(octs, ops)
 
 

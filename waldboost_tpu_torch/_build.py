@@ -1,16 +1,25 @@
-"""Build the CUDA kernels at first use and load them with ctypes.
+"""Build the CUDA kernels at first use, load them with ctypes, and launch
+and count them.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface under ``waldboost_tpu_torch/_build/``;
 the file name carries a hash of the source, of the shared headers
 (``csrc/*.cuh``) and of the compile flags, so an edited source or header
 is rebuilt and an unchanged one is loaded as built.  Each
-C entry point takes its pointers and the CUDA stream as ``void*`` and
+C entry point takes its pointers as ``void*``, the CUDA stream last, and
 returns ``cudaGetLastError()`` after its launch.
+
+Every wrapper under ``ops/`` calls its kernel the same way: :func:`on_card`
+picks the plain-torch version (a CPU tensor) or the kernel (a CUDA
+tensor), :func:`entry` gives the C function with its signature declared,
+and :func:`launch` calls it on the current stream of the tensor's device,
+raises on its error and adds 1 to :data:`launches` under the kernel's
+name.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -19,8 +28,10 @@ import subprocess
 import tempfile
 from typing import Dict
 
+import torch
+
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load_library",
-           "build_log", "check"]
+           "build_log", "check", "entry", "launch", "launches", "on_card"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -34,6 +45,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: kernel launches by kernel name (``planes``, ``grad_hist``,
+#: ``grad_hist_float``, ``grad_hist_fast``, ``fpga``, ``cascade``,
+#: ``cascade_fast``, ``cascade_response``, ``cascade_generic``,
+#: ``cascade_suffix``, ``compact``, ``nms``, ``octaves``), from every
+#: caller; B3f's launches also by how its front read the canvas
+#: (``cascade_fast/tma``, ``cascade_fast/global``, ``cascade_fast/none``)
+launches: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -53,9 +72,7 @@ def _paths(name: str):
         with open(path, "rb") as f:
             digest.update(f.read())
     tag = digest.hexdigest()[:16]
-    # a source under csrc/baseline/ builds beside the others
-    flat = name.replace("/", "_")
-    lib = os.path.join(BUILD_DIR, f"lib{flat}_{tag}.so")
+    lib = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
     return src, lib, lib[:-3] + ".log"
 
 
@@ -111,3 +128,35 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def entry(source: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """The C function ``symbol`` of the library loaded for
+    ``csrc/<source>.cu``, its signature declared once per library object
+    (a library swapped into ``_LIBS`` is declared at its first use)."""
+    fn = getattr(load_library(source), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return fn
+
+
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call the C entry ``fn`` with ``args`` and the current stream of
+    ``device`` last, on that device; raise on its error and count the
+    launch in :data:`launches` under ``name``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, f"{name} kernel")
+    launches[name] += 1
+
+
+def on_card(tensor: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU tensor (the
+    plain version); ValueError naming ``what`` on any other device."""
+    kind = tensor.device.type
+    if kind == "cuda":
+        return True
+    if kind == "cpu":
+        return False
+    raise ValueError(f"{what}: unsupported device {tensor.device}")

@@ -6,8 +6,9 @@ host arithmetic (level sizes snapped with ``int((w*s)/shrink)*shrink``), and
 the registry holds the built-in channel functions (``grad_hist`` and
 ``grad_mag`` here, the FPGA integer family in ``fpga/channels.py``,
 imported at the first lookup that misses), ``"a+b"`` composites, and any
-function a user registers.  The octave chains (uint8 frames: integer,
-float32 frames: f32) are plain torch on the caller's device.
+function a user registers.  The octave chain (:func:`level_octaves`;
+uint8 frames: integer, float32 frames: f32) is plain torch on the
+caller's device.
 
 :func:`compute_pyramid` gives every level's channels: cut out of the
 packed kernel canvas for functions with a canvas form, else level by
@@ -33,9 +34,8 @@ from .ops.channels import project_bins
 __all__ = ["ChannelFunction", "Level", "grad_hist", "grad_mag",
            "default_channel_opts", "pyramid_plan",
            "register_channel_function", "resolve_channel_function",
-           "compose_channel_functions", "octave_chain", "octave_chain_f32",
-           "level_octaves", "level_channels", "compute_pyramid",
-           "channel_pyramid"]
+           "compose_channel_functions", "level_octaves", "level_channels",
+           "compute_pyramid", "channel_pyramid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,52 +243,15 @@ def pyramid_plan(h: int, w: int, shrink: int,
     return tuple(levels)
 
 
-def octave_chain(images: torch.Tensor, n_octaves: int) -> List[torch.Tensor]:
-    """uint8 octave images of a (B, H, W) uint8 batch.
-
-    Each octave is the 2x2 average pool of the previous one with the uint8
-    reference's arithmetic: the row pair sum wraps mod 256, then the column
-    pair sum wraps mod 256, then ``floor(/4)``; an odd last row or column
-    is dropped.
-    """
-    if images.dtype != torch.uint8 or images.dim() != 3:
-        raise ValueError("octave_chain takes a (B, H, W) uint8 tensor")
-    octaves = [images]
-    for _ in range(n_octaves - 1):
-        prev = octaves[-1]
-        h, w = prev.shape[1] // 2 * 2, prev.shape[2] // 2 * 2
-        x = prev[:, :h, :w].to(torch.int32)
-        rows = (x[:, 0::2] + x[:, 1::2]) % 256
-        cols = (rows[:, :, 0::2] + rows[:, :, 1::2]) % 256
-        octaves.append((cols // 4).to(torch.uint8))
-    return octaves
-
-
-def octave_chain_f32(images: torch.Tensor,
-                     n_octaves: int) -> List[torch.Tensor]:
-    """float32 octave images of a (B, H, W) float32 batch: each octave is
-    ``(((tl + bl) + tr) + br) / 4`` of the previous one's 2x2 blocks in
-    f32, an odd last row or column dropped (``waldboost_tpu/ops/image.py::
-    avg_pool_2``)."""
-    if images.dtype != torch.float32 or images.dim() != 3:
-        raise ValueError("octave_chain_f32 takes a (B, H, W) float32 tensor")
-    octaves = [images]
-    for _ in range(n_octaves - 1):
-        prev = octaves[-1]
-        h, w = prev.shape[1] // 2 * 2, prev.shape[2] // 2 * 2
-        x = prev[:, :h, :w]
-        tl, bl = x[:, 0::2, 0::2], x[:, 1::2, 0::2]
-        tr, br = x[:, 0::2, 1::2], x[:, 1::2, 1::2]
-        octaves.append(((((tl + bl) + tr) + br) / 4).contiguous())
-    return octaves
-
-
 def level_octaves(images: torch.Tensor, n_octaves: int
                   ) -> List[torch.Tensor]:
     """The octave images of (..., H, W) images of any dtype: each the
-    previous one's :func:`~.ops.image.avg_pool_2` (uint8 wraps, as the
-    reference's does; equal to :func:`octave_chain` and
-    :func:`octave_chain_f32` for their types)."""
+    previous one's :func:`~.ops.image.avg_pool_2`, an odd last row or
+    column dropped.  uint8 takes the uint8 reference's arithmetic (the
+    row pair sum wraps mod 256, then the column pair sum, then
+    ``floor(/4)``), float32 ``(((tl + bl) + tr) + br) / 4`` in f32
+    (``waldboost_tpu/ops/image.py::avg_pool_2``): the plain chain of
+    kernel S4 (``ops/octaves.py``)."""
     octaves = [images]
     for _ in range(n_octaves - 1):
         octaves.append(imops.avg_pool_2(octaves[-1]))

@@ -2,12 +2,11 @@
 // channel canvas.  One per-window walk serves three kernels through two C
 // entry points:
 //
-//  wb_cascade          (B3) masked score map, survivor count and n_weak.
+//  wb_cascade          (B3) masked score map, survivor count and n_weak
+//    over a float32 canvas (fast serving mode's bfloat16 canvas takes B3f,
+//    csrc/cascade_fast.cu).
 //    Replaces: waldboost_tpu/ops/cascade_static.py::
 //    cascade_masked_grid_static (_make_static_kernel(masked_out=True)).
-//    (B3f) the same over a bfloat16 canvas, fast serving mode.
-//    Replaces: the same pallas_call with fast=True (bfloat16 tiles, each
-//    value widened to f32 at its read, the stage chain in f32).
 //  wb_cascade_response (B4) unmasked hs, alive and n_weak of a frozen
 //    cascade over its first n_run stages (n_stages_cap).
 //    Replaces: waldboost_tpu/ops/cascade_static.py::
@@ -32,9 +31,9 @@
 // (the TPU kernels add alive*resp = 0 from then on), and n_weak counts the
 // stages a window entered alive.
 //
-// The canvas is float32 or, for B3f (and B4 in fast serving mode),
-// bfloat16: each canvas load widens its value to f32 exactly, so a
-// bfloat16 canvas gives the results of its float32 copy.
+// The canvas is float32 or, for B4 and S1 in fast serving mode, bfloat16:
+// each canvas load widens its value to f32 exactly, so a bfloat16 canvas
+// gives the results of its float32 copy.
 //
 // Bound on the H100: the canvas read once and the outputs written once;
 // but a window's work is a chain of dependent loads (node, feature value,
@@ -406,12 +405,14 @@ int launch_typed(const Args& a, int layout, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// canvas_bytes: 4 float32, 2 bfloat16.
+// canvas_bytes: 4 float32, 2 bfloat16 (the unmasked walk alone).
 template <bool kMasked>
 int launch(const Args& a, int canvas_bytes, int layout, void* stream) {
   if (canvas_bytes == 4) return launch_typed<kMasked, float>(a, layout, stream);
-  if (canvas_bytes == 2)
-    return launch_typed<kMasked, __nv_bfloat16>(a, layout, stream);
+  if constexpr (!kMasked) {
+    if (canvas_bytes == 2)
+      return launch_typed<false, __nv_bfloat16>(a, layout, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -619,9 +620,9 @@ extern "C" int wb_cascade_suffix(const void* canvas, int canvas_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B3 and B3f: masked map, survivor count and n_weak over all T stages
-// (count, n_weak zeroed by the caller) of a float32 (canvas_bytes 4) or
-// bfloat16 (2) canvas.
+// B3: masked map, survivor count and n_weak over all T stages (count,
+// n_weak zeroed by the caller) of a float32 canvas (canvas_bytes 4; any
+// other is refused).
 extern "C" int wb_cascade(const void* canvas, int canvas_bytes, int batch,
                           int C, int H, int W,
                           const void* valid, int gu, int gv,
@@ -635,7 +636,8 @@ extern "C" int wb_cascade(const void* canvas, int canvas_bytes, int batch,
 }
 
 // B4 and B6: hs, alive and n_weak over the first n_run stages (n_weak
-// zeroed by the caller); the canvas as for wb_cascade.
+// zeroed by the caller) of a float32 (canvas_bytes 4) or bfloat16 (2)
+// canvas.
 extern "C" int wb_cascade_response(const void* canvas, int canvas_bytes,
                                    int batch, int C, int H, int W,
                                    const void* valid, int gu,

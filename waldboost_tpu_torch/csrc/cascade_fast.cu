@@ -709,14 +709,14 @@ extern "C" void wb_cascade_fast_tile(int* rows, int* cols) {
 // reports, staged by TMA, which needs the canvas rows and base on 16
 // bytes; 2: canvas strides, read from global memory; 0: no front, F 0);
 // m, n: the window.
-// The arguments after the stream are the same for every call at one
+// The arguments from C to front_mode are the same for every call at one
 // canvas shape.
 extern "C" int wb_cascade_fast(const void* canvas, int batch,
                                const void* valid, void* masked, void* sums,
-                               void* stream, int C, int H, int W, int gu,
-                               int gv, int m, int n, const void* table,
-                               int table_bytes, int layout, int T, int NN,
-                               const void* front, int F, int front_mode) {
+                               int C, int H, int W, int gu, int gv, int m,
+                               int n, const void* table, int table_bytes,
+                               int layout, int T, int NN, const void* front,
+                               int F, int front_mode, void* stream) {
   constexpr int bad = static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // a queue entry packs image << 16 | stage

@@ -7,7 +7,7 @@
 //              H_k / 2, W_{k+1} = W_k / 2).  Octave k is written row-major
 //              at offset off_k of its frame's row of S = sum H_k * W_k
 //              values: byte for byte ops/planes.py::octave_buffer of
-//              channels.py::octave_chain (uint8) or octave_chain_f32.
+//              channels.py::level_octaves (uint8 or float32).
 //
 // Replaces no TPU kernel: the JAX package builds its octaves in XLA
 // (waldboost_tpu/channels.py::_compute_octaves_f32, :517).  The port's

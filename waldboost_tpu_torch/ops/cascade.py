@@ -39,7 +39,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._build import check, load_library
+from .._build import entry, launch, on_card
 from ..device import resolve_device
 
 __all__ = ["Cascade", "CascadeMeta", "NEG_INF", "MAX_COMPLETE_DEPTH",
@@ -54,11 +54,6 @@ __all__ = ["Cascade", "CascadeMeta", "NEG_INF", "MAX_COMPLETE_DEPTH",
            "cascade_stage_responses",
            "slice_cascade", "cascade_suffix_sparse",
            "cascade_suffix_sparse_plain"]
-
-#: kernel launches made by :func:`cascade_response_grid`
-cascade_generic_launches = 0
-#: kernel launches made by :func:`cascade_suffix_sparse` (S1)
-cascade_suffix_launches = 0
 
 NEG_INF = np.float32(-np.inf)
 
@@ -549,8 +544,38 @@ def lockstep(canvas: torch.Tensor, valid: torch.Tensor, tab: dict,
 
 
 # ---------------------------------------------------------------------------
-# kernel B6
+# the walk's launch (B3, B4, B6) and kernel B6
 # ---------------------------------------------------------------------------
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+#: canvas, its element bytes, B, C, H, W, valid, gu, gv, records, bytes,
+#: layout, T, n_run, NN, 3 outputs, stream
+_WALK_ARGS = (_VP, _CI, _CI, _CI, _CI, _CI, _VP, _CI, _CI, _VP, _CI, _CI,
+              _CI, _CI, _CI, _VP, _VP, _VP, _VP)
+#: the C entry of csrc/cascade.cu each kernel of the walk launches
+_WALK_ENTRY = {"cascade": "wb_cascade",
+               "cascade_response": "wb_cascade_response",
+               "cascade_generic": "wb_cascade_response"}
+
+
+def launch_response(kernel: str, canvas: torch.Tensor, valid: torch.Tensor,
+                    records: NodeRecords, n_stages: int, n_run: int,
+                    n_nodes: int, out0, out1, n_weak) -> None:
+    """Launch the walk of ``csrc/cascade.cu`` on the current stream over
+    the packed ``records`` of ``n_stages`` stages of ``n_nodes`` nodes,
+    walking the first ``n_run``, as ``kernel``: ``"cascade"`` (B3,
+    ``wb_cascade``: outputs masked, count, n_weak; a float32 canvas) or
+    ``"cascade_response"`` (B4) or ``"cascade_generic"`` (B6), both
+    ``wb_cascade_response`` (outputs hs, alive, n_weak; the canvas float32
+    or bfloat16)."""
+    B, C, H, W = canvas.shape
+    gu, gv = valid.shape
+    launch(kernel, entry("cascade", _WALK_ENTRY[kernel], _WALK_ARGS),
+           canvas.device, canvas.data_ptr(), canvas.element_size(), B, C, H,
+           W, valid.data_ptr(), gu, gv, records.data.data_ptr(),
+           records.data.numel() * 4, records.layout, n_stages, n_run,
+           n_nodes, out0.data_ptr(), out1.data_ptr(), n_weak.data_ptr())
+
 
 def _grid_args(canvas: torch.Tensor, casc: Cascade, window, valid):
     """Checks, and the batched canvas and uint8 mask of a B6 call."""
@@ -593,22 +618,17 @@ def cascade_response_grid(canvas: torch.Tensor, casc: Cascade,
     (H - m, W - n) grid and int32 ``n_weak`` (per image for a batch).
     ``valid`` pre-kills origins (all alive when None)."""
     batched, cv, valid = _grid_args(canvas, casc, window, valid)
-    if cv.device.type == "cpu":
+    if not on_card(cv, "cascade"):
         return _unbatch(batched, *_plain(cv, casc, valid))
-    if cv.device.type != "cuda":
-        raise ValueError(f"cascade: unsupported device {cv.device}")
-    from .cascade_static import launch_response
-    global cascade_generic_launches
     B = cv.shape[0]
     gu, gv = valid.shape
     hs = torch.empty((B, gu, gv), dtype=torch.float32, device=cv.device)
     alive = torch.empty((B, gu, gv), dtype=torch.bool, device=cv.device)
     n_weak = torch.zeros(B, dtype=torch.int32, device=cv.device)
     if B and gu and gv:
-        launch_response("wb_cascade_response", cv, valid,
+        launch_response("cascade_generic", cv, valid,
                         casc.records(tuple(cv.shape[1:])), casc.n_stages,
                         casc.n_stages, casc.n_nodes, hs, alive, n_weak)
-        cascade_generic_launches += 1
     return _unbatch(batched, hs, alive, n_weak)
 
 
@@ -710,12 +730,9 @@ def cascade_suffix_sparse(chns: torch.Tensor, casc, window: Tuple[int, int],
     :func:`cascade_suffix_sparse_plain` on a CPU tensor."""
     batched, cv, idx, scores, alive, gv = _suffix_args(
         chns, casc, window, idx, scores, alive, start, content_hw)
-    if cv.device.type == "cpu":
+    if not on_card(cv, "cascade"):
         return _unbatch_list(batched, *_suffix_plain(cv, casc, idx, scores,
                                                      alive, start, gv))
-    if cv.device.type != "cuda":
-        raise ValueError(f"cascade: unsupported device {cv.device}")
-    global cascade_suffix_launches
     _, _, _, rec = _suffix_tables(casc, tuple(cv.shape[1:]))
     if rec.data.device != cv.device:
         raise ValueError("cascade_suffix_sparse: canvas and tables on "
@@ -726,33 +743,24 @@ def cascade_suffix_sparse(chns: torch.Tensor, casc, window: Tuple[int, int],
     h_out = torch.empty((B, S), dtype=torch.float32, device=cv.device)
     a_out = torch.empty((B, S), dtype=torch.bool, device=cv.device)
     n_weak = torch.zeros(B, dtype=torch.int32, device=cv.device)
-    fn = _suffix_entry()
-    with torch.cuda.device(cv.device):
-        err = fn(cv.data_ptr(), cv.element_size(), B, C, H, W, gv,
-                 idx.data_ptr(), scores.data_ptr(), alive.data_ptr(), S,
-                 rec.data.data_ptr(), rec.layout, T, int(start), NN,
-                 h_out.data_ptr(), a_out.data_ptr(), n_weak.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
-    check(err, "wb_cascade_suffix kernel")
-    cascade_suffix_launches += 1
+    launch("cascade_suffix",
+           entry("cascade", "wb_cascade_suffix", _SUFFIX_ARGS), cv.device,
+           cv.data_ptr(), cv.element_size(), B, C, H, W, gv, idx.data_ptr(),
+           scores.data_ptr(), alive.data_ptr(), S, rec.data.data_ptr(),
+           rec.layout, T, int(start), NN, h_out.data_ptr(), a_out.data_ptr(),
+           n_weak.data_ptr())
     return _unbatch_list(batched, h_out, a_out, n_weak)
+
+
+#: canvas, element bytes, B, C, H, W, gv, idx, h_in, alive_in, S, records,
+#: layout, T, start, NN, h_out, alive_out, n_weak, stream
+_SUFFIX_ARGS = (_VP,) + (_CI,) * 6 + (_VP,) * 3 + (_CI, _VP) + (_CI,) * 4 + \
+    (_VP,) * 4
 
 
 def _n_stages_nodes(casc) -> Tuple[int, int]:
     sc = casc if isinstance(casc, Cascade) else casc.sc
     return int(sc.fr.shape[0]), int(sc.fr.shape[1])
-
-
-def _suffix_entry():
-    fn = load_library("cascade").wb_cascade_suffix
-    if fn.argtypes is None:
-        # canvas, element bytes, B, C, H, W, gv, idx, h_in, alive_in, S,
-        # records, layout, T, start, NN, h_out, alive_out, n_weak, stream
-        _VP, _CI = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [_VP] + [_CI] * 6 + [_VP] * 3 + [_CI, _VP] + \
-            [_CI] * 4 + [_VP] * 4
-        fn.restype = _CI
-    return fn
 
 
 def cascade_suffix_sparse_plain(chns: torch.Tensor, casc,

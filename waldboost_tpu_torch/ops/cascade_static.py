@@ -42,24 +42,16 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._build import check, load_library
+from .._build import entry, launch, launches, load_library, on_card
 from ..device import resolve_device
 from .cascade import (NODE_KEYS, FrontRecords, NodeRecords, check_children,
-                      front_records, lockstep, stage_tables)
+                      front_records, launch_response, lockstep,
+                      stage_tables)
 
 __all__ = ["StaticCascade", "static_cascade_from_model", "CascadeOperands",
            "cascade_masked", "cascade_masked_plain", "cascade_response",
            "cascade_response_plain"]
 
-#: kernel launches made by :func:`cascade_masked` (B3, float32 canvas)
-cascade_launches = 0
-#: kernel launches made by :func:`cascade_masked` (B3f, bfloat16 canvas)
-cascade_fast_launches = 0
-#: kernel launches made by :func:`cascade_response` (B4)
-cascade_response_launches = 0
-#: how B3f's last launch read the canvas for its front: "tma" (footprints
-#: staged by box copies), "global", or "none"
-cascade_fast_path = None
 #: the path of each front mode (``ops/cascade.py::FRONT_NONE``,
 #: ``FRONT_STAGED``, ``FRONT_GLOBAL``)
 FAST_PATHS = ("none", "tma", "global")
@@ -189,56 +181,22 @@ def _check(canvas: torch.Tensor, valid: torch.Tensor,
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
+#: canvas, B, valid, masked, sums; C, H, W, gu, gv, m, n, records, bytes,
+#: layout, T, NN, front records, F, front mode; stream
+_FAST_ARGS = (_VP, _CI, _VP, _VP, _VP) + (_CI,) * 7 + \
+    (_VP, _CI, _CI, _CI, _CI, _VP, _CI, _CI, _VP)
 
 
-def _entry(name: str):
-    fn = getattr(load_library("cascade"), name)
-    if fn.argtypes is None:
-        # canvas, its element bytes, B, C, H, W, valid, gu, gv, records,
-        # bytes, layout, T, n_run, NN, 3 outputs, stream
-        fn.argtypes = [_VP, _CI, _CI, _CI, _CI, _CI, _VP, _CI, _CI, _VP, _CI,
-                       _CI, _CI, _CI, _CI, _VP, _VP, _VP, _VP]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def launch_response(name: str, canvas: torch.Tensor, valid: torch.Tensor,
-                    records: NodeRecords, n_stages: int, n_run: int,
-                    n_nodes: int, out0, out1, n_weak) -> None:
-    """Launch one of the C entry points of ``csrc/cascade.cu`` on the
-    current stream over the packed ``records`` of ``n_stages`` stages of
-    ``n_nodes`` nodes, walking the first ``n_run``: ``wb_cascade`` (B3:
-    outputs masked, count, n_weak; over a bfloat16 canvas the previous
-    design of B3f, which no serving path launches) or
-    ``wb_cascade_response`` (B4, B6: outputs hs, alive, n_weak); the
-    canvas float32 or bfloat16."""
-    B, C, H, W = canvas.shape
-    gu, gv = valid.shape
-    stream = torch.cuda.current_stream(canvas.device).cuda_stream
-    with torch.cuda.device(canvas.device):
-        err = _entry(name)(canvas.data_ptr(), canvas.element_size(), B, C,
-                           H, W, valid.data_ptr(),
-                           gu, gv, records.data.data_ptr(),
-                           records.data.numel() * 4, records.layout,
-                           n_stages, n_run, n_nodes, out0.data_ptr(),
-                           out1.data_ptr(), n_weak.data_ptr(), stream)
-    check(err, f"{name} kernel")
-
-
-def _fast_run(lib, ops: CascadeOperands, key) -> tuple:
+def _fast_run(ops: CascadeOperands, key) -> tuple:
     """What every B3f launch at one canvas shape passes the same: the C
-    entry, the arguments after the stream, the front's path and the
-    device tensors those arguments point into."""
+    entry, the arguments from C on, the front's path and the device
+    tensors those arguments point into."""
     C, H, W, gu, gv, stageable = key
-    fn = lib.wb_cascade_fast
-    if fn.argtypes is None:
-        # canvas, B, valid, masked, sums, stream; C, H, W, gu, gv, m, n,
-        # records, bytes, layout, T, NN, front records, F, front mode
-        fn.argtypes = [_VP, _CI, _VP, _VP, _VP, _VP] + [_CI] * 7 + \
-            [_VP, _CI, _CI, _CI, _CI, _VP, _CI, _CI]
-        fn.restype = ctypes.c_int
+    fn = entry("cascade_fast", "wb_cascade_fast", _FAST_ARGS)
     rows, cols = _CI(), _CI()
-    lib.wb_cascade_fast_tile(ctypes.byref(rows), ctypes.byref(cols))
+    entry("cascade_fast", "wb_cascade_fast_tile",
+          (ctypes.POINTER(_CI), ctypes.POINTER(_CI)), None)(
+              ctypes.byref(rows), ctypes.byref(cols))
     rec = ops.records((C, H, W))
     front = ops.front((C, H, W), (rows.value, cols.value), stageable)
     fr = front.rec
@@ -252,29 +210,21 @@ def launch_fast(canvas: torch.Tensor, valid: torch.Tensor,
                 ops: CascadeOperands, masked, sums) -> str:
     """Launch B3f (``wb_cascade_fast`` of ``csrc/cascade_fast.cu``) on the
     current stream over a bfloat16 canvas, into ``masked`` and ``sums``
-    (2 x B int32: the count, then n_weak; zeroed by the launch); returns
-    how its front read the canvas (one of :data:`FAST_PATHS`).  The
+    (2 x B int32: the count, then n_weak; zeroed by the launch); count it
+    under ``cascade_fast`` and ``cascade_fast/<path>``, and return how
+    its front read the canvas (the path, one of :data:`FAST_PATHS`).  The
     arguments of a canvas shape are made once (:func:`_fast_run`)."""
     B, C, H, W = canvas.shape
     lib = load_library("cascade_fast")
     key = (C, H, W, *valid.shape, W % 8 == 0 and canvas.data_ptr() % 16 == 0)
     run = ops._fast_runs.get((lib, key))
     if run is None:
-        run = ops._fast_runs[(lib, key)] = _fast_run(lib, ops, key)
+        run = ops._fast_runs[(lib, key)] = _fast_run(ops, key)
     fn, args, path, _ = run
-    with torch.cuda.device(canvas.device):
-        err = fn(canvas.data_ptr(), B, valid.data_ptr(), masked.data_ptr(),
-                 sums.data_ptr(), torch.cuda.current_stream().cuda_stream,
-                 *args)
-    check(err, "wb_cascade_fast kernel")
+    launch("cascade_fast", fn, canvas.device, canvas.data_ptr(), B,
+           valid.data_ptr(), masked.data_ptr(), sums.data_ptr(), *args)
+    launches["cascade_fast/" + path] += 1
     return path
-
-
-def _device_kind(canvas: torch.Tensor) -> str:
-    kind = canvas.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"cascade: unsupported device {canvas.device}")
-    return kind
 
 
 def cascade_masked(canvas: torch.Tensor, valid: torch.Tensor,
@@ -284,24 +234,21 @@ def cascade_masked(canvas: torch.Tensor, valid: torch.Tensor,
     ``hs`` where the window survived and -inf elsewhere, and per-image
     int32 ``n_weak`` and survivor ``count``; B3f for a bfloat16 canvas."""
     gu, gv = _check(canvas, valid, ops)
-    if _device_kind(canvas) == "cpu":
+    if not on_card(canvas, "cascade"):
         return cascade_masked_plain(canvas, valid, ops)
-    global cascade_launches, cascade_fast_launches, cascade_fast_path
     B, dev = canvas.shape[0], canvas.device
     masked = torch.empty((B, gu, gv), dtype=torch.float32, device=dev)
     if canvas.dtype == torch.bfloat16 and B and gu and gv:
         sums = torch.empty((2, B), dtype=torch.int32, device=dev)
-        cascade_fast_path = launch_fast(canvas, valid, ops, masked, sums)
-        cascade_fast_launches += 1
+        launch_fast(canvas, valid, ops, masked, sums)
         return masked, sums[1], sums[0]
     count = torch.zeros(B, dtype=torch.int32, device=dev)
     n_weak = torch.zeros(B, dtype=torch.int32, device=dev)
     if B and gu and gv:
         T = ops.sc.n_stages
-        launch_response("wb_cascade", canvas, valid,
+        launch_response("cascade", canvas, valid,
                         ops.records(tuple(canvas.shape[1:])), T, T,
                         ops.sc.fr.shape[1], masked, count, n_weak)
-        cascade_launches += 1
     return masked, n_weak, count
 
 
@@ -329,19 +276,17 @@ def cascade_response(canvas: torch.Tensor, valid: torch.Tensor,
     when None) at every window origin: (B, H - m, W - n) float32 and bool,
     and per-image int32 ``n_weak``."""
     gu, gv = _check(canvas, valid, ops)
-    if _device_kind(canvas) == "cpu":
+    if not on_card(canvas, "cascade"):
         return cascade_response_plain(canvas, valid, ops, n_stages_cap)
-    global cascade_response_launches
     B, dev = canvas.shape[0], canvas.device
     hs = torch.empty((B, gu, gv), dtype=torch.float32, device=dev)
     alive = torch.empty((B, gu, gv), dtype=torch.bool, device=dev)
     n_weak = torch.zeros(B, dtype=torch.int32, device=dev)
     if B and gu and gv:
-        launch_response("wb_cascade_response", canvas, valid,
+        launch_response("cascade_response", canvas, valid,
                         ops.records(tuple(canvas.shape[1:])), ops.sc.n_stages,
                         _n_run(ops, n_stages_cap), ops.sc.fr.shape[1], hs,
                         alive, n_weak)
-        cascade_response_launches += 1
     return hs, alive, n_weak
 
 

@@ -32,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._build import check, load_library
+from .._build import entry, launch, on_card
 
 __all__ = ["N_BINS", "project_bins", "grad_hist", "grad_hist_plain",
            "grad_hist_float", "grad_hist_float_plain", "grad_hist_fast",
@@ -45,13 +45,6 @@ SIN = tuple(float(v) for v in np.sin(_THETA))
 #: the f32 roundings B2f multiplies by (bin 2's cos is 6.1e-17, not 0)
 COS32 = tuple(float(v) for v in np.cos(_THETA).astype(np.float32))
 SIN32 = tuple(float(v) for v in np.sin(_THETA).astype(np.float32))
-
-#: kernel launches made by :func:`grad_hist` (B2)
-grad_hist_launches = 0
-#: kernel launches made by :func:`grad_hist_float` (B2d)
-grad_hist_float_launches = 0
-#: kernel launches made by :func:`grad_hist_fast` (B2f)
-grad_hist_fast_launches = 0
 
 #: plane element types of B2f, and the byte count its C entry keys on
 _FAST_TYPES = {torch.uint8: 1, torch.bfloat16: 2, torch.float32: 4}
@@ -78,8 +71,6 @@ def _check(planes: torch.Tensor, mask: Optional[torch.Tensor],
         if mask.device != planes.device:
             raise ValueError("grad_hist: planes and mask on different "
                              "devices")
-    if planes.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"grad_hist: unsupported device {planes.device}")
 
 
 def project_bins(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
@@ -93,28 +84,17 @@ def project_bins(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
 _DBL4 = ctypes.c_double * N_BINS
 _COS4, _SIN4 = _DBL4(*COS), _DBL4(*SIN)
+_DBL_P = ctypes.POINTER(ctypes.c_double)
+#: planes, mask, out, B, H, W, smooth, [element bytes,] cos, sin, stream
+_ARGS = (_VP, _VP, _VP, _CI, _CI, _CI, _CI)
+_TAIL = (_DBL_P, _DBL_P, _VP)
+#: each kernel's source and the signature of its C entry ``wb_<kernel>``
+_ENTRIES = {"grad_hist": ("grad_hist", _ARGS + _TAIL),
+            "grad_hist_float": ("grad_hist_float", _ARGS + _TAIL),
+            "grad_hist_fast": ("grad_hist_float", _ARGS + (_CI,) + _TAIL)}
 
 
-#: the source of each C entry point
-_SOURCE = {"wb_grad_hist": "grad_hist",
-           "wb_grad_hist_float": "grad_hist_float",
-           "wb_grad_hist_fast": "grad_hist_float"}
-
-
-def _entry(name: str):
-    fn = getattr(load_library(_SOURCE[name]), name)
-    if fn.argtypes is None:
-        # planes, mask, out, B, H, W, smooth, [element bytes,] cos, sin,
-        # stream
-        fast = [_CI] if name == "wb_grad_hist_fast" else []
-        fn.argtypes = [_VP, _VP, _VP, _CI, _CI, _CI, _CI, *fast,
-                       ctypes.POINTER(ctypes.c_double),
-                       ctypes.POINTER(ctypes.c_double), _VP]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, planes: torch.Tensor, mask: Optional[torch.Tensor],
+def _launch(kernel: str, planes: torch.Tensor, mask: Optional[torch.Tensor],
             smooth: int, dtype: torch.dtype, *extra,
             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     B, _, _, H, W = planes.shape
@@ -125,13 +105,10 @@ def _launch(name: str, planes: torch.Tensor, mask: Optional[torch.Tensor],
             or not out.is_contiguous() or out.device != planes.device:
         raise ValueError(f"grad_hist: out must be a contiguous {shape} "
                          f"{dtype} tensor beside the planes")
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    with torch.cuda.device(planes.device):
-        err = _entry(name)(planes.data_ptr(),
-                           mask.data_ptr() if smooth == 1 else None,
-                           out.data_ptr(), B, H, W, smooth, *extra, _COS4,
-                           _SIN4, stream)
-    check(err, f"{name} kernel")
+    source, argtypes = _ENTRIES[kernel]
+    launch(kernel, entry(source, "wb_" + kernel, argtypes), planes.device,
+           planes.data_ptr(), mask.data_ptr() if smooth == 1 else None,
+           out.data_ptr(), B, H, W, smooth, *extra, _COS4, _SIN4)
     return out
 
 
@@ -140,12 +117,9 @@ def grad_hist(planes: torch.Tensor, mask: Optional[torch.Tensor],
     """(B, 4, H, W) float32 channel canvas of (B, 2, 2, H, W) uint8 planes.
     ``mask`` (H, W) uint8 is the smooth interior mask (``smooth == 1``)."""
     _check(planes, mask, smooth)
-    if planes.device.type == "cpu":
+    if not on_card(planes, "grad_hist"):
         return grad_hist_plain(planes, mask, smooth)
-    global grad_hist_launches
-    out = _launch("wb_grad_hist", planes, mask, smooth, torch.float32)
-    grad_hist_launches += 1
-    return out
+    return _launch("grad_hist", planes, mask, smooth, torch.float32)
 
 
 def grad_hist_float(planes: torch.Tensor, mask: Optional[torch.Tensor],
@@ -155,14 +129,11 @@ def grad_hist_float(planes: torch.Tensor, mask: Optional[torch.Tensor],
     (B, 2, 2, H, W) float32 planes, into ``out`` when given (every element
     of it is written)."""
     _check(planes, mask, smooth, (torch.float32,))
-    if planes.device.type == "cpu":
+    if not on_card(planes, "grad_hist"):
         res = grad_hist_float_plain(planes, mask, smooth)
         return res if out is None else out.copy_(res)
-    global grad_hist_float_launches
-    out = _launch("wb_grad_hist_float", planes, mask, smooth, torch.float32,
-                  out=out)
-    grad_hist_float_launches += 1
-    return out
+    return _launch("grad_hist_float", planes, mask, smooth, torch.float32,
+                   out=out)
 
 
 def grad_hist_fast(planes: torch.Tensor, mask: Optional[torch.Tensor],
@@ -170,13 +141,10 @@ def grad_hist_fast(planes: torch.Tensor, mask: Optional[torch.Tensor],
     """(B, 4, H, W) bfloat16 channel canvas of fast serving mode (B2f) from
     (B, 2, 2, H, W) uint8, bfloat16 or float32 planes."""
     _check(planes, mask, smooth, _FAST_TYPES)
-    if planes.device.type == "cpu":
+    if not on_card(planes, "grad_hist"):
         return grad_hist_fast_plain(planes, mask, smooth)
-    global grad_hist_fast_launches
-    out = _launch("wb_grad_hist_fast", planes, mask, smooth, torch.bfloat16,
-                  _FAST_TYPES[planes.dtype])
-    grad_hist_fast_launches += 1
-    return out
+    return _launch("grad_hist_fast", planes, mask, smooth, torch.bfloat16,
+                   _FAST_TYPES[planes.dtype])
 
 
 def _shift(p: torch.Tensor, dr: int, dc: int) -> torch.Tensor:

@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .._build import check, load_library
+from .._build import entry, launch, on_card
 from .channels import _shift
 
 __all__ = ["RESPONSES", "MAX_CHANNELS", "response_codes", "fpga_channels",
@@ -50,8 +50,10 @@ RESPONSES = {"grad_hist_4_u1": (0, 1, 2, 3), "grad_mag_u1": (4,)}
 #: most channels one launch computes (the kernel's code table)
 MAX_CHANNELS = 16
 
-#: kernel launches made by :func:`fpga_channels`
-fpga_launches = 0
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+#: planes, ring, interior, out, B, H, W, smooth, codes, n codes, stream
+_ARGS = (_VP, _VP, _VP, _VP, _CI, _CI, _CI, _CI, ctypes.POINTER(_CI), _CI,
+         _VP)
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,29 +106,15 @@ def fpga_channels(planes: torch.Tensor, ring: torch.Tensor,
     (H, W, ``smooth == 1`` only) are uint8 masks."""
     codes = response_codes(kind)
     _check(planes, ring, interior, smooth)
-    if planes.device.type == "cpu":
+    if not on_card(planes, "fpga_channels"):
         return fpga_channels_plain(planes, ring, interior, kind, smooth)
-    if planes.device.type != "cuda":
-        raise ValueError(f"fpga_channels: unsupported device {planes.device}")
-    global fpga_launches
     B, _, _, H, W = planes.shape
     out = torch.empty((B, len(codes), H, W), dtype=torch.float32,
                       device=planes.device)
-    lib = load_library("fpga")
-    fn = lib.wb_fpga
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    with torch.cuda.device(planes.device):
-        err = fn(planes.data_ptr(), ring.data_ptr(),
-                 interior.data_ptr() if smooth == 1 else None, out.data_ptr(),
-                 B, H, W, smooth, (ctypes.c_int * len(codes))(*codes),
-                 len(codes), stream)
-    check(err, "fpga kernel")
-    fpga_launches += 1
+    launch("fpga", entry("fpga", "wb_fpga", _ARGS), planes.device,
+           planes.data_ptr(), ring.data_ptr(),
+           interior.data_ptr() if smooth == 1 else None, out.data_ptr(), B, H,
+           W, smooth, (_CI * len(codes))(*codes), len(codes))
     return out
 
 

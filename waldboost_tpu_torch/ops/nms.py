@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .._build import check, load_library
+from .._build import entry, launch, on_card
 from ..profiling import span, tracing
 
 __all__ = ["extract_detections", "extract_detections_masked",
@@ -37,10 +37,6 @@ __all__ = ["extract_detections", "extract_detections_masked",
            "complete_count", "origin_boxes", "topk_detections",
            "iou_matrix_device", "nms", "nms_plain", "nms_device"]
 
-#: kernel launches made by :func:`topk_masked` (S2), from every caller
-compact_launches = 0
-#: kernel launches made by :func:`nms` (S3), from every caller
-nms_launches = 0
 #: most keys one block of S2 sorts (``kRun`` in csrc/compact.cu); a row
 #: with more sorts runs of this many and merges them, in a (B, k) scratch
 #: the wrapper allocates when k exceeds it
@@ -162,6 +158,13 @@ def extract_detections_rowwise(hs: torch.Tensor, alive: torch.Tensor,
     return rects, scores, valid, count
 
 
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: values, alive, B, n, k, scores, idx, present, ws, ws words, runs, stream
+_TOPK_ARGS = (_VP, _VP, _CI, _CL, _CI, _VP, _VP, _VP, _VP, _CL, _VP, _VP)
+#: rects, scores, valid, B, K, thr, keep, stream
+_NMS_ARGS = (_VP, _VP, _VP, _CI, _CI, ctypes.c_float, _VP, _VP)
+
+
 def _topk_args(values: torch.Tensor, k: int, alive, what: str):
     """``(batched, flat, mask)``: ``values`` (and ``alive``) as contiguous
     (B, N) rows, the first dimension the batch unless ``values`` is 1-D."""
@@ -205,11 +208,8 @@ def topk_masked(values: torch.Tensor, k: int,
     any map (non-finite values of either sign and NaN rank as -inf)."""
     what = "topk_masked"
     batched, flat, mask = _topk_args(values, k, alive, what)
-    if flat.device.type == "cpu":
+    if not on_card(flat, what):
         return topk_masked_plain(values, k, alive)
-    if flat.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {flat.device}")
-    global compact_launches
     B, n = flat.shape
     k = int(k)
     dev = flat.device
@@ -220,35 +220,16 @@ def topk_masked(values: torch.Tensor, k: int,
             dim=1, dtype=torch.int32)
         return _unbatch(batched, scores, idx, present)
     present = torch.empty(B, dtype=torch.int32, device=dev)
-    lib = _topk_library()
-    ws = torch.empty(int(lib.wb_topk_workspace(B, n)), dtype=torch.int32,
-                     device=dev)
+    words = entry("compact", "wb_topk_workspace", (_CI, _CL), _CL)(B, n)
+    ws = torch.empty(int(words), dtype=torch.int32, device=dev)
     runs = torch.empty((B, k), dtype=torch.int64, device=dev) \
         if k > TOPK_RUN else None
-    with torch.cuda.device(dev):
-        check(lib.wb_topk(flat.data_ptr(),
-                          None if mask is None else mask.data_ptr(), B, n, k,
-                          scores.data_ptr(), idx.data_ptr(),
-                          present.data_ptr(), ws.data_ptr(), ws.numel(),
-                          None if runs is None else runs.data_ptr(),
-                          torch.cuda.current_stream(dev).cuda_stream),
-              "wb_topk kernel")
-    compact_launches += 1
+    launch("compact", entry("compact", "wb_topk", _TOPK_ARGS), dev,
+           flat.data_ptr(), None if mask is None else mask.data_ptr(), B, n,
+           k, scores.data_ptr(), idx.data_ptr(), present.data_ptr(),
+           ws.data_ptr(), ws.numel(),
+           None if runs is None else runs.data_ptr())
     return _unbatch(batched, scores, idx, present)
-
-
-def _topk_library():
-    lib = load_library("compact")
-    if lib.wb_topk.argtypes is None:
-        _VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.wb_topk_workspace.argtypes = [_CI, _CL]
-        lib.wb_topk_workspace.restype = _CL
-        # values, alive, B, n, k, scores, idx, present, ws, ws words,
-        # runs, stream
-        lib.wb_topk.argtypes = [_VP, _VP, _CI, _CL, _CI, _VP, _VP, _VP, _VP,
-                                _CL, _VP, _VP]
-        lib.wb_topk.restype = _CI
-    return lib
 
 
 def topk_masked_plain(values: torch.Tensor, k: int,
@@ -344,10 +325,8 @@ def nms(rects: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     :func:`nms_plain` on a CPU tensor, which takes any dtypes the loop
     takes.  The two agree bitwise on every input on which the plain loop
     ends."""
-    if scores.device.type == "cpu":
+    if not on_card(scores, "nms"):
         return nms_plain(rects, scores, valid, iou_threshold)
-    if scores.device.type != "cuda":
-        raise ValueError(f"nms: unsupported device {scores.device}")
     if scores.dim() != 2 or rects.shape != (*scores.shape, 4) \
             or valid.shape != scores.shape:
         raise ValueError(f"nms: rects {tuple(rects.shape)}, scores "
@@ -359,33 +338,16 @@ def nms(rects: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         raise ValueError("nms: rects and scores must be float32, valid bool")
     if rects.device != scores.device or valid.device != scores.device:
         raise ValueError("nms: rects, scores and valid on different devices")
-    global nms_launches
     B, K = scores.shape
     dev = scores.device
     keep = torch.empty((B, K), dtype=torch.bool, device=dev)
     if B == 0 or K == 0:
         return keep
     rects, scores, valid = (t.contiguous() for t in (rects, scores, valid))
-    lib = _nms_library()
-    with torch.cuda.device(dev):
-        check(lib.wb_nms(rects.data_ptr(), scores.data_ptr(),
-                         valid.data_ptr(), B, K, float(iou_threshold),
-                         keep.data_ptr(),
-                         torch.cuda.current_stream(dev).cuda_stream),
-              "wb_nms kernel")
-    nms_launches += 1
+    launch("nms", entry("nms", "wb_nms", _NMS_ARGS), dev, rects.data_ptr(),
+           scores.data_ptr(), valid.data_ptr(), B, K, float(iou_threshold),
+           keep.data_ptr())
     return keep
-
-
-def _nms_library():
-    lib = load_library("nms")
-    if lib.wb_nms.argtypes is None:
-        _VP, _CI = ctypes.c_void_p, ctypes.c_int
-        # rects, scores, valid, B, K, thr, keep, stream
-        lib.wb_nms.argtypes = [_VP, _VP, _VP, _CI, _CI, ctypes.c_float, _VP,
-                               _VP]
-        lib.wb_nms.restype = _CI
-    return lib
 
 
 def nms_plain(rects: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,

@@ -4,9 +4,10 @@ The canvas's first step: octave 0 of each (H, W) frame is the frame,
 octave k + 1 the 2x2 average pool of octave k (an odd last row or column
 dropped), and every octave of a frame is flattened and concatenated into
 one row of the (B, S) octave buffer that the plane builds read
-(``ops/planes.py::octave_buffer``).  uint8 frames take the uint8
-reference's wrapped arithmetic (``channels.py::octave_chain``), float32
-frames the float32 chain (``channels.py::octave_chain_f32``).
+(``ops/planes.py::octave_buffer``).  Each octave is ``ops/image.py::
+avg_pool_2`` of the one before: uint8 frames take the uint8 reference's
+wrapped arithmetic, float32 frames the float32 chain
+(``channels.py::level_octaves``).
 
 :func:`octaves` launches kernel S4 (``csrc/octaves.cu``) on a CUDA tensor:
 one launch for the batch up to :data:`LAUNCH_LEVELS` octaves, one more
@@ -24,18 +25,16 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from .._build import check, load_library
-from ..channels import octave_chain, octave_chain_f32
+from .._build import entry, launch, on_card
+from ..channels import level_octaves
 from .planes import octave_buffer
 
 __all__ = ["LAUNCH_LEVELS", "octave_sizes", "octaves", "octaves_plain"]
 
-#: kernel launches made by :func:`octaves` (S4), from every caller
-octaves_launches = 0
 #: octaves one launch of S4 writes (``kLevels`` in csrc/octaves.cu): the
 #: 64 rows of a block's first octave halve six times
 LAUNCH_LEVELS = 7
-_CHAINS = {torch.uint8: octave_chain, torch.float32: octave_chain_f32}
+_DTYPES = (torch.uint8, torch.float32)
 
 
 def octave_sizes(h: int, w: int, n_octaves: int) -> List[Tuple[int, int]]:
@@ -46,7 +45,7 @@ def octave_sizes(h: int, w: int, n_octaves: int) -> List[Tuple[int, int]]:
 
 def _check(images: torch.Tensor, n_octaves: int,
            out: Optional[torch.Tensor]) -> None:
-    if not isinstance(images, torch.Tensor) or images.dtype not in _CHAINS \
+    if not isinstance(images, torch.Tensor) or images.dtype not in _DTYPES \
             or images.dim() != 3:
         raise ValueError("octaves: images must be a (B, H, W) uint8 or "
                          "float32 tensor")
@@ -70,10 +69,14 @@ def octaves_plain(images: torch.Tensor, n_octaves: int) -> torch.Tensor:
     """Plain-torch version of :func:`octaves`: the octave chain of the
     frames' dtype, flattened and concatenated."""
     _check(images, n_octaves, None)
-    return octave_buffer(_CHAINS[images.dtype](images, n_octaves))
+    return octave_buffer(level_octaves(images, n_octaves))
 
 
 _VP, _CI, _CLL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: in, in_frame, out, out_frame, off, h, w, n_levels, first, batch,
+#: is_float, stream
+_ARGS = (_VP, _CLL, _VP, _CLL, ctypes.POINTER(_CLL), ctypes.POINTER(_CI),
+         ctypes.POINTER(_CI), _CI, _CI, _CI, _CI, _VP)
 
 
 @functools.lru_cache(maxsize=64)
@@ -104,18 +107,6 @@ def _launch_plan(h: int, w: int, n_octaves: int):
     return offs[-1], tuple(launches)
 
 
-def _entry():
-    fn = load_library("octaves").wb_octaves
-    if fn.argtypes is None:
-        # in, in_frame, out, out_frame, off, h, w, n_levels, first, batch,
-        # is_float, stream
-        fn.argtypes = [_VP, _CLL, _VP, _CLL, ctypes.POINTER(_CLL),
-                       ctypes.POINTER(_CI), ctypes.POINTER(_CI), _CI, _CI,
-                       _CI, _CI, _VP]
-        fn.restype = _CI
-    return fn
-
-
 def octaves(images: torch.Tensor, n_octaves: int,
             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, S) octave buffer of a contiguous (B, H, W) uint8 or float32
@@ -127,30 +118,23 @@ def octaves(images: torch.Tensor, n_octaves: int,
     ValueError on another dtype, rank or device, on a non-contiguous
     tensor and on an ``out`` of the wrong kind."""
     _check(images, n_octaves, out)
-    if images.device.type == "cpu":
+    if not on_card(images, "octaves"):
         res = octaves_plain(images, n_octaves)
         return res if out is None else out.copy_(res)
-    if images.device.type != "cuda":
-        raise ValueError(f"octaves: unsupported device {images.device}")
-    global octaves_launches
     B, H, W = images.shape
-    S, launches = _launch_plan(H, W, n_octaves)
+    S, plan = _launch_plan(H, W, n_octaves)
     dev = images.device
     if out is None:
         out = torch.empty((B, S), dtype=images.dtype, device=dev)
-    if B == 0 or not launches:
+    if B == 0 or not plan:
         return out
     is_float = int(images.dtype == torch.float32)
     base, size = out.data_ptr(), images.element_size()
-    entry = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for start, off, hs, ws, n in launches:
-            # the first launch reads the frames, a later one the buffer
-            src, frame = (images.data_ptr(), H * W) if start == 0 \
-                else (base + start * size, S)
-            check(entry(src, frame, base, S, off, hs, ws, n,
-                        int(start > 0), B, is_float, stream),
-                  "octaves kernel")
-            octaves_launches += 1
+    fn = entry("octaves", "wb_octaves", _ARGS)
+    for start, off, hs, ws, n in plan:
+        # the first launch reads the frames, a later one the buffer
+        src, frame = (images.data_ptr(), H * W) if start == 0 \
+            else (base + start * size, S)
+        launch("octaves", fn, dev, src, frame, base, S, off, hs, ws, n,
+               int(start > 0), B, is_float)
     return out

@@ -27,15 +27,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .._build import check, load_library
+from .._build import entry, launch, on_card
 from ..polyphase import META_COLS, FloatPlaneTables, PlaneTables
 
 __all__ = ["PlaneOperands", "octave_buffer", "planes", "planes_plain",
            "FloatPlaneOperands", "planes_float", "planes_float_fast"]
-
-#: kernel launches made by :func:`planes`
-planes_launches = 0
-
 
 @dataclasses.dataclass(frozen=True)
 class PlaneOperands:
@@ -93,17 +89,10 @@ def _check(octs: torch.Tensor, ops: PlaneOperands,
 
 
 _VP, _CI = ctypes.c_void_p, ctypes.c_int
-
-
-def _entry():
-    fn = load_library("planes").wb_planes
-    if fn.argtypes is None:
-        # octs, oct_stride, tiles, n_tiles, pieces, rtap, ctap, planes,
-        # batch, PH, PW, tile rows, tile cols, stream
-        fn.argtypes = [_VP, ctypes.c_longlong, _VP, _CI, _VP, _VP, _VP, _VP,
-                       _CI, _CI, _CI, _CI, _CI, _VP]
-        fn.restype = ctypes.c_int
-    return fn
+#: octs, oct_stride, tiles, n_tiles, pieces, rtap, ctap, planes, batch, PH,
+#: PW, tile rows, tile cols, stream
+_ARGS = (_VP, ctypes.c_longlong, _VP, _CI, _VP, _VP, _VP, _VP, _CI, _CI, _CI,
+         _CI, _CI, _VP)
 
 
 def planes(octs: torch.Tensor, ops: PlaneOperands,
@@ -111,26 +100,18 @@ def planes(octs: torch.Tensor, ops: PlaneOperands,
     """(B, 2, 2, PH, PW) uint8 polyphase planes of every pyramid level,
     into ``out`` when given (every byte of it is written)."""
     _check(octs, ops, out)
-    if octs.device.type == "cpu":
+    if not on_card(octs, "planes"):
         res = planes_plain(octs, ops)
         return res if out is None else out.copy_(res)
-    if octs.device.type != "cuda":
-        raise ValueError(f"planes: unsupported device {octs.device}")
-    global planes_launches
     B = octs.shape[0]
     PH, PW = ops.host.plane_hw
     if out is None:
         out = torch.empty((B, 2, 2, PH, PW), dtype=torch.uint8,
                           device=octs.device)
-    stream = torch.cuda.current_stream(octs.device).cuda_stream
-    with torch.cuda.device(octs.device):
-        err = _entry()(octs.data_ptr(), octs.shape[1],
-                       ops.tiles.data_ptr(), ops.tiles.shape[0],
-                       ops.pieces.data_ptr(), ops.rtap.data_ptr(),
-                       ops.ctap.data_ptr(), out.data_ptr(), B, PH, PW,
-                       *ops.host.tile_hw, stream)
-    check(err, "planes kernel")
-    planes_launches += 1
+    launch("planes", entry("planes", "wb_planes", _ARGS), octs.device,
+           octs.data_ptr(), octs.shape[1], ops.tiles.data_ptr(),
+           ops.tiles.shape[0], ops.pieces.data_ptr(), ops.rtap.data_ptr(),
+           ops.ctap.data_ptr(), out.data_ptr(), B, PH, PW, *ops.host.tile_hw)
     return out
 
 

@@ -8,11 +8,12 @@ path, and its two-phase and row-wise options),
 and ``make_bucket_detector_boxes`` (any frame size) come from
 :mod:`.bucket`.  The main path for a (B, H, W) uint8 batch:
 
-    canvas    octaves, planes (B1), channel canvas (B2 grad_hist, B5 FPGA)
-              (canvas.py)
+    canvas    octaves (S4), planes (B1), channel canvas (B2 grad_hist, B5
+              FPGA) (canvas.py)
     cascade   frozen cascade, masked score map (kernel B3, ops/cascade_static.py)
     extract   exact top-k (kernel S2, ops/nms.py::topk_masked), boxes and
-              greedy NMS (ops/nms.py, plain torch)
+              greedy NMS (ops/nms.py::nms: kernel S3 on the card,
+              nms_plain on the CPU)
 
 With ``two_phase=True`` (:class:`TwoPhaseDetector`) the cascade step is
 kernel B4 over the first ``prefix`` stages, the exact compaction of its
