@@ -70,14 +70,9 @@ def build(tmp: str) -> ctypes.CDLL:
         f.write(stamped_source())
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
                     "-o", lib, src], check=True, capture_output=True)
-    c = ctypes.CDLL(lib)
-    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    c.wb_topk_workspace.argtypes = [ci, cl]
-    c.wb_topk_workspace.restype = cl
-    c.wb_topk.argtypes = [vp, vp, ci, cl, ci, vp, vp, vp, vp, cl, vp, vp]
-    c.wb_topk.restype = ci
-    c.wb_stamps.argtypes = [vp]
-    c.wb_stamps.restype = ci
+    c = ctypes.CDLL(lib)  # _build.entry declares wb_topk's signature
+    c.wb_stamps.argtypes = [ctypes.c_void_p]
+    c.wb_stamps.restype = ctypes.c_int
     return c
 
 

@@ -931,6 +931,53 @@ def test_topk_matches_plain_on_card(cuda, size, kind):
         assert bad == 0, (size, kind, k)
 
 
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("kind", ["ties", "all_inf", "all_finite",
+                                  "around_k", "far_above",
+                                  "signed_zeros_nonfinite"])
+def test_extract_matches_plain_on_card(cuda, kind, batch):
+    """The dense extraction on the card (ops/nms.py::extract_detections:
+    S2 with its box epilogue, one launch counted under compact/boxes)
+    bitwise the plain chain on the CPU (topk_masked_plain, the count's
+    clamp, origin_boxes): rects, scores, valid, count and the origins, on
+    chip_smoke.topk_maps over the flagship's VGA grid and level tables, k
+    = 1, 1024, 4096 (sorted in several runs) and the whole grid; the
+    counts given are the maps' survivors and off by 1, -1 and 5000; some
+    taken origins lie outside every level (level_id -1)."""
+    from chip_smoke import topk_maps
+    from waldboost_tpu_torch.ops.nms import extract_detections
+    det, _ = wt.make_batched_detector_boxes(wt.load(FLAGSHIP, device="cpu"),
+                                            (480, 640), device="cpu")
+    g = det.grid
+    gu, gv = g.level_id.shape
+    tables = (g.level_id, g.offsets, g.inv_scales)
+    off = np.array([0, 1, -1, 5000] * 2, np.int32)[:batch]
+    outside = 0
+    for k in (1, 1024, 4096, gu * gv):
+        hs, alive = topk_maps(kind, batch, gu * gv, k, 23)
+        masked = np.where(alive, hs, -np.inf).astype(np.float32)
+        count = torch.from_numpy(np.isfinite(masked).sum(1).astype(np.int32)
+                                 + off)
+        masked = torch.from_numpy(masked).reshape(batch, gu, gv)
+        want = extract_detections(masked, count, *tables, g.window, k,
+                                  with_coords=True)
+        before = launches["compact/boxes"]
+        got = extract_detections(masked.to(cuda), count.to(cuda),
+                                 *(t.to(cuda) for t in tables), g.window, k,
+                                 with_coords=True)
+        assert launches["compact/boxes"] == before + 1
+        for name, a, b in zip(("rects", "scores", "valid", "count", "rs",
+                               "cs"), got, want):
+            a = a.cpu()
+            assert a.dtype == b.dtype and a.shape == b.shape, (name, k)
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), (name, k)
+        outside += int((g.level_id[want[4], want[5]] == -1)[want[2]].sum())
+    if kind != "all_inf" and not (kind == "ties" and batch == 1):
+        assert outside > 0
+
+
 @pytest.mark.parametrize("kind", ["far_above", "ties"])
 def test_topk_multi_block_sort_on_card(cuda, kind):
     """S2 with k = 65536 on a 4K map, so that runs of TOPK_RUN keys are

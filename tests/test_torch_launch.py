@@ -6,18 +6,21 @@ On the CPU each of the 13 kernels' wrappers gives its plain version's
 output bit for bit and counts no launch, and a tensor on a device that is
 neither the CPU nor CUDA (``meta``) raises a ValueError naming the
 operation.  On a card (``-m cuda``) one dense VGA call counts exactly the
-launches of the serving path:
+launches of the serving path, and its extraction puts one kernel (S2 with
+its box epilogue) and its memset on the card:
 
     python -m pytest tests/test_torch_launch.py -m cuda
 """
 
 import collections
 import dataclasses
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import waldboost_tpu_torch as wt
 from waldboost_tpu_torch import packing, polyphase
@@ -217,5 +220,46 @@ def test_dense_vga_call_counts_the_path_launches(cuda):
     before = collections.Counter(launches)
     fn(images)
     torch.cuda.synchronize()
-    assert launches - before == collections.Counter(
-        octaves=1, planes=1, grad_hist=1, cascade=1, compact=1, nms=1)
+    assert launches - before == collections.Counter({
+        "octaves": 1, "planes": 1, "grad_hist": 1, "cascade": 1,
+        "compact": 1, "compact/boxes": 1, "nms": 1})
+
+
+@pytest.mark.cuda
+def test_dense_extraction_is_one_launch(cuda, tmp_path):
+    """The dense VGA call's ``wb.extract`` span puts S2 (its box epilogue
+    writing every output) and its workspace memset on the card, and no
+    other device operation; a compaction (``compact_survivors``) launches
+    S2 without the epilogue."""
+    model = wt.load(FLAGSHIP, device=cuda)
+    fn, _ = wt.make_batched_detector_boxes(model, (480, 640), k=1024,
+                                           nms_iou=0.5, device=cuda)
+    images = torch.from_numpy(np.random.RandomState(26).randint(
+        0, 256, (8, 480, 640)).astype(np.uint8)).to(cuda)
+    fn(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(images)
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    span, = [e for e in ev if e.get("cat") == "user_annotation"
+             and e["name"] == "wb.extract"]
+    t0, t1 = span["ts"], span["ts"] + span["dur"]
+    corr = {e["args"]["correlation"] for e in ev
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and t0 <= e["ts"] <= t1 and "correlation" in e.get("args", {})}
+    owned = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
+                                               "gpu_memset")
+             and e.get("args", {}).get("correlation") in corr]
+    assert sorted(e["cat"] for e in owned) == ["gpu_memset", "kernel"], owned
+    assert "topk_kernel" in [e for e in owned if e["cat"] == "kernel"][0][
+        "name"]
+    masked = fn.cascade(fn.canvas(images))[0]
+    before = collections.Counter(launches)
+    tnms.compact_survivors(masked, None, 512)
+    torch.cuda.synchronize()
+    assert launches - before == collections.Counter(compact=1)

@@ -206,3 +206,47 @@ def test_topk_shapes_and_checks():
         tnms.topk_masked(t, 3, alive=torch.from_numpy(alive[:2].copy()))
     with pytest.raises(ValueError):
         tnms.topk_masked(t, 3, alive=torch.from_numpy(alive.copy()).int())
+
+
+def _box_tables(bad):
+    """The arguments of ``ops/nms.py::_box_tables`` for the (B, N) rows of
+    :func:`level_tables`' grid, with the table ``bad`` names made wrong
+    (``None``: none)."""
+    level_id, offsets, inv_scales, _ = level_tables()
+    t = dict(count=torch.zeros(B, dtype=torch.int32),
+             level_id=torch.from_numpy(level_id).long(),
+             offsets=torch.from_numpy(offsets).long(),
+             inv_scales=torch.from_numpy(inv_scales))
+    if bad is not None:
+        name, how = bad.split("/")
+        t[name] = {"int64": lambda x: x.long(),
+                   "int32": lambda x: x.int(),
+                   "float64": lambda x: x.double(),
+                   "short": lambda x: x[:-1],
+                   "narrow": lambda x: x[..., :-1],
+                   "wide": lambda x: torch.cat([x, x[:, :1]], 1),
+                   "empty": lambda x: x[:0],
+                   "meta": lambda x: x.to("meta")}[how](t[name])
+    flat = torch.zeros((B, N), dtype=torch.float32)
+    return flat, t["count"], t["level_id"], t["offsets"], t["inv_scales"]
+
+
+@pytest.mark.parametrize("bad", [
+    "count/int64", "count/short", "count/meta", "level_id/int32",
+    "level_id/narrow", "level_id/meta", "offsets/int32", "offsets/wide",
+    "offsets/empty", "offsets/meta", "inv_scales/float64",
+    "inv_scales/short", "inv_scales/meta"])
+def test_extract_box_tables_refused(bad):
+    """What the card's extraction refuses before its launch
+    (``_box_tables``, checked on the host): each table of another dtype,
+    shape or device than the map's rows ask for, a ValueError naming
+    it (the levels L are the offsets' rows, at least one); right tables
+    come back unchanged."""
+    name = bad.split("/")[0]
+    with pytest.raises(ValueError, match=f"^extract_detections: {name} "
+                                         "must be a "):
+        tnms._box_tables(*_box_tables(bad), GV)
+    flat, *want = _box_tables(None)
+    got = tnms._box_tables(flat, *want, GV)
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and torch.equal(g, w)

@@ -51,7 +51,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 #: ``cascade_fast``, ``cascade_response``, ``cascade_generic``,
 #: ``cascade_suffix``, ``compact``, ``nms``, ``octaves``), from every
 #: caller; B3f's launches also by how its front read the canvas
-#: (``cascade_fast/tma``, ``cascade_fast/global``, ``cascade_fast/none``)
+#: (``cascade_fast/tma``, ``cascade_fast/global``, ``cascade_fast/none``),
+#: and S2's with the box epilogue of the dense extraction also as
+#: ``compact/boxes``
 launches: collections.Counter = collections.Counter()
 
 

@@ -7,7 +7,12 @@
 //           descending, then flat index ascending; after them, when fewer
 //           than k are finite, the non-finite entries by index.  Outputs
 //           (B, k) scores and int64 indices and the (B,) count of entries
-//           present (finite, or alive where a mask is given).
+//           present (finite, or alive where a mask is given).  With the
+//           box tables of a window grid (the dense extraction,
+//           ops/nms.py::extract_detections) it also writes each slot's
+//           validity and image-space box and each row's clamped survivor
+//           count, where the slot's index becomes final: the extraction
+//           is this one launch.
 //
 // Replaces the XLA ops jax.lax.approx_max_k(masked, cap,
 // recall_target=1.0) of two-phase serving
@@ -56,6 +61,20 @@
 // The count check of two-phase serving happens on the device: the
 // caller compares the count present with its own.
 //
+// Box epilogue (with the tables): `emit_box` writes a final slot's valid
+// = isfinite(score) and the XYXY box of its origin (idx / gv, idx % gv)
+// through its level (clamped at 0): x1 = (float)(col - off_x), y1
+// likewise, x2 = x1 + n, y2 = y1 + m, each times the level's inverse
+// scale, every operation a float32 rounding of its own
+// (ops/nms.py::origin_boxes bitwise); zeros where not valid.  The sort's
+// `put` calls it as it writes a slot; the ties, final since the write
+// pass, get theirs in phase 4 from the block of their row's first run
+// (in the write pass's unrolled loop the call cost registers and
+// spills).  The thread that resolves a row writes its count, or -1 above
+// k.  No barrier is added.  The epilogue is a template argument of the
+// kernel and its tables a parameter of their own: the top-k alone (the
+// compaction) runs the code it ran without the epilogue.
+//
 // Bound on the H100: the map read once (5 bytes an entry with a mask)
 // and the outputs written once.  At batch 8 and VGA size a call is a few
 // microseconds of work, so the design is one launch and few barriers.
@@ -64,7 +83,7 @@
 #include <cstdint>
 #include <map>
 #include <mutex>
-#include <utility>
+#include <tuple>
 
 #include <cuda_runtime.h>
 
@@ -113,6 +132,21 @@ struct Args {
   int vec;                    // 1: the rows take 16-byte vector loads
 };
 
+// The box epilogue's tables and outputs: a second kernel parameter, so
+// that Args, and the top-k's code without the epilogue, stay as they were
+// (the fields in Args cost the kernel registers and spills).
+struct Boxes {
+  const long long* level_id;  // (n,) level of each origin, -1 outside
+  const long long* offsets;   // (L, 2) canvas (y, x) of each level
+  const float* inv_scales;    // (L,)
+  const int* count;           // (B,) survivor counts
+  int gv;                     // grid width: origin e is (e / gv, e % gv)
+  float win_m, win_n;         // the window's height and width
+  float* rects;               // (B, k, 4) XYXY
+  uint8_t* valid;             // (B, k) bool
+  int* count_out;             // (B,) count where <= k, else -1
+};
+
 __device__ __forceinline__ int* row_state(const Args& a, int b) {
   return a.ws + kGlobal + b * kRowInts;
 }
@@ -141,6 +175,27 @@ __device__ __forceinline__ float score_of(const Args& a, int b, int e) {
   const size_t i = static_cast<size_t>(b) * a.n + e;
   if (a.alive && __ldg(a.alive + i) == 0) return -INFINITY;
   return __ldg(a.v + i);
+}
+
+// Slot `at` (b * k + pos), final, holds entry e of score s: its validity
+// and image-space box, as the plain chain computes them.
+__device__ __forceinline__ void emit_box(const Boxes& x, size_t at, int e,
+                                         float s) {
+  const bool ok = isfinite(s);
+  float4 box = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (ok) {
+    const int row = e / x.gv, col = e - row * x.gv;
+    const long long lid = max(__ldg(x.level_id + e), 0LL);
+    const float x1 =
+        static_cast<float>(col - __ldg(x.offsets + 2 * lid + 1));
+    const float y1 = static_cast<float>(row - __ldg(x.offsets + 2 * lid));
+    const float inv = __ldg(x.inv_scales + lid);
+    box = make_float4(__fmul_rn(x1, inv), __fmul_rn(y1, inv),
+                      __fmul_rn(__fadd_rn(x1, x.win_n), inv),
+                      __fmul_rn(__fadd_rn(y1, x.win_m), inv));
+  }
+  x.valid[at] = ok;
+  reinterpret_cast<float4*>(x.rects)[at] = box;
 }
 
 // Block-wide exclusive sums of two values at once (in place), and their
@@ -642,11 +697,15 @@ __device__ void write_pass(const Args& a, int* s_tab, int* s_warp) {
   }
 }
 
-__device__ __forceinline__ void put(const Args& a, int b, int pos,
-                                    unsigned long long key) {
+template <bool kBoxes>
+__device__ __forceinline__ void put(const Args& a, const Boxes& x, int b,
+                                    int pos, unsigned long long key) {
   const int e = static_cast<int>(key & 0xffffffffu);
-  a.index[static_cast<size_t>(b) * a.k + pos] = e;
-  a.scores[static_cast<size_t>(b) * a.k + pos] = score_of(a, b, e);
+  const size_t at = static_cast<size_t>(b) * a.k + pos;
+  a.index[at] = e;
+  const float s = score_of(a, b, e);
+  a.scores[at] = s;
+  if (kBoxes) emit_box(x, at, e, s);
 }
 
 // Sort n <= kRun keys at src ascending: a merge sort in shared memory
@@ -718,7 +777,11 @@ __device__ const unsigned long long* merge_sort(const unsigned long long* src,
   return in;
 }
 
-__global__ void __launch_bounds__(kThreads, 2) topk_kernel(Args a) {
+// kBoxes: with the box epilogue (x set).  Without it the kernel is the
+// top-k alone, its code untouched by the epilogue's.
+template <bool kBoxes>
+__global__ void __launch_bounds__(kThreads, 2) topk_kernel(Args a,
+                                                             Boxes x) {
   extern __shared__ unsigned long long s_dyn[];  // sort keys or histogram
   __shared__ int s_warp[2 * kWarps], s_res[4];
   int* s_hist = reinterpret_cast<int*>(s_dyn);
@@ -730,8 +793,13 @@ __global__ void __launch_bounds__(kThreads, 2) topk_kernel(Args a) {
   // 1. counts and the top digit, then each row's resolution
   digit_pass(a, 0, s_hist, s_warp);
   grid_barrier(count, target);
-  for (int b = blockIdx.x; b < a.batch; b += gridDim.x)
+  for (int b = blockIdx.x; b < a.batch; b += gridDim.x) {
     resolve(a, b, 0, s_warp, s_res);
+    if (kBoxes && threadIdx.x == 0) {
+      const int c = __ldg(x.count + b);
+      x.count_out[b] = c <= a.k ? c : -1;
+    }
+  }
   grid_barrier(count, target);
 
   // 2. rows with more than k finite entries: two more digits, then the
@@ -756,11 +824,20 @@ __global__ void __launch_bounds__(kThreads, 2) topk_kernel(Args a) {
   write_pass(a, s_hist, s_warp);
   grid_barrier(count, target);
 
-  // 4. the sort of each row's n_lt keys: one block a run of kRun
+  // 4. the sort of each row's n_lt keys: one block a run of kRun; with
+  // the box tables, the block of a row's first run also writes the boxes
+  // of its ties, final since the write
   const int runs = a.runs ? (a.k + kRun - 1) / kRun : 1;
   for (int item = blockIdx.x; item < a.batch * runs; item += gridDim.x) {
     const int b = item / runs, run = item % runs;
     const int n = ld(row_state(a, b) + kNLt), lo = run * kRun;
+    if (kBoxes && run == 0) {
+      for (int i = n + threadIdx.x; i < a.k; i += kThreads) {
+        const size_t at = static_cast<size_t>(b) * a.k + i;
+        emit_box(x, at, static_cast<int>(__ldcg(a.index + at)),
+                 __ldcg(a.scores + at));
+      }
+    }
     if (lo >= n) continue;
     const int len = min(kRun, n - lo);
     const unsigned long long* sorted = merge_sort(
@@ -769,7 +846,7 @@ __global__ void __launch_bounds__(kThreads, 2) topk_kernel(Args a) {
         len, s_dyn);
     for (int i = threadIdx.x; i < len; i += kThreads) {
       if (n <= kRun)
-        put(a, b, i, sorted[i]);
+        put<kBoxes>(a, x, b, i, sorted[i]);
       else
         a.runs[static_cast<size_t>(b) * a.k + lo + i] = sorted[i];
     }
@@ -803,28 +880,28 @@ __global__ void __launch_bounds__(kThreads, 2) topk_kernel(Args a) {
       }
       pos += l;
     }
-    put(a, b, pos, key);
+    put<kBoxes>(a, x, b, pos, key);
   }
 }
 
-// Blocks of topk_kernel that fit the card at once for a dynamic
-// shared-memory size: queried once per device and size.
-int resident(int smem) {
+// Blocks of a topk_kernel instantiation that fit the card at once for a
+// dynamic shared-memory size: queried once per device, kernel and size.
+int resident(const void* kernel, int smem) {
   static std::mutex mu;
-  static std::map<std::pair<int, int>, int> fit;
+  static std::map<std::tuple<int, const void*, int>, int> fit;
   int dev = 0;
   cudaGetDevice(&dev);
   const std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_pair(dev, smem);
+  const auto key = std::make_tuple(dev, kernel, smem);
   const auto it = fit.find(key);
   if (it != fit.end()) return it->second;
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(topk_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
   int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topk_kernel,
-                                                kThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                smem);
   return fit[key] = sms * per_sm;
 }
 
@@ -850,14 +927,24 @@ extern "C" long long wb_topk_workspace(int batch, long long n) {
 // mask, is given) the first k entries of its stable descending sort:
 // scores (B, k) float32, index (B, k) int64, present (B,) int32.  ws:
 // wb_topk_workspace words; runs: (B, k) uint64 scratch when k > 2048,
-// else null.  1 <= k <= n < 2^31.
+// else null.  1 <= k <= n < 2^31.  The box epilogue, with level_id not
+// null: level_id (n,) int64 over a grid of width gv, offsets (L, 2)
+// int64, inv_scales (L,) float32, count (B,) int32 and the window (m, n)
+// in; rects (B, k, 4) float32, valid (B, k) bool, count_out (B,) int32
+// out.  With level_id null the other eight are not read.
 extern "C" int wb_topk(const void* v, const void* alive, int batch,
                        long long n, int k, void* scores, void* index,
                        void* present, void* ws, long long ws_words,
-                       void* runs, void* stream) {
+                       void* runs, const void* level_id, const void* offsets,
+                       const void* inv_scales, const void* count, int gv,
+                       float win_m, float win_n, void* rects, void* valid,
+                       void* count_out, void* stream) {
   if (batch < 1 || k < 1 || k > n || n >= (1LL << 31) ||
       ws_words < wb_topk_workspace(batch, n) ||
       (k > kRun) != (runs != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (level_id && (!offsets || !inv_scales || !count || !rects || !valid ||
+                   !count_out || gv < 1 || n % gv != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto on16 = [](const void* p) {
@@ -872,6 +959,12 @@ extern "C" int wb_topk(const void* v, const void* alive, int batch,
                                                stash_at(batch, n)),
          static_cast<unsigned long long*>(runs),
          n % 16 == 0 && on16(v) && (alive == nullptr || on16(alive))};
+  Boxes x{static_cast<const long long*>(level_id),
+          static_cast<const long long*>(offsets),
+          static_cast<const float*>(inv_scales),
+          static_cast<const int*>(count), gv, win_m, win_n,
+          static_cast<float*>(rects), static_cast<uint8_t*>(valid),
+          static_cast<int*>(count_out)};
   const size_t zero = (kGlobal + static_cast<size_t>(batch) *
                                      (kRowInts + 3 * kBins)) * sizeof(int);
   cudaError_t err = cudaMemsetAsync(ws, 0, zero, st);
@@ -885,13 +978,15 @@ extern "C" int wb_topk(const void* v, const void* alive, int batch,
       std::max<long long>(static_cast<long long>(batch) * a.n_tiles,
                           static_cast<long long>(batch) *
                               ((k + kRun - 1) / kRun));
-  const int fit = resident(smem);
+  const void* kernel = level_id
+                           ? reinterpret_cast<const void*>(topk_kernel<true>)
+                           : reinterpret_cast<const void*>(topk_kernel<false>);
+  const int fit = resident(kernel, smem);
   if (fit < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int grid = static_cast<int>(std::min<long long>(fit, items));
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(topk_kernel),
-                                    dim3(grid), dim3(kThreads), params, smem,
-                                    st);
+  void* params[] = {&a, &x};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads),
+                                    params, smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,9 +7,13 @@ exact ``jax.lax.approx_max_k(masked, cap, recall_target=1.0)`` of
 two-phase serving (``waldboost_tpu/parallel/detect.py:759``) and of its
 final ``lax.top_k`` (``:767``).
 
-Every top-k of the port's extractions goes through :func:`topk_masked`:
-kernel S2 (``csrc/compact.cu``, one launch, no host synchronization) on
-a CUDA tensor, :func:`topk_masked_plain` (a stable sort) on a CPU tensor.
+Every top-k of the port's extractions goes through kernel S2
+(``csrc/compact.cu``, one launch, no host synchronization) on a CUDA
+tensor and :func:`topk_masked_plain` (a stable sort) on a CPU tensor:
+:func:`topk_masked` for the compaction and the top-k alone, and
+:func:`extract_detections`, whose boxes, validity and count S2 writes in
+the same launch on the card (:func:`origin_boxes` after the sort on the
+CPU).
 Every greedy NMS goes through :func:`nms`: kernel S3 (``csrc/nms.cu``,
 one launch for the batch, no host read) on a CUDA tensor, the loop
 :func:`nms_plain` on a CPU tensor.
@@ -24,11 +28,11 @@ remaining candidate with ``iou > thr``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from .._build import entry, launch, on_card
+from .._build import entry, launch, launches, on_card
 from ..profiling import span, tracing
 
 __all__ = ["extract_detections", "extract_detections_masked",
@@ -57,18 +61,85 @@ def extract_detections(masked: torch.Tensor, count: torch.Tensor,
     survivor count, or -1 when it exceeds k); ``with_coords`` adds each
     entry's canvas origin ``rs``, ``cs`` (B, k) int64 (in bounds where not
     valid too, so crops at them are safe).
+
+    On a CUDA tensor this is one launch of kernel S2 with its box
+    epilogue (counted under ``compact`` and ``compact/boxes``), and the
+    tables must be as above, ``count`` int32, all on the map's device
+    (ValueError otherwise); on a CPU tensor :func:`topk_masked_plain` and
+    :func:`origin_boxes`, which take what their torch operations take.
+    The two agree bitwise.
     """
     B, gu, gv = masked.shape
     k_eff = min(k, gu * gv)
-    scores, idx, _ = topk_masked(masked.reshape(B, gu * gv), k_eff)
-    valid = torch.isfinite(scores)
-    count = torch.where(count <= k_eff, count, torch.full_like(count, -1))
-    rs = torch.div(idx, gv, rounding_mode="floor")
-    cs = idx % gv
-    rects = origin_boxes(rs, cs, valid, level_id, offsets, inv_scales, window)
+    _, flat, _ = _topk_args(masked, k_eff, None, "topk_masked")
+    extract = _extract_on_card if on_card(flat, "topk_masked") and B \
+        and k_eff else _extract_plain
+    rects, scores, valid, count, idx = extract(
+        flat, count, level_id, offsets, inv_scales, window, k_eff, gv)
     if with_coords:
-        return rects, scores, valid, count, rs, cs
+        return (rects, scores, valid, count,
+                torch.div(idx, gv, rounding_mode="floor"), idx % gv)
     return rects, scores, valid, count
+
+
+def _extract_plain(flat, count, level_id, offsets, inv_scales, window,
+                   k: int, gv: int) -> Tuple[torch.Tensor, ...]:
+    """``(rects, scores, valid, count, idx)`` of
+    :func:`extract_detections` over (B, GU * GV) rows ``flat``: the top-k
+    (:func:`topk_masked`), then the count's clamp and
+    :func:`origin_boxes` in torch operations."""
+    scores, idx, _ = topk_masked(flat, k)
+    valid = torch.isfinite(scores)
+    count = torch.where(count <= k, count, torch.full_like(count, -1))
+    rects = origin_boxes(torch.div(idx, gv, rounding_mode="floor"), idx % gv,
+                         valid, level_id, offsets, inv_scales, window)
+    return rects, scores, valid, count, idx
+
+
+def _box_tables(flat: torch.Tensor, count: torch.Tensor,
+                level_id: torch.Tensor, offsets: torch.Tensor,
+                inv_scales: torch.Tensor, gv: int) -> Tuple[torch.Tensor, ...]:
+    """``(count, level_id, offsets, inv_scales)`` contiguous, for S2's
+    box epilogue over the (B, GU * GV) rows ``flat``; ValueError unless
+    they are (B,) int32, (GU, GV) int64, (L, 2) int64 and (L,) float32
+    with L at least 1, on ``flat``'s device."""
+    B, n = flat.shape
+    n_lev = max(offsets.shape[0] if offsets.dim() == 2 else 0, 1)
+    for name, t, dtype, shape, what in (
+            ("count", count, torch.int32, (B,), f"({B},)"),
+            ("level_id", level_id, torch.int64, (n // gv, gv),
+             f"({n // gv}, {gv})"),
+            ("offsets", offsets, torch.int64, (n_lev, 2), "(L, 2), L >= 1,"),
+            ("inv_scales", inv_scales, torch.float32, (n_lev,), "(L,)")):
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or t.device != flat.device:
+            raise ValueError(f"extract_detections: {name} must be a {what} "
+                             f"{dtype} tensor on the map's device "
+                             f"{flat.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    return tuple(_contiguous(t) for t in (count, level_id, offsets,
+                                          inv_scales))
+
+
+def _extract_on_card(flat, count, level_id, offsets, inv_scales, window,
+                     k: int, gv: int) -> Tuple[torch.Tensor, ...]:
+    """``(rects, scores, valid, count, idx)`` of
+    :func:`extract_detections` over B >= 1 rows ``flat`` on the card, k
+    >= 1: one launch of S2 with its box epilogue."""
+    count, level_id, offsets, inv_scales = _box_tables(
+        flat, count, level_id, offsets, inv_scales, gv)
+    B, dev = flat.shape[0], flat.device
+    rects = torch.empty((B, k, 4), dtype=torch.float32, device=dev)
+    scores = torch.empty((B, k), dtype=torch.float32, device=dev)
+    valid = torch.empty((B, k), dtype=torch.bool, device=dev)
+    count_out = torch.empty(B, dtype=torch.int32, device=dev)
+    idx = torch.empty((B, k), dtype=torch.int64, device=dev)
+    _launch_topk(flat, None, k, scores, idx, None, (
+        level_id.data_ptr(), offsets.data_ptr(), inv_scales.data_ptr(),
+        count.data_ptr(), gv, float(window[0]), float(window[1]),
+        rects.data_ptr(), valid.data_ptr(), count_out.data_ptr()))
+    launches["compact/boxes"] += 1
+    return rects, scores, valid, count_out, idx
 
 
 def extract_detections_masked(masked: torch.Tensor, count,
@@ -158,11 +229,25 @@ def extract_detections_rowwise(hs: torch.Tensor, alive: torch.Tensor,
     return rects, scores, valid, count
 
 
-_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: values, alive, B, n, k, scores, idx, present, ws, ws words, runs, stream
-_TOPK_ARGS = (_VP, _VP, _CI, _CL, _CI, _VP, _VP, _VP, _VP, _CL, _VP, _VP)
+_VP, _CI, _CL, _CF = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
+#: values, alive, B, n, k, scores, idx, present, ws, ws words, runs; the
+#: box epilogue's level_id, offsets, inv_scales, count, gv, window m and
+#: n, rects, valid, count out; stream
+_TOPK_ARGS = (_VP, _VP, _CI, _CL, _CI, _VP, _VP, _VP, _VP, _CL, _VP,
+              _VP, _VP, _VP, _VP, _CI, _CF, _CF, _VP, _VP, _VP, _VP)
+#: the epilogue's arguments when there is none (level_id null)
+_NO_BOXES = (None, None, None, None, 0, 0.0, 0.0, None, None, None)
+#: wb_topk_workspace's int32 words for (B, n), asked once a shape
+_TOPK_WORDS: Dict[Tuple[int, int], int] = {}
 #: rects, scores, valid, B, K, thr, keep, stream
 _NMS_ARGS = (_VP, _VP, _VP, _CI, _CI, ctypes.c_float, _VP, _VP)
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where contiguous (no torch operation), else a
+    contiguous copy."""
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def _topk_args(values: torch.Tensor, k: int, alive, what: str):
@@ -171,8 +256,8 @@ def _topk_args(values: torch.Tensor, k: int, alive, what: str):
     if values.dtype != torch.float32 or values.dim() < 1:
         raise ValueError(f"{what}: the map must be float32")
     batched = values.dim() > 1
-    rows = lambda x: (x.reshape(x.shape[0], -1) if batched
-                      else x.reshape(1, -1)).contiguous()
+    rows = lambda x: _contiguous(x.reshape(x.shape[0], -1) if batched
+                                 else x.reshape(1, -1))
     flat = rows(values)
     mask = None
     if alive is not None:
@@ -220,16 +305,32 @@ def topk_masked(values: torch.Tensor, k: int,
             dim=1, dtype=torch.int32)
         return _unbatch(batched, scores, idx, present)
     present = torch.empty(B, dtype=torch.int32, device=dev)
-    words = entry("compact", "wb_topk_workspace", (_CI, _CL), _CL)(B, n)
-    ws = torch.empty(int(words), dtype=torch.int32, device=dev)
-    runs = torch.empty((B, k), dtype=torch.int64, device=dev) \
-        if k > TOPK_RUN else None
-    launch("compact", entry("compact", "wb_topk", _TOPK_ARGS), dev,
-           flat.data_ptr(), None if mask is None else mask.data_ptr(), B, n,
-           k, scores.data_ptr(), idx.data_ptr(), present.data_ptr(),
-           ws.data_ptr(), ws.numel(),
-           None if runs is None else runs.data_ptr())
+    _launch_topk(flat, mask, k, scores, idx, present)
     return _unbatch(batched, scores, idx, present)
+
+
+def _launch_topk(flat, mask, k: int, scores, idx, present,
+                 boxes=_NO_BOXES) -> None:
+    """Launch S2 over (B, n) rows ``flat`` (``mask`` their alive map or
+    None) into ``scores``, ``idx`` and ``present`` (None: into the
+    scratch), with the box epilogue's arguments of ``_TOPK_ARGS``
+    (``boxes``).  One int32 scratch tensor holds the workspace, the sorted
+    runs when k > TOPK_RUN (on 8 bytes: the workspace's words are even)
+    and the unwanted ``present``."""
+    B, n = flat.shape
+    words = _TOPK_WORDS.get((B, n))
+    if words is None:
+        words = _TOPK_WORDS[B, n] = int(entry(
+            "compact", "wb_topk_workspace", (_CI, _CL), _CL)(B, n))
+    runs = 2 * B * k if k > TOPK_RUN else 0
+    ws = torch.empty(words + runs + (B if present is None else 0),
+                     dtype=torch.int32, device=flat.device)
+    at = ws.data_ptr()
+    launch("compact", entry("compact", "wb_topk", _TOPK_ARGS), flat.device,
+           flat.data_ptr(), None if mask is None else mask.data_ptr(), B, n,
+           k, scores.data_ptr(), idx.data_ptr(),
+           at + 4 * (words + runs) if present is None else present.data_ptr(),
+           at, words, at + 4 * words if runs else None, *boxes)
 
 
 def topk_masked_plain(values: torch.Tensor, k: int,
@@ -279,8 +380,8 @@ def topk_detections(hs: torch.Tensor, alive: torch.Tensor,
     first among equal scores)."""
     masked = torch.where(alive, hs, float("-inf"))
     rects, scores, valid, _ = extract_detections(
-        masked, alive.sum(dim=(1, 2)), level_id, offsets, inv_scales, window,
-        k)
+        masked, alive.sum(dim=(1, 2), dtype=torch.int32), level_id, offsets,
+        inv_scales, window, k)
     return rects, scores, valid
 
 

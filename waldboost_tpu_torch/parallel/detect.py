@@ -11,8 +11,9 @@ and ``make_bucket_detector_boxes`` (any frame size) come from
     canvas    octaves (S4), planes (B1), channel canvas (B2 grad_hist, B5
               FPGA) (canvas.py)
     cascade   frozen cascade, masked score map (kernel B3, ops/cascade_static.py)
-    extract   exact top-k (kernel S2, ops/nms.py::topk_masked), boxes and
-              greedy NMS (ops/nms.py::nms: kernel S3 on the card,
+    extract   exact top-k and its boxes (ops/nms.py::extract_detections:
+              one launch of kernel S2 with its box epilogue on the
+              card), greedy NMS (ops/nms.py::nms: kernel S3 on the card,
               nms_plain on the CPU)
 
 With ``two_phase=True`` (:class:`TwoPhaseDetector`) the cascade step is
